@@ -1,5 +1,5 @@
-"""YAML configuration: attribute dicts, `_BASE_CONFIG_` inheritance, and
-the det-only variant of a BtcDet config.
+"""YAML configuration: attribute dicts, `_BASE_CONFIG_` inheritance, the
+flagship config and its det-only variant.
 
 Own copy of the config layer of `btcdet_tpu/config.py`, so the reference
 YAML files under `tools/cfgs/` load unchanged.
@@ -127,6 +127,17 @@ def det_only(cfg):
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 FLAGSHIP_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_car.yaml"
+
+
+def flagship() -> EasyDict:
+    """The flagship `btcdet_kitti_car.yaml` as it stands, occupancy subnet
+    included, with the one ball-query selection the port has: the exact
+    first-in-point-order query of the reference (`ROI_HEAD.APPROX_QUERY`
+    False; the yaml leaves it unset, which the JAX package reads as its
+    approximate shared-candidate query)."""
+    cfg = cfg_from_yaml_file(FLAGSHIP_CFG)
+    cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
+    return cfg
 
 
 def flagship_det_only() -> EasyDict:

@@ -13,7 +13,7 @@
 //
 // Unlike the TPU kernel there are no fixed match windows, no 128-channel
 // limit and no tap padding: every match is found by a binary search over the
-// whole sorted input key table, so nothing is dropped.
+// whole sorted input key table (sparse_keys.cuh), so nothing is dropped.
 //
 // Design: one block of 256 threads per tile of 32 output rows. The block
 // first resolves the matches of all K taps for its rows (K*32 binary searches
@@ -32,19 +32,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sparse_keys.cuh"
+
 namespace {
 
 constexpr int NT = 256;    // threads per block
 constexpr int TM = 32;     // output rows per block
 constexpr int CK = 32;     // input channels per shared-memory chunk
-constexpr int KMAX = 27;   // most taps a kernel may have (3x3x3)
-
-struct Geom {
-  int kz, ky, kx;
-  int sz, sy, sx;
-  int pz, py, px;
-  int nz, ny, nx;  // input grid
-};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,25 +75,8 @@ __global__ void __launch_bounds__(NT) sparse_conv_kernel(
   for (int e = tid; e < K * TM; e += NT) {
     const int k = e / TM;
     const int r = e - k * TM;
-    const int dz = k / (g.ky * g.kx);
-    const int dy = (k / g.kx) % g.ky;
-    const int dx = k % g.kx;
-    const int b = s_coord[r][0];
-    int found = -1;
-    if (b >= 0) {
-      const int z = s_coord[r][1] * g.sz - g.pz + dz;
-      const int y = s_coord[r][2] * g.sy - g.py + dy;
-      const int x = s_coord[r][3] * g.sx - g.px + dx;
-      if (z >= 0 && z < g.nz && y >= 0 && y < g.ny && x >= 0 && x < g.nx) {
-        const int key = ((b * g.ny + y) * g.nz + z) * g.nx + x;
-        int lo = 0, hi = n_in;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (in_keys[mid] < key) lo = mid + 1; else hi = mid;
-        }
-        if (lo < n_in && in_keys[lo] == key) found = lo;
-      }
-    }
+    const int found = match_tap(g, s_coord[r][0], s_coord[r][1], s_coord[r][2], s_coord[r][3],
+                                k, in_keys, n_in);
     s_idx[k][r] = found;
     if (found >= 0) s_any[k] = 1;  // benign race: every writer stores 1
   }

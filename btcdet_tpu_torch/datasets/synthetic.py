@@ -1,4 +1,4 @@
-"""Synthetic KITTI-like batches (det-only counterpart of
+"""Synthetic KITTI-like batches (counterpart of
 `btcdet_tpu/datasets/synthetic.py`) and the numpy voxelizer they use.
 
 The numpy generator reproduces the JAX package's batch bit for bit for
@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import coords as coords_utils
 from ..utils.common import resolve_device
+
+# best-match point slots of a frame (the JAX generator's default)
+BM_POINTS = 2048
 
 
 def compute_grid_size(point_cloud_range, voxel_size) -> tuple[int, int, int]:
@@ -161,20 +165,30 @@ def _raycast_cloud(rng, boxes, pcr, num_points):
 
 def make_synthetic_batch_np(data_cfg, batch_size: int = 2, num_points: int = 16384,
                             num_gt: int = 10, seed: int = 0, mode: str = "train"):
-    """Numpy batch dict shaped like the real pipeline output (det keys)."""
+    """Numpy batch dict shaped like the real pipeline output. With
+    `DATA_CONFIG.OCC` and a sphere-voxel processor it also holds the
+    occupancy keys (`occ_voxels` / `occ_voxel_coords` /
+    `occ_voxel_num_points` from cylinder voxelization of the same points,
+    `rot_z`, `use_occ_prob`, `bm_points` / `bm_points_mask`) and the det
+    voxel keys under `det_*`."""
     rng = np.random.RandomState(seed)
     pcr = np.asarray(data_cfg.POINT_CLOUD_RANGE, np.float64)
-    det_cfg = None
+    det_cfg = occ_cfg = None
     for proc in data_cfg.DATA_PROCESSOR:
         if proc.NAME in ("det_transform_points_to_voxels", "transform_points_to_voxels"):
             det_cfg = proc
+        if proc.NAME == "transform_points_to_sphere_voxels":
+            occ_cfg = proc
     assert det_cfg is not None, "no det voxelization in DATA_PROCESSOR"
+    use_occ = data_cfg.get("OCC") is not None and occ_cfg is not None
     det_max_vox = int(det_cfg.MAX_NUMBER_OF_VOXELS[mode])
+    occ_max_vox = int(occ_cfg.MAX_NUMBER_OF_VOXELS[mode]) if use_occ else 0
 
     pts_list, det_v, det_c, det_n, gt_list, mirr_list = [], [], [], [], [], []
+    occ_v, occ_c, occ_n, bm_list, bm_mask_list = [], [], [], [], []
     for b in range(batch_size):
         boxes = _plant_boxes(rng, num_gt, pcr)
-        pts, _ = _raycast_cloud(rng, boxes, pcr, num_points)
+        pts, box_pts = _raycast_cloud(rng, boxes, pcr, num_points)
         inside = np.all(
             (pts[:, :3] >= pcr[:3] + 1e-3) & (pts[:, :3] <= pcr[3:6] - 1e-3), axis=1
         )
@@ -199,14 +213,44 @@ def make_synthetic_batch_np(data_cfg, batch_size: int = 2, num_points: int = 163
         gt_list.append(gt)
         mirr_list.append((gt[:, 7] > 0).astype(np.float32))
 
+        if use_occ:
+            occ_pcr = np.asarray(data_cfg.OCC.POINT_CLOUD_RANGE, np.float64)
+            vo, co, no = voxelize_np(
+                np.asarray(coords_utils.absxyz_to_cylinder(pts)), occ_pcr,
+                data_cfg.OCC.VOXEL_SIZE, int(occ_cfg.MAX_POINTS_PER_VOXEL), occ_max_vox,
+            )
+            occ_v.append(vo)
+            occ_c.append(np.concatenate([np.where(co[:, :1] >= 0, b, -1), co], axis=1))
+            occ_n.append(no)
+            # best-match points: the planted boxes' surface hits stand in
+            # for the offline best-match shapes
+            obj_pts = [p for p in box_pts if len(p)]
+            allobj = np.concatenate(obj_pts, axis=0)[:, :3] if obj_pts else np.zeros((0, 3))
+            k = min(len(allobj), BM_POINTS)
+            bm = np.zeros((BM_POINTS, 3), np.float32)
+            bm_m = np.zeros((BM_POINTS,), bool)
+            bm[:k] = allobj[:k]
+            bm_m[:k] = True
+            bm_list.append(bm)
+            bm_mask_list.append(bm_m)
+
     batch = {}
     batch["points"] = np.stack(pts_list)
     batch["points_mask"] = np.abs(batch["points"][..., :3]).sum(-1) > 0
-    batch["voxels"] = np.concatenate(det_v)
-    batch["voxel_coords"] = np.concatenate(det_c)
-    batch["voxel_num_points"] = np.concatenate(det_n)
+    pre = "det_" if use_occ else ""
+    batch[pre + "voxels"] = np.concatenate(det_v)
+    batch[pre + "voxel_coords"] = np.concatenate(det_c)
+    batch[pre + "voxel_num_points"] = np.concatenate(det_n)
     batch["gt_boxes"] = np.stack(gt_list)
     batch["box_mirr_flag"] = np.stack(mirr_list)
+    if use_occ:
+        batch["occ_voxels"] = np.concatenate(occ_v)
+        batch["occ_voxel_coords"] = np.concatenate(occ_c)
+        batch["occ_voxel_num_points"] = np.concatenate(occ_n)
+        batch["rot_z"] = np.zeros((batch_size,), np.float32)
+        batch["use_occ_prob"] = np.ones((batch_size,), bool)
+        batch["bm_points"] = np.stack(bm_list)
+        batch["bm_points_mask"] = np.stack(bm_mask_list)
     return batch
 
 

@@ -1,14 +1,16 @@
-"""BtcNet detector, det-only eval forward (counterpart of
+"""BtcNet detector, eval forward (counterpart of
 `btcdet_tpu/models/detectors/btcnet.py`, reference
 `btcdet/models/detectors/{btcnet.py, detector3d_template.py}`).
 
+    [occ subnet -> PassOccVox merge + OccVFE] (MODEL.OCC)
     vfe -> backbone_3d -> map_to_bev -> backbone_2d -> dense_head
         -> proposal NMS -> roi_head -> generate_predicted_boxes
 
-The modules sit under `det_modules`, so the state dict carries the
-reference BtcDet names (`det_modules.backbone_3d.conv1.0.weight`, ...).
-The occupancy subnet (`MODEL.OCC`) is not ported yet: a config with it
-is refused.
+The modules sit under `occ_modules` and `det_modules`, so the state dict
+carries the reference BtcDet names (`occ_modules.backbone_3d.conv1.0.0.weight`,
+`det_modules.backbone_3d.conv1.0.weight`, ...). Without `MODEL.OCC` (the
+det-only variant, `config.det_only`) the det path reads the batch's own
+voxel table through MeanVFE.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from ...ops import iou3d, sparse
 from ...utils.common import activation_dtype, resolve_device
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head
+from ..occ import occ_subnet
 from ..roi_heads import conv_head, roi_head_utils
 
 
 # stages of one eval forward + post-processing, in order
-STAGES = ("backbone_3d", "bev", "dense_head", "proposal_nms", "roi_head", "post_processing")
+STAGES = ("occ_subnet", "backbone_3d", "bev", "dense_head", "proposal_nms", "roi_head",
+          "post_processing")
 
 
 @contextlib.contextmanager
@@ -64,27 +68,35 @@ class BtcNet(nn.Module):
                  det_voxel_size, num_point_features: int = 4):
         super().__init__()
         mc = model_cfg
-        if mc.get("OCC") is not None:
-            raise NotImplementedError("the occupancy subnet (MODEL.OCC) is not ported; "
-                                      "use config.det_only(cfg)")
-        if mc.VFE.NAME != "MeanVFE":
-            raise NotImplementedError(f"VFE {mc.VFE.NAME}")
+        self.use_occ = mc.get("OCC") is not None
+        want_vfe = "OccVFE" if self.use_occ else "MeanVFE"
+        if mc.VFE.NAME != want_vfe:
+            raise NotImplementedError(f"VFE {mc.VFE.NAME} with MODEL.OCC "
+                                      f"{'set' if self.use_occ else 'unset'}")
         if data_cfg.get("CLAMP") is not None:
             raise NotImplementedError("DATA_CONFIG.CLAMP")
         bb = mc.BACKBONE_3D
-        if any(bb.get("OCC_CONV_EXECUTE", [])):
-            raise NotImplementedError("occ-code side branch of the 3D backbone")
         self.det_grid_size = tuple(int(v) for v in det_grid_size)
         self.class_names = tuple(class_names)
         self.vfe = vfe.MeanVFE()
         self.map_to_bev = map_to_bev.HeightCompression()
+        occ_code_num = 0
+        if self.use_occ:
+            # parameters under the reference names occ_modules.backbone_3d /
+            # occ_modules.occ_dense_head
+            self.occ_modules = occ_subnet.OccSubnet(mc.OCC, data_cfg, point_cloud_range,
+                                                    det_voxel_size, num_point_features)
+            occ_code_num = int(data_cfg.OCC.get("CODE_NUM_DIM", 2))
 
         det = nn.Module()
         channels = tuple(bb.get("CHANNELS", (16, 32, 64, 64, 128)))
         det.backbone_3d = backbones_3d.VoxelBackBone8xOcc(
-            input_channels=num_point_features, channels=channels,
+            input_channels=num_point_features + occ_code_num, channels=channels,
             out_feat_type=tuple(bb.get("OUT_FEAT_TYPE", ["None"] * 4 + ["big_bev_combine"])),
-            level_caps_eval=_level_caps_eval(bb))
+            level_caps_eval=_level_caps_eval(bb), occ_code_num=occ_code_num,
+            occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])),
+            occ_conv_exec=tuple(bb.get("OCC_CONV_EXECUTE", [])),
+            out_att=tuple(bb.get("OCC_ATT", [])))
         nz_bev = self._bev_depth(channels)
         b2 = mc.BACKBONE_2D
         det.backbone_2d = backbones_2d.BaseBEVBackbone(
@@ -104,6 +116,9 @@ class BtcNet(nn.Module):
         cg = rh.CONV_GRID_POOL
         xc = cg.CONV_LAYER.get("x_combine")
         raw = cg.CONV_LAYER.get("raw_points")
+        occp = cg.CONV_LAYER.get("occ_points")
+        if "occ_points" in cg.FEATURES_SOURCE and not self.use_occ:
+            raise NotImplementedError("ConvHead occ_points without MODEL.OCC")
         if bool(rh.get("APPROX_QUERY", True)):
             raise NotImplementedError("approximate ball queries; set ROI_HEAD.APPROX_QUERY False")
         cd = (torch.float32 if str(rh.get("COMPUTE_DTYPE", "bf16")) in ("f32", "fp32", "float32")
@@ -115,6 +130,9 @@ class BtcNet(nn.Module):
             point_rot=cg.get("POINT_ROT", False), features_source=tuple(cg.FEATURES_SOURCE),
             raw_mlps=tuple(tuple(m) for m in raw.MLPS), raw_radii=tuple(raw.POOL_RADIUS),
             raw_nsamples=tuple(raw.NSAMPLE), raw_feat_dim=num_point_features - 3,
+            **({} if occp is None else dict(
+                occ_mlps=tuple(tuple(m) for m in occp.MLPS), occ_radii=tuple(occp.POOL_RADIUS),
+                occ_nsamples=tuple(occp.NSAMPLE))),
             xc_part_scene=tuple(xc.PART_SCENE_SIZE), xc_ker_size=tuple(xc.KER_SIZE),
             xc_kernels=tuple(tuple(k) for k in xc.KERNEL),
             xc_paddings=tuple(tuple(p) for p in xc.PADDING),
@@ -138,18 +156,37 @@ class BtcNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: dict) -> dict:
-        """batch: points (B, P, 4), points_mask (B, P), voxels (NV, mp, 4),
-        voxel_coords (NV, 4) (b, z, y, x), voxel_num_points (NV,).
+        """batch: points (B, P, 4), points_mask (B, P), and the det voxel
+        table voxels (NV, mp, 4) / voxel_coords (NV, 4) (b, z, y, x) /
+        voxel_num_points (NV,) -- under `det_*` with MODEL.OCC, which also
+        reads occ_voxels / occ_voxel_coords / occ_voxel_num_points,
+        gt_boxes, box_mirr_flag, rot_z, use_occ_prob and bm_points(_mask).
         Returns the JAX package's eval keys and layouts. Each stage runs
         in `stage(name)` (STAGES)."""
         det = self.det_modules
         out = {}
         B = int(batch["points"].shape[0])
         nx, ny, nz = self.det_grid_size
+        occ_pts = occ_mask = occ_code = None
+        if self.use_occ:
+            with stage("occ_subnet", self.stage_ms):
+                occ_out = self.occ_modules(batch)
+            occ_pts, occ_mask = occ_out["occ_points"], occ_out["occ_points_mask"]
+            out["occ_probs"] = occ_out["probs"]
+            out["occ_points"], out["occ_points_mask"] = occ_pts, occ_mask
+            out["occ_pos_mask"] = occ_out["pos_mask"]
+            out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]
         with stage("backbone_3d", self.stage_ms):
-            voxel_features = self.vfe(batch["voxels"], batch["voxel_num_points"])
-            st = sparse.from_coords(voxel_features, batch["voxel_coords"], (nz + 1, ny, nx), B)
-            bb_out = det.backbone_3d(st)
+            if self.use_occ:
+                # the occ code rides the sort permutation as a per-row side table
+                st, occ_code = sparse.from_coords(
+                    occ_out["det_voxel_features"], occ_out["det_voxel_coords"],
+                    (nz + 1, ny, nx), B, aux=occ_out["det_occ_code"])
+            else:
+                voxel_features = self.vfe(batch["voxels"], batch["voxel_num_points"])
+                st = sparse.from_coords(voxel_features, batch["voxel_coords"], (nz + 1, ny, nx),
+                                        B)
+            bb_out = det.backbone_3d(st, occ_code)
         out["encoded_features"] = bb_out["encoded"].features
         out["nnz"] = {k: int(v.nnz) for k, v in bb_out.items() if v is not None}
         with stage("bev", self.stage_ms):
@@ -170,7 +207,9 @@ class BtcNet(nn.Module):
         with stage("roi_head", self.stage_ms):
             rcnn_cls, rcnn_reg = det.roi_head(
                 props.rois, props.roi_valid, pts[..., :3], pts[..., 3:], batch["points_mask"],
-                bb_out["x_combine"])
+                bb_out["x_combine"],
+                occ_xyz=None if occ_pts is None else occ_pts[..., :3],
+                occ_feat=None if occ_pts is None else occ_pts[..., 3:4], occ_mask=occ_mask)
             out["batch_cls_preds"], out["batch_box_preds"] = \
                 det.roi_head.generate_predicted_boxes(props.rois, rcnn_cls, rcnn_reg)
         out["rois"], out["roi_valid"] = props.rois, props.roi_valid

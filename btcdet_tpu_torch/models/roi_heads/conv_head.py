@@ -1,15 +1,17 @@
 """ConvHead, eval path (counterpart of `btcdet_tpu/models/roi_heads/conv_head.py`,
 reference `btcdet/models/roi_heads/conv_head.py`).
 
-Per roi, a grid of points inside the rotated box pools two feature
-sources (the det-only `FEATURES_SOURCE: [x_combine, raw_points]`):
+Per roi, a grid of points inside the rotated box pools up to three
+feature sources (the flagship's `FEATURES_SOURCE`):
   raw_points  multi-radius exact ball query + PointNet SA over the raw
               cloud, grouped offsets rotated into the roi frame;
+  occ_points  the same SA over the occ subnet's points, feature = prob;
   x_combine   a local mini-grid around each roi grid point samples the
               dense stride-8 `x_combine` volume with the trilinear
               sampler (kernel K4 on CUDA) and a small dense conv stack
               with sparse-site semantics reduces it to one vector.
-The pooled grid is flattened C-major (the reference layout its first FC
+The sources are concatenated raw | occ | x_combine per grid point, and
+the pooled grid is flattened C-major (the reference layout its first FC
 weights expect) and run through the shared / cls / reg FC trunks.
 """
 
@@ -24,6 +26,9 @@ from ...ops import cuda_interp, group_ops
 from ...ops.sparse import MaskedBatchNorm, SparseTensor
 from ...utils import common
 from ...utils.box_coder import ResidualCoder
+
+# the occ points' pooled feature: the occupancy probability
+OCC_FEAT_DIM = 1
 
 
 def get_dense_grid_points(rois, grid_size, dim_times: float = 1.0):
@@ -104,6 +109,7 @@ class ConvHead(nn.Module):
                  point_rot=True, features_source=("x_combine", "raw_points"),
                  raw_mlps=((16, 16),) * 4, raw_radii=(0.4, 0.8, 1.2, 2.4),
                  raw_nsamples=(16, 16, 32, 64), raw_feat_dim=1,
+                 occ_mlps=((16, 16),) * 3, occ_radii=(0.8, 1.2, 2.4), occ_nsamples=(16, 16, 32),
                  xc_part_scene=(-0.8, -0.8, -2.4, 0.8, 0.8, 2.4), xc_ker_size=(0.8, 0.4, 0.4),
                  xc_kernels=((3, 3, 3), (3, 3, 3), (2, 2, 3)),
                  xc_paddings=((1, 1, 1), (1, 1, 1), (0, 0, 0)),
@@ -113,7 +119,7 @@ class ConvHead(nn.Module):
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
                  det_voxel_size=(0.05, 0.05, 0.1), compute_dtype=None):
         super().__init__()
-        unknown = set(features_source) - {"x_combine", "raw_points"}
+        unknown = set(features_source) - {"x_combine", "raw_points", "occ_points"}
         if unknown:
             raise NotImplementedError(f"ConvHead feature sources {sorted(unknown)}")
         self.features_source = tuple(features_source)
@@ -134,6 +140,11 @@ class ConvHead(nn.Module):
                 radii=raw_radii, nsamples=raw_nsamples,
                 mlps=[[raw_feat_dim + 3, *m] for m in raw_mlps], dtype=compute_dtype)
             c_pool += sum(m[-1] for m in raw_mlps)
+        if "occ_points" in self.features_source:
+            self.SA_occpoints = group_ops.PointSAModuleMSG(
+                radii=occ_radii, nsamples=occ_nsamples,
+                mlps=[[OCC_FEAT_DIM + 3, *m] for m in occ_mlps], dtype=compute_dtype)
+            c_pool += sum(m[-1] for m in occ_mlps)
         if "x_combine" in self.features_source:
             self.xc_params = list(zip(xc_kernels, xc_strides, xc_paddings))
             layers = nn.ModuleList()
@@ -158,8 +169,10 @@ class ConvHead(nn.Module):
                   self.box_coder.code_size * num_class)
 
     def forward(self, rois, roi_valid, points_xyz, points_feat, points_mask,
-                x_combine: SparseTensor):
-        """Returns (rcnn_cls (B*N, num_class), rcnn_reg (B*N, 7))."""
+                x_combine: SparseTensor, occ_xyz=None, occ_feat=None, occ_mask=None):
+        """occ_*: the occ subnet's points (B, Q, 3), probs (B, Q, 1) and mask
+        (B, Q), pooled when `occ_points` is a feature source. Returns
+        (rcnn_cls (B*N, num_class), rcnn_reg (B*N, 7))."""
         B, N, _ = rois.shape
         G = self.grid_num
         cd = self.compute_dtype
@@ -176,6 +189,9 @@ class ConvHead(nn.Module):
         if "raw_points" in self.features_source:
             feats.append(self.SA_rawpoints(points_xyz, points_mask, new_xyz, new_mask,
                                            features=points_feat, rotate_matrix=rot))
+        if "occ_points" in self.features_source:
+            feats.append(self.SA_occpoints(occ_xyz, occ_mask, new_xyz, new_mask,
+                                           features=occ_feat, rotate_matrix=rot))
         if "x_combine" in self.features_source:
             feats.append(self._x_combine_pool(rois, roi_valid, grid_pts, x_combine))
         pooled = torch.cat([f.to(cd) for f in feats], dim=-1)             # (B, N*G, C)

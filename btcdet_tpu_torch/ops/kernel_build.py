@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-Each `csrc/*.cu` file has a plain C interface and is compiled by nvcc
-into its own shared library under `build/kernels/` at the repository
+Each `csrc/*.cu` file has a plain C interface (the `.cuh` headers beside
+them hold device code they share) and is compiled by nvcc into its own
+shared library under `build/kernels/` at the repository
 root, at first use, then loaded with ctypes. Nothing here runs when a
 module is imported: the CPU paths never need nvcc.
 """
@@ -38,9 +39,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its `.cu` or any shared `.cuh` header."""
     so = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    if not so.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def _start(name: str) -> subprocess.Popen:

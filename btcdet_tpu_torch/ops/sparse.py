@@ -6,7 +6,8 @@ rows come first. Strided convs generate their output sites by candidate
 expansion + sorted unique under a static per-frame capacity, with the
 same drop rule as the JAX engine when a capacity binds. The conv itself
 runs through `cuda_conv.sparse_conv` (kernel K1 on CUDA tensors, the
-rulebook + batched-matmul plain version on CPU tensors).
+rulebook + batched-matmul plain version on CPU tensors), the max-pool
+through `cuda_pool.sparse_pool` (kernel K2).
 
 `indice_key` semantics follow spconv: layers sharing a key reuse the
 cached output-site set.
@@ -21,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.common import activation_dtype
-from . import cuda_conv
+from . import cuda_conv, cuda_pool
 from .cuda_conv import INT32_MAX, triple
 
 
@@ -247,3 +248,29 @@ class SubMConv3d(_SparseConv):
 class SparseConv3d(_SparseConv):
     """Strided sparse conv: new output sites, capped at `frame_capacity`
     per frame (default: the input capacity) and cached under `indice_key`."""
+
+
+class SparseMaxPool3d(nn.Module):
+    """Strided sparse max-pool (spconv `SparseMaxPool3d`): per-channel max
+    over the matched inputs of each output site, 0 where none matched. Its
+    output sites are the set that an earlier strided conv cached under the
+    same `indice_key` (the flagship's occ_conv2 pools onto conv2's sites).
+    Runs through `cuda_pool.sparse_pool` (kernel K2 on CUDA tensors); no
+    parameters."""
+
+    def __init__(self, kernel_size, stride, padding, indice_key: str):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (triple(kernel_size), triple(stride),
+                                                       triple(padding))
+        self.indice_key = indice_key
+
+    def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
+        ck = ("sites", self.indice_key)
+        if ck not in cache:
+            raise RuntimeError(f"SparseMaxPool3d: no output sites cached under "
+                               f"{self.indice_key!r}; run the conv that makes them first")
+        keys, coords, nnz, out_shape = cache[ck]
+        out = cuda_pool.sparse_pool(st.features.float(), st.keys, coords, st.spatial_shape,
+                                    st.batch_size, self.kernel_size, self.stride, self.padding)
+        return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
+                            tuple(int(v) for v in out_shape), st.batch_size)

@@ -1,0 +1,134 @@
+"""Fused PassOccVox merge + OccVFE (counterpart of
+`btcdet_tpu/ops/voxelizer.py::merge_points_into_voxel_features`).
+
+The occ subnet's points are binned into the det voxel grid and merged
+into the det voxel table, and the merged table is reduced straight to the
+OccVFE features without ever being built. The JAX package reduces with a
+segmented scan over the key-sorted points; here a stable sort fixes the
+same kept set and index_add / scatter_reduce accumulate it, so counts,
+maxes and coords are exact and the sums differ from the JAX package's by
+float32 reassociation only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda_conv import INT32_MAX
+
+NEG = -3.0e38   # "no point" in the per-voxel max of the occ code
+
+
+def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_size, lo, vs,
+                                     extra: int, max_points: int, num_raw_features: int):
+    """Per frame: merge points `opts` into the det voxel table and reduce
+    the merged table with OccVFE.
+
+    dvox (B, Nd, Pd, Cd) det voxel point slots (slots past dnum zero);
+    dcoords (B, Nd, 4) (b, z, y, x) with each frame's rows key-sorted
+    valid-first (-1 padding); dnum (B, Nd); opts (B, K, C6) new points
+    (xyz, `num_raw_features - 3` more head channels, then the occ-code
+    tail); ovalid (B, K). grid_size (nx, ny, nz), lo / vs the det grid's
+    origin and voxel size, (3,) float32 tensors on the points' device.
+
+    Kept set (the JAX package's exactly): each point lands in the det
+    voxel of its clamped cell; within a cell points keep point order. A
+    point hitting a det voxel takes slot dnum + (its rank in the cell) and
+    is kept below `max_points`; cells no det voxel holds become new rows
+    in key order, at most `extra` of them a frame, each keeping its first
+    `max_points` points. Det points count as raw points with a zero
+    occ-code tail; a new point is an occ point when its last channel is
+    >= 0.05 (OccVFE's test).
+
+    Returns (features (B, Nd+extra, nrf+ncode), occ_code (B, Nd+extra,
+    ncode), num (B, Nd+extra), coords_zyx (B, Nd+extra, 3), row_valid
+    (B, Nd+extra)); rows [0, Nd) are the det rows, [Nd, Nd+extra) the new
+    ones."""
+    nxd, nyd, nzd = (int(v) for v in grid_size)
+    B, Nd, Pd, Cd = dvox.shape
+    K, C6 = opts.shape[1], opts.shape[2]
+    nrf = num_raw_features
+    ncode = C6 - nrf
+    assert Cd <= nrf + ncode and ncode >= 1
+    dev = opts.device
+    R = Nd + extra
+
+    dc = dcoords.long()
+    dvalid = dc[..., 0] >= 0
+    dkey = torch.where(dvalid, (dc[..., 1] * nyd + dc[..., 2]) * nxd + dc[..., 3],
+                       torch.full_like(dc[..., 0], INT32_MAX))
+    cell = torch.floor((opts[..., :3] - lo) / vs).long()
+    # out-of-range points are clamped into the edge voxels, not dropped
+    # (reference `trans_voxel_grid`)
+    cx, cy, cz = (cell[..., i].clamp(0, n - 1) for i, n in enumerate((nxd, nyd, nzd)))
+    okey = torch.where(ovalid, (cz * nyd + cy) * nxd + cx, torch.full_like(cx, INT32_MAX))
+
+    sk, order = torch.sort(okey, dim=1, stable=True)
+    sp = torch.gather(opts, 1, order[..., None].expand(B, K, C6))
+    pos = torch.arange(K, device=dev).expand(B, K)
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    slot = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), dim=1).values
+    live = sk != INT32_MAX
+
+    il = torch.searchsorted(dkey, sk).clamp(max=Nd - 1)
+    hit = (torch.gather(dkey, 1, il) == sk) & live
+    keep_h = hit & (torch.gather(dnum.long(), 1, il) + slot < max_points)
+    miss_head = live & ~hit & first
+    nrank = torch.cumsum(miss_head.long(), dim=1) - 1
+    keep_m = ~hit & live & (nrank >= 0) & (nrank < extra) & (slot < max_points)
+    kept = keep_h | keep_m
+
+    # destination row of every kept point, flattened over frames
+    frame = torch.arange(B, device=dev)[:, None] * R
+    dest = (frame + torch.where(hit, il, Nd + nrank))[kept]
+    pk = sp[kept]
+    is_occ = pk[:, -1] >= 0.05
+    head, tail = pk[:, :nrf], pk[:, nrf:]
+    zero = torch.zeros((), device=dev)
+    sum_raw = torch.zeros((B * R, nrf), device=dev).index_add_(
+        0, dest, torch.where(is_occ[:, None], zero, head))
+    sum_occ = torch.zeros((B * R, nrf), device=dev).index_add_(
+        0, dest, torch.where(is_occ[:, None], head, zero))
+    cnt_raw = torch.zeros(B * R, dtype=torch.long, device=dev).index_add_(
+        0, dest, (~is_occ).long())
+    cnt_occ = torch.zeros(B * R, dtype=torch.long, device=dev).index_add_(
+        0, dest, is_occ.long())
+    tail_max = torch.full((B * R, ncode), NEG, device=dev).scatter_reduce_(
+        0, dest[:, None].expand(-1, ncode), tail, reduce="amax")
+
+    # new rows' keys: the i-th missing cell of a frame (key order) is row Nd + i
+    new_head = miss_head & (nrank < extra)
+    ekey = torch.full((B * R,), INT32_MAX, dtype=torch.long, device=dev)
+    ekey[(frame + Nd + nrank)[new_head]] = sk[new_head]
+    ekey = ekey.reshape(B, R)[:, Nd:]
+    epad = ekey == INT32_MAX
+
+    # det-side contribution: every det point is raw with a zero tail
+    dn = dnum.long()
+    dmask = (torch.arange(Pd, device=dev) < dn[..., None]) & dvalid[..., None]
+    det_sum = torch.where(dmask[..., None], dvox[..., :nrf], zero).sum(dim=2)   # (B, Nd, nrf)
+    det_cnt = torch.where(dvalid, dn, torch.zeros_like(dn))
+    pad = torch.zeros((B, extra), dtype=torch.long, device=dev)
+    sum_raw = sum_raw.reshape(B, R, nrf) + torch.cat(
+        [det_sum, torch.zeros((B, extra, nrf), device=dev)], dim=1)
+    raw_n = cnt_raw.reshape(B, R) + torch.cat([det_cnt, pad], dim=1)
+    cnt_occ = cnt_occ.reshape(B, R)
+    tail_max = tail_max.reshape(B, R, ncode)
+    has_det_pt = torch.cat([det_cnt > 0, pad > 0], dim=1)
+    tail_max = torch.where(has_det_pt[..., None], tail_max.clamp(min=0.0), tail_max)
+    occ_code = torch.where(tail_max <= NEG / 2, zero, tail_max)
+
+    f_raw = sum_raw / raw_n[..., None].float().clamp(min=1.0)
+    f_occ = sum_occ.reshape(B, R, nrf) / cnt_occ[..., None].float().clamp(min=1.0)
+    occ_only = (cnt_occ > 0) & (raw_n < 1)
+    features = torch.cat([f_raw + occ_only[..., None].float() * f_occ, occ_code], dim=-1)
+
+    ez = ekey // (nyd * nxd)
+    ey = (ekey - ez * (nyd * nxd)) // nxd
+    ex = ekey - ez * (nyd * nxd) - ey * nxd
+    ecoords = torch.where(epad[..., None], torch.full_like(ekey[..., None], -1),
+                          torch.stack([ez, ey, ex], dim=-1))
+    coords_zyx = torch.cat([dc[..., 1:4], ecoords], dim=1).to(torch.int32)
+    row_valid = torch.cat([dvalid, ~epad], dim=1)
+    return features, occ_code, raw_n + cnt_occ, coords_zyx, row_valid

@@ -4,9 +4,9 @@ synthetic weights by name.
 `from_jax_variables` turns the JAX model's variables ({'params',
 'batch_stats'} trees of numpy arrays) into this port's state dict, whose
 keys are the reference BtcDet names (`det_modules.backbone_3d.conv1.0.weight`,
-...). It inverts the JAX package's reference import
-(`btcdet_tpu/train/ref_import.py`), restricted to the det-only modules:
-own inverted copies of its layout transforms live below.
+`occ_modules.backbone_3d.deconv4.0.0.weight`, ...). It inverts the JAX
+package's reference import (`btcdet_tpu/train/ref_import.py`): own
+inverted copies of its layout transforms live below.
 """
 
 from __future__ import annotations
@@ -29,6 +29,10 @@ _DET3D = {
     "squeezeBev": ("squeezeBev", 0),
 }
 _DET3D_KERNEL = {"conv_out": (3, 1, 1), "squeezeBev": (2, 1, 1)}
+# occ backbone: ours -> (reference block, sub-block); deconv*_0 are transpose convs
+_OCC3D = {"conv1": ("conv1", 0), "conv2_0": ("conv2", 0), "conv2_1": ("conv2", 1),
+          "conv3_0": ("conv3", 0), "conv3_1": ("conv3", 1), "deconv4_0": ("deconv4", 0),
+          "deconv4_1": ("deconv4", 1), "deconv5_0": ("deconv5", 0), "deconv5_1": ("deconv5", 1)}
 
 
 def synth_tensor(name: str, shape) -> np.ndarray:
@@ -64,6 +68,12 @@ def inv_sparse3d(w, kernel):
     """engine (K, ci, co), K row-major (dz, dy, dx) -> spconv (kz, ky, kx, ci, co)."""
     w = np.asarray(w)
     return w.reshape(*kernel, w.shape[-2], w.shape[-1])
+
+
+def inv_deconv3d(w):
+    """flax ConvTranspose (kz, ky, kx, ci, co), spatially flipped -> spconv
+    deconv (kz, ky, kx, ci, co)."""
+    return np.asarray(w)[::-1, ::-1, ::-1].copy()
 
 
 def inv_conv2d(w):
@@ -140,9 +150,28 @@ def _trunk_index(i: int, dp: bool, dropout_after) -> int:
     return sum(3 + (1 if dp and dropout_after(j) else 0) for j in range(i))
 
 
+def _occ_modules(sd, P, S):
+    """occ_subnet/* -> occ_modules.backbone_3d.* / occ_modules.occ_dense_head.*"""
+    pb, sb = P["occ_subnet"]["backbone_3d"], S["occ_subnet"]["backbone_3d"]
+    for ours, sub in pb.items():
+        ref, i = _OCC3D[ours]
+        base = f"occ_modules.backbone_3d.{ref}.{i}"
+        if "ConvTranspose_0" in sub:
+            sd[f"{base}.0.weight"] = inv_deconv3d(sub["ConvTranspose_0"]["kernel"])
+        else:
+            sd[f"{base}.0.weight"] = np.asarray(sub["Conv_0"]["kernel"])
+        _bn(sd, f"{base}.1", sub["_DenseBN_0"]["MaskedBatchNorm_0"],
+            sb[ours]["_DenseBN_0"]["MaskedBatchNorm_0"])
+    po = P["occ_subnet"]
+    sd["occ_modules.occ_dense_head.conv_cls.0.weight"] = po["conv_cls"]["kernel"]
+    sd["occ_modules.occ_dense_head.conv_cls.0.bias"] = po["conv_cls"]["bias"]
+    if "conv_res" in po:
+        sd["occ_modules.occ_dense_head.conv_res.0.weight"] = po["conv_res"]["kernel"]
+
+
 def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=None) -> dict:
-    """JAX det-only BtcNet variables -> this port's state dict (reference
-    names, `det_modules.` prefix, torch tensors).
+    """JAX BtcNet variables -> this port's state dict (reference names,
+    `occ_modules.` / `det_modules.` prefixes, torch tensors).
 
     `dp_ratio` is ROI_HEAD.DP_RATIO (dropout layers shift the reference
     FC indices); `layer_nums` is BACKBONE_2D.LAYER_NUMS, inferred from the
@@ -150,6 +179,8 @@ def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=Non
     P, S = variables_np["params"], variables_np.get("batch_stats", {})
     sd: dict = {}
     pre = "det_modules."
+    if "occ_subnet" in P:
+        _occ_modules(sd, P, S)
 
     p3, s3 = P["det_backbone_3d"], S["det_backbone_3d"]
     for ours, sub in p3.items():
@@ -191,15 +222,17 @@ def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=Non
     pr, sr = P["det_roi_head"], S["det_roi_head"]
     rh = f"{pre}roi_head."
     c_pool = 0
-    if "SA_rawpoints" in pr:
-        for mlp in _sorted_children(pr["SA_rawpoints"], "mlp_"):
+    for sa in ("SA_rawpoints", "SA_occpoints"):
+        if sa not in pr:
+            continue
+        for mlp in _sorted_children(pr[sa], "mlp_"):
             i = int(mlp[4:])
-            pm, sm = pr["SA_rawpoints"][mlp], sr["SA_rawpoints"][mlp]
+            pm, sm = pr[sa][mlp], sr[sa][mlp]
             dense = _sorted_children(pm, "Dense_")
             for d in dense:
                 k = int(d[6:])
-                sd[f"{rh}SA_rawpoints.mlps.{i}.{3 * k}.weight"] = inv_fc(pm[d]["kernel"], 4)
-                _bn(sd, f"{rh}SA_rawpoints.mlps.{i}.{3 * k + 1}", pm[f"MaskedBatchNorm_{k}"],
+                sd[f"{rh}{sa}.mlps.{i}.{3 * k}.weight"] = inv_fc(pm[d]["kernel"], 4)
+                _bn(sd, f"{rh}{sa}.mlps.{i}.{3 * k + 1}", pm[f"MaskedBatchNorm_{k}"],
                     sm[f"MaskedBatchNorm_{k}"])
             c_pool += pm[dense[-1]]["kernel"].shape[-1]
     xcs = _sorted_children(pr, "xc_conv_")

@@ -21,6 +21,7 @@ import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "btcdet_tpu"))
 print(len(names), "modules")
+print(" ".join(names))
 assert not bad, bad
 """
 
@@ -35,7 +36,11 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", _CHECK.format(repo=str(REPO))],
                        capture_output=True, text=True, env=_env(), cwd=str(REPO), timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 15
+    lines = r.stdout.splitlines()
+    assert int(lines[0].split()[0]) >= 33
+    for m in ("utils.coords", "models.occ.occ_targets", "models.occ.occ_subnet",
+              "ops.voxelizer", "ops.cuda_pool"):
+        assert f"btcdet_tpu_torch.{m}" in lines[1].split(), m
 
 
 def test_chip_smoke_fails_without_a_card():

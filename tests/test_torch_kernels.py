@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: K1 (`ops/cuda_conv.sparse_conv`) and K4
-(`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
+card: K1 (`ops/cuda_conv.sparse_conv`), K2 max (`ops/cuda_pool.sparse_pool`)
+and K4 (`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
 `python -m pytest tests/test_torch_kernels.py -m cuda`."""
 
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from btcdet_tpu_torch.ops import cuda_conv, cuda_interp
+from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 from btcdet_tpu_torch.ops import sparse as TS
 
 # kernel vs plain: the same products, summed in another order in f32
@@ -18,6 +18,9 @@ CONV_CASES = [  # kernel, stride, padding, Cin, Cout (the flagship backbone's sh
     (3, 1, 1, 4, 16), (3, 1, 1, 16, 16), (3, 2, 1, 16, 32), (3, 2, (0, 1, 1), 64, 64),
     ((3, 1, 1), (2, 1, 1), 0, 64, 128), ((2, 1, 1), (2, 1, 1), 0, 128, 64),
     (3, 1, 1, 256, 128), (3, 1, 1, 5, 24),
+    # the full config: conv1 on voxel features + occ code, conv2_combine_0
+    # on x_conv2 + the pooled occ code
+    (3, 1, 1, 6, 16), (3, 1, 1, 34, 32),
 ]
 
 
@@ -85,6 +88,37 @@ def test_trilinear_pool_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride,padding,cin,seed", [
+    (3, 2, 1, 2, 0), (3, 2, 1, 2, 1), (3, 2, (0, 1, 1), 5, 2), (2, 2, 0, 3, 3)])
+def test_sparse_pool_kernel_matches_plain(cuda, kernel, stride, padding, cin, seed):
+    """K2 max against its plain version: the same max over the same rows,
+    so bit for bit (tolerance 0)."""
+    st = _sparse_case(cuda, cin, seed=seed)
+    feats = st.features.abs() if seed % 2 else st.features     # occ codes are >= 0
+    _, coords, _, _ = TS.conv_output_sites(st, kernel, stride, padding, st.capacity)
+    args = (st.keys, coords, st.spatial_shape, st.batch_size, kernel, stride, padding)
+    n0 = cuda_pool.launches
+    out = cuda_pool.sparse_pool(feats, *args)
+    torch.cuda.synchronize()
+    assert cuda_pool.launches == n0 + 1
+    ref = cuda_pool.sparse_pool_plain(feats, st.keys, coords, st.spatial_shape, kernel, stride,
+                                      padding)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out, ref)
+    assert (out[coords[:, 0] < 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sparse_pool_kernel_on_all_padding_table(cuda):
+    keys = torch.full((256,), cuda_conv.INT32_MAX, dtype=torch.int32, device=cuda)
+    feats = torch.rand(256, 2, device=cuda)
+    coords = torch.full((300, 4), -1, dtype=torch.int32, device=cuda)
+    coords[:10] = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    out = cuda_pool.sparse_pool(feats, keys, coords, (9, 20, 20), 2, 3, 2, 1)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_bad_inputs(cuda):
     st = _sparse_case(cuda, 8, n=500)
     w = torch.zeros(27, 8, 16, device=cuda, dtype=torch.bfloat16)
@@ -93,6 +127,10 @@ def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         cuda_conv.sparse_conv(st.features, st.keys, st.coords, w.float()[:9], st.spatial_shape,
                               2, 3, 1, 1)
+    with pytest.raises(TypeError):
+        cuda_pool.sparse_pool(st.features.half(), st.keys, st.coords, st.spatial_shape, 2, 3, 2, 1)
+    with pytest.raises(TypeError):
+        cuda_pool.sparse_pool(st.features, st.keys.long(), st.coords, st.spatial_shape, 2, 3, 2, 1)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -104,6 +142,11 @@ def test_cpu_tensors_take_the_plain_version():
                                       2, 3, 1, 1)
     assert cuda_conv.launches == n0
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    n2 = cuda_pool.launches
+    out = cuda_pool.sparse_pool(st.features, st.keys, st.coords, st.spatial_shape, 2, 3, 2, 1)
+    assert cuda_pool.launches == n2
+    torch.testing.assert_close(out, cuda_pool.sparse_pool_plain(
+        st.features, st.keys, st.coords, st.spatial_shape, 3, 2, 1), rtol=0, atol=0)
     vol = torch.randn(1, 3, 8, 8, 4)
     zyx = torch.rand(2, 5, 3) * 8
     n1 = cuda_interp.launches

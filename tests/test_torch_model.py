@@ -1,58 +1,36 @@
-"""The whole det-only slice: the JAX BtcNet eval forward + post-processing
-against the PyTorch port on the same synthetic batch and the same
-weights (JAX init, BN moved off identity, carried across with
-`weights.from_jax_variables`). CPU, float32, exact ball queries."""
+"""The whole model: the JAX BtcNet eval forward + post-processing against
+the PyTorch port on the same synthetic batch and the same weights (JAX
+init, BN moved off identity, carried across with
+`weights.from_jax_variables`), for the full config (occ subnet on) and its
+det-only variant. CPU, float32, exact ball queries."""
 
 import numpy as np
 import pytest
-import torch
 
-from torch_parity import (assert_close, det_only_micro_cfgs, f32_mode, init_jax,
-                          perturb_variables)
+from torch_parity import assert_close, det_only_micro_cfgs, full_micro_run, run_both
 
 
-def _run_both(data_cfg, model_cfg, num_points, num_gt):
-    import jax
-    import jax.numpy as jnp
+def _parts(res):
+    return tuple(res[k] for k in ("ref", "ref_post", "out", "post", "missing"))
 
-    from btcdet_tpu.config import EasyDict as JaxEasyDict
-    from btcdet_tpu.datasets import make_synthetic_batch as jax_batch
-    from btcdet_tpu.models import build_network as jax_build
-    from btcdet_tpu.models.detectors.btcnet import post_processing as jax_post
+
+def _det_only(data_cfg, model_cfg):
+    from btcdet_tpu.config import EasyDict
 
     from btcdet_tpu_torch import config as tcfg
-    from btcdet_tpu_torch import weights
-    from btcdet_tpu_torch.models import build_network
-    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
 
-    cfg = tcfg.det_only(JaxEasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg}))
-    with f32_mode():
-        batch_np = jax_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
-                             num_gt=num_gt, seed=0, mode="test")
-        net = jax_build(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
-        variables = perturb_variables(init_jax(net, batch_np))
-        jb = {k: jnp.asarray(v) for k, v in batch_np.items()}
-        ref = jax.jit(lambda v, b: net.apply(v, b, train=False))(variables, jb)
-        ref_post = jax_post(ref, cfg.MODEL.POST_PROCESSING, 1)
-        ref = {k: np.asarray(v) for k, v in ref.items()}
-        ref_post = {k: np.asarray(v) for k, v in ref_post.items()}
-
-        tc = tcfg.EasyDict(cfg)
-        port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")
-        sd = weights.from_jax_variables(variables, dp_ratio=tc.MODEL.ROI_HEAD.DP_RATIO)
-        missing = port.load_state_dict(sd, strict=True)
-        tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch_np.items()}
-        out = port(tb)
-        post = post_processing(out, tc.MODEL.POST_PROCESSING, 1, device="cpu")
-    out = {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
-    post = {k: v.numpy() for k, v in post.items()}
-    return ref, ref_post, out, post, missing
+    return tcfg.det_only(EasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg}))
 
 
-@pytest.fixture(scope="module")
-def micro():
-    data_cfg, model_cfg = det_only_micro_cfgs()
-    return _run_both(data_cfg, model_cfg, num_points=2048, num_gt=4)
+@pytest.fixture(scope="module", params=["det_only", "full"])
+def micro(request):
+    """(ref, ref_post, out, post, missing) of `torch_parity.run_both`; the
+    full case is the run the occupancy tests share."""
+    if request.param == "full":
+        res = full_micro_run()
+    else:
+        res = run_both(_det_only(*det_only_micro_cfgs()), num_points=2048, num_gt=4)
+    return _parts(res)
 
 
 def test_weights_cover_the_port(micro):
@@ -101,15 +79,47 @@ def test_detections_match(micro):
     assert post["pred_valid"].any(), "the parity case should keep some detections"
 
 
+def test_occ_outputs_match(micro):
+    ref, _, out, _, _ = micro
+    assert sorted(k for k in out if k.startswith("occ_")) == sorted(
+        k for k in ref if k.startswith("occ_"))
+    if "occ_probs" not in ref:
+        return
+    assert_close(out["occ_probs"], ref["occ_probs"])
+    np.testing.assert_array_equal(out["occ_points_mask"], ref["occ_points_mask"])
+    assert out["occ_points_mask"].sum(1).min() > 0
+    assert_close(out["occ_points"], ref["occ_points"])
+    for k in ("occ_pos_mask", "occ_cls_mask"):
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+
+
 @pytest.mark.slow
 def test_mini_det_only_matches():
     """The mini det-only config (16 m scene, 0.1 m voxels)."""
     from btcdet_tpu.datasets.mini_config import mini_data_cfg, mini_model_cfg
 
-    ref, ref_post, out, post, _ = _run_both(mini_data_cfg(False), mini_model_cfg(False),
-                                            num_points=4096, num_gt=4)
+    ref, ref_post, out, post, _ = _parts(run_both(
+        _det_only(mini_data_cfg(False), mini_model_cfg(False)), num_points=4096, num_gt=4))
     for k in ("encoded_features", "spatial_features_2d", "rpn_box_preds", "rois",
               "batch_cls_preds", "batch_box_preds"):
+        assert_close(out[k], ref[k], err_msg=k)
+    np.testing.assert_array_equal(post["pred_valid"], ref_post["pred_valid"])
+    assert_close(post["pred_boxes"], ref_post["pred_boxes"])
+
+
+@pytest.mark.slow
+def test_mini_full_matches():
+    """The mini config with the occ subnet (16 m scene, 0.1 m voxels)."""
+    from btcdet_tpu.config import EasyDict
+    from btcdet_tpu.datasets.mini_config import mini_data_cfg, mini_model_cfg
+
+    model_cfg = mini_model_cfg(True)
+    model_cfg.ROI_HEAD.APPROX_QUERY = False
+    cfg = EasyDict({"DATA_CONFIG": mini_data_cfg(True), "MODEL": model_cfg})
+    ref, ref_post, out, post, _ = _parts(run_both(cfg, num_points=4096, num_gt=4))
+    np.testing.assert_array_equal(out["occ_points_mask"], ref["occ_points_mask"])
+    for k in ("occ_probs", "occ_points", "encoded_features", "spatial_features_2d",
+              "rpn_box_preds", "rois", "batch_cls_preds", "batch_box_preds"):
         assert_close(out[k], ref[k], err_msg=k)
     np.testing.assert_array_equal(post["pred_valid"], ref_post["pred_valid"])
     assert_close(post["pred_boxes"], ref_post["pred_boxes"])

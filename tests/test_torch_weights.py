@@ -1,7 +1,12 @@
 """Inputs and weights carried across: the port's synthetic batch equals the
-JAX package's bit for bit, `from_jax_variables` inverts the JAX
-package's reference import exactly, and the port's synthetic weights
-are the JAX package's golden ones."""
+JAX package's bit for bit (occupancy keys included), `from_jax_variables`
+inverts the JAX package's reference import exactly (occ subnet, deconv
+flip and SA_occpoints included), the flagship model's state dict is the
+reference BtcDet's, and the port's synthetic weights are the JAX
+package's golden ones."""
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,20 +19,32 @@ from btcdet_tpu.train import golden_synth, ref_import
 from btcdet_tpu_torch import config as tcfg
 from btcdet_tpu_torch import weights
 from btcdet_tpu_torch.datasets import make_synthetic_batch, make_synthetic_batch_np
-from torch_parity import det_only_micro_cfgs, f32_mode, init_jax, perturb_variables
+from torch_parity import (det_only_micro_cfgs, f32_mode, full_micro_cfgs, init_jax,
+                          perturb_variables)
+
+MANIFEST = Path(__file__).parent / "fixtures" / "reference_state_dict_manifest.json"
 
 
-def _flagship_det_only_data():
-    return tcfg.det_only(cfg_from_yaml_file(tcfg.FLAGSHIP_CFG)).DATA_CONFIG
+def _data_cfg(which):
+    if which == "micro":
+        return det_only_micro_cfgs()[0]
+    if which == "micro-occ":
+        return full_micro_cfgs()[0]
+    full = cfg_from_yaml_file(tcfg.FLAGSHIP_CFG)
+    return full.DATA_CONFIG if which == "flagship-occ" else tcfg.det_only(full).DATA_CONFIG
 
 
 @pytest.mark.parametrize("which,kw", [
     ("micro", dict(batch_size=2, num_points=2048, num_gt=4, seed=0, mode="test")),
     ("micro", dict(batch_size=3, num_points=3000, num_gt=6, seed=7, mode="train")),
     ("flagship", dict(batch_size=2, num_points=16384, num_gt=10, seed=1, mode="test")),
-], ids=["micro-test", "micro-train", "flagship-test"])
+    ("micro-occ", dict(batch_size=2, num_points=2048, num_gt=4, seed=0, mode="test")),
+    ("micro-occ", dict(batch_size=3, num_points=3000, num_gt=0, seed=7, mode="train")),
+    ("flagship-occ", dict(batch_size=2, num_points=16384, num_gt=10, seed=1, mode="test")),
+], ids=["micro-test", "micro-train", "flagship-test", "micro-occ-test", "micro-occ-train-nogt",
+        "flagship-occ-test"])
 def test_synthetic_batch_is_bit_identical(which, kw):
-    data_cfg = det_only_micro_cfgs()[0] if which == "micro" else _flagship_det_only_data()
+    data_cfg = _data_cfg(which)
     ref = jax_batch(data_cfg, **kw)
     out = make_synthetic_batch_np(tcfg.EasyDict(data_cfg), **kw)
     assert sorted(out) == sorted(ref)
@@ -58,14 +75,15 @@ def test_det_only_edits_the_flagship_config():
     assert ported.MODEL.ROI_HEAD.NMS_CONFIG == cfg.MODEL.ROI_HEAD.NMS_CONFIG
 
 
-@pytest.fixture(scope="module")
-def roundtrip_variables():
-    """A micro det-only model inside the reference import's assumptions:
-    128-channel conv_out (its BEV interleave width), two-layer cls / reg
-    heads (its FC index map)."""
+@pytest.fixture(scope="module", params=["det_only", "full"])
+def roundtrip_variables(request):
+    """A micro model (det-only, or full with the occ subnet) inside the
+    reference import's assumptions: 128-channel conv_out (its BEV
+    interleave width), two-layer cls / reg heads (its FC index map)."""
     from btcdet_tpu.models import build_network
 
-    data_cfg, model_cfg = det_only_micro_cfgs()
+    data_cfg, model_cfg = (full_micro_cfgs() if request.param == "full"
+                           else det_only_micro_cfgs())
     model_cfg.BACKBONE_3D.CHANNELS = [8, 8, 8, 8, 128]
     model_cfg.MAP_TO_BEV.NUM_BEV_FEATURES = 256
     model_cfg.ROI_HEAD.CLS_FC = [16, 16]
@@ -105,7 +123,35 @@ def test_from_jax_variables_loads_strictly(roundtrip_variables):
     sd = weights.from_jax_variables(v, dp_ratio=model_cfg.ROI_HEAD.DP_RATIO)
     res = port.load_state_dict(sd, strict=True)
     assert not res.missing_keys and not res.unexpected_keys
-    assert all(k.startswith("det_modules.") for k in sd)
+    prefixes = {k.split(".")[0] for k in sd}
+    assert prefixes == ({"det_modules", "occ_modules"} if "OCC" in model_cfg else {"det_modules"})
+    if "OCC" in model_cfg:
+        assert any(".SA_occpoints." in k for k in sd)
+        assert "occ_modules.backbone_3d.deconv5.0.0.weight" in sd
+
+
+def test_flagship_state_dict_is_the_reference_one():
+    """Every tensor of the reference BtcDet's flagship state dict (names
+    and shapes from the committed manifest) and nothing else, except the
+    reference's constant dilation kernel, which the port has no use for,
+    and its training step counter."""
+    from btcdet_tpu_torch.models import build_network
+
+    manifest = json.load(open(MANIFEST))
+    manifest.pop("occ_modules.occ_targets.fix_conv_2dzy.weight")
+    manifest.pop("global_step")
+    cfg = tcfg.flagship()
+    port = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu")
+    got = {k: list(v.shape) for k, v in port.state_dict().items()}
+    assert got.keys() == manifest.keys(), (sorted(got.keys() - manifest.keys())[:5],
+                                           sorted(manifest.keys() - got.keys())[:5])
+    for k, shape in manifest.items():
+        assert got[k] == list(shape), k
+    sd = weights.synth_state_dict(port)
+    np.testing.assert_array_equal(sd["occ_modules.backbone_3d.deconv4.0.0.weight"].numpy(),
+                                  golden_synth.synth_tensor(
+                                      "occ_modules.backbone_3d.deconv4.0.0.weight",
+                                      (3, 3, 3, 64, 32)))
 
 
 def _flatten(tree, prefix=()):

@@ -8,11 +8,13 @@ tests/test_golden_full.py does.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 # f32 stage tensors: sums run in a different order in the two packages
 RTOL = ATOL = 1e-4
@@ -42,6 +44,17 @@ def det_only_micro_cfgs(**roi_overrides):
     model_cfg.ROI_HEAD.APPROX_QUERY = False
     for k, v in roi_overrides.items():
         model_cfg.ROI_HEAD[k] = v
+    return data_cfg, model_cfg
+
+
+def full_micro_cfgs():
+    """The full micro config of the JAX package (occ subnet on, exact ball
+    queries)."""
+    from btcdet_tpu.datasets.mini_config import micro_data_cfg, micro_model_cfg
+
+    data_cfg = micro_data_cfg(with_occ=True)
+    model_cfg = micro_model_cfg(with_occ=True)
+    model_cfg.ROI_HEAD.APPROX_QUERY = False
     return data_cfg, model_cfg
 
 
@@ -89,6 +102,85 @@ def init_jax(net, batch_np):
             "dropout": jax.random.PRNGKey(2)}
     batch = {k: jnp.asarray(x) for k, x in batch_np.items()}
     return jax.jit(lambda b: net.init(rngs, b, train=False))(batch)
+
+
+def run_both(cfg, num_points: int, num_gt: int) -> dict:
+    """One JAX BtcNet eval forward + post-processing and the port's on the
+    same synthetic batch (seed 0, B=2) and the same weights (JAX init, BN
+    moved off identity, carried across with `weights.from_jax_variables`).
+    cfg: {"DATA_CONFIG", "MODEL"} of the JAX package.
+
+    With MODEL.OCC the occupancy bias moves off its logit(0.01) prior, so
+    random weights emit occ points, and the run also returns the occ
+    subnet's outputs (`ref_occ` / `occ`), the occ backbone's (volume,
+    mask) (`ref_bb` / `bb`, channels last) and `per_frame`, the det voxel
+    rows of a frame. Always: `ref` / `ref_post` (JAX outputs and
+    detections), `out` / `post` (the port's), `missing` (the port's
+    strict load_state_dict report). All arrays are numpy."""
+    from btcdet_tpu.datasets import make_synthetic_batch as jax_batch
+    from btcdet_tpu.models import build_network as jax_build
+    from btcdet_tpu.models.detectors.btcnet import post_processing as jax_post
+
+    from btcdet_tpu_torch import config as tcfg
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    use_occ = cfg.MODEL.get("OCC") is not None
+    res = {}
+    with f32_mode():
+        batch_np = jax_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
+                             num_gt=num_gt, seed=0, mode="test")
+        net = jax_build(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
+        variables = perturb_variables(init_jax(net, batch_np))
+        if use_occ:
+            cls = variables["params"]["occ_subnet"]["conv_cls"]
+            cls["bias"] = np.zeros_like(cls["bias"])
+        jb = {k: jnp.asarray(v) for k, v in batch_np.items()}
+
+        def run(v, b):
+            return net.apply(v, b, train=False, mutable=["intermediates"],
+                             capture_intermediates=lambda mdl, name: name == "__call__")
+        ref, inter = jax.jit(run)(variables, jb)
+        res["ref_post"] = to_np_tree(jax_post(ref, cfg.MODEL.POST_PROCESSING, 1))
+        res["ref"] = {k: np.asarray(v) for k, v in ref.items() if not isinstance(v, dict)}
+        if use_occ:
+            occ_node = inter["intermediates"]["occ_subnet"]
+            res["ref_occ"] = to_np_tree(occ_node["__call__"][0])
+            res["ref_bb"] = to_np_tree(occ_node["backbone_3d"]["__call__"][0])
+
+        tc = tcfg.EasyDict(cfg)
+        port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")
+        sd = weights.from_jax_variables(variables, dp_ratio=tc.MODEL.ROI_HEAD.DP_RATIO)
+        res["missing"] = port.load_state_dict(sd, strict=True)
+        tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch_np.items()}
+        seen = {}
+        hooks = [] if not use_occ else [
+            port.occ_modules.register_forward_hook(lambda m, i, o: seen.update(occ=o)),
+            port.occ_modules.backbone_3d.register_forward_hook(
+                lambda m, i, o: seen.update(bb=o))]
+        out = port(tb)
+        for h in hooks:
+            h.remove()
+        post = post_processing(out, tc.MODEL.POST_PROCESSING, 1, device="cpu")
+    res["out"] = {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+    res["post"] = {k: v.numpy() for k, v in post.items()}
+    if use_occ:
+        res["occ"] = {k: v.numpy() for k, v in seen["occ"].items() if v is not None}
+        x, m = seen["bb"]
+        res["bb"] = (x.permute(0, 2, 3, 4, 1).numpy(), m.numpy())
+        res["per_frame"] = batch_np["det_voxels"].shape[0] // 2
+    return res
+
+
+@functools.cache
+def full_micro_run() -> dict:
+    """`run_both` on the full micro config (2048 points, 4 boxes), once
+    per test process: the model and occupancy parity tests share it."""
+    from btcdet_tpu.config import EasyDict
+
+    data_cfg, model_cfg = full_micro_cfgs()
+    return run_both(EasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg}), 2048, 4)
 
 
 def assert_close(a, b, rtol=RTOL, atol=ATOL, err_msg=""):
