@@ -11,6 +11,13 @@
 // (b < 0) are 0. Submanifold convs are the case stride 1, pad k/2 with the
 // output sites equal to the input sites.
 //
+// The same kernel computes the df of a sparse conv's backward: for a
+// submanifold conv it runs over the same sites with tap-reversed,
+// transposed weights; for a strided conv in transpose-query mode
+// (`transpose` = 1, see sparse_keys.cuh) over the forward's output table
+// with per-tap transposed weights (pallas_conv.py subm_conv_bwd /
+// strided_conv_bwd).
+//
 // Unlike the TPU kernel there are no fixed match windows, no 128-channel
 // limit and no tap padding: every match is found by a binary search over the
 // whole sorted input key table (sparse_keys.cuh), so nothing is dropped.
@@ -154,18 +161,19 @@ int dispatch(int cout_p, const void* feats, const int* in_keys, int n_in,
 
 // features (n_in, cin) and weights (K, cin, cout) are float32 (is_bf16 = 0)
 // or bfloat16 (is_bf16 = 1); in_keys (n_in,) int32 ascending; out_coords
-// (n_out, 4) int32 (b, z, y, x); out (n_out, cout) float32. Launches on
+// (n_out, 4) int32 (b, z, y, x); out (n_out, cout) float32; transpose
+// selects the transpose-query mode (sparse_keys.cuh). Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sparse_conv_fwd(const void* feats, int is_bf16, const int* in_keys, int n_in,
                                const int* out_coords, int n_out, const void* weights,
                                float* out, int cin, int cout, int kz, int ky, int kx,
                                int sz, int sy, int sx, int pz, int py, int px, int nz,
-                               int ny, int nx, void* stream) {
+                               int ny, int nx, int transpose, void* stream) {
   if (n_out == 0) return 0;
   if (kz * ky * kx > KMAX || cin <= 0 || cout <= 0 || cout > 256) return (int)cudaErrorInvalidValue;
   int cout_p = 8;
   while (cout_p < cout) cout_p <<= 1;
-  const Geom g{kz, ky, kx, sz, sy, sx, pz, py, px, nz, ny, nx};
+  const Geom g{kz, ky, kx, sz, sy, sx, pz, py, px, nz, ny, nx, transpose};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(cout_p, feats, in_keys, n_in, out_coords, n_out, weights, out,

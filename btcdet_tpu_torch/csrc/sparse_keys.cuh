@@ -10,6 +10,13 @@
 // that site's key, found by a binary search over the whole table, or -1
 // when the site is off the input grid, the output row is padding (b < 0)
 // or no row holds the key.
+//
+// Transpose-query mode (Geom::transpose = 1, the df of a strided conv, K1
+// only): the table is the strided conv's OUTPUT table and the query sites
+// are its input sites; tap k of input site s reads the output site
+// (s + pad - (dz, dy, dx)) / stride, matched only where every component
+// divides exactly and is >= 0 (the JAX package's
+// `pallas_conv.qkeys_conv(transpose=True)`).
 
 #pragma once
 
@@ -23,8 +30,16 @@ struct Geom {
   int kz, ky, kx;
   int sz, sy, sx;
   int pz, py, px;
-  int nz, ny, nx;  // input grid
+  int nz, ny, nx;  // grid of the searched table
+  int transpose;   // 1: transpose-query mode (see above)
 };
+
+// Table coordinate of query coordinate c along one axis, or -1.
+__device__ __forceinline__ int tap_coord(const Geom& g, int c, int s, int p, int d) {
+  if (!g.transpose) return c * s - p + d;
+  const int num = c + p - d;
+  return (num >= 0 && num % s == 0) ? num / s : -1;
+}
 
 // First row of keys[0, n) not below `key` (keys ascending).
 __device__ __forceinline__ int key_lower_bound(const int* __restrict__ keys, int n, int key) {
@@ -43,9 +58,9 @@ __device__ __forceinline__ int match_tap(const Geom& g, int b, int z, int y, int
   const int dz = k / (g.ky * g.kx);
   const int dy = (k / g.kx) % g.ky;
   const int dx = k % g.kx;
-  const int iz = z * g.sz - g.pz + dz;
-  const int iy = y * g.sy - g.py + dy;
-  const int ix = x * g.sx - g.px + dx;
+  const int iz = tap_coord(g, z, g.sz, g.pz, dz);
+  const int iy = tap_coord(g, y, g.sy, g.py, dy);
+  const int ix = tap_coord(g, x, g.sx, g.px, dx);
   if (iz < 0 || iz >= g.nz || iy < 0 || iy >= g.ny || ix < 0 || ix >= g.nx) return -1;
   const int key = ((b * g.ny + iy) * g.nz + iz) * g.nx + ix;
   const int lo = key_lower_bound(in_keys, n_in, key);

@@ -63,7 +63,7 @@ extern "C" int sparse_maxpool_fwd(const float* feats, const int* in_keys, int n_
                                   int py, int px, int nz, int ny, int nx, void* stream) {
   if (n_out == 0) return 0;
   if (kz * ky * kx > KMAX || C <= 0) return (int)cudaErrorInvalidValue;
-  const Geom g{kz, ky, kx, sz, sy, sx, pz, py, px, nz, ny, nx};
+  const Geom g{kz, ky, kx, sz, sy, sx, pz, py, px, nz, ny, nx, 0};
   const dim3 grid((n_out + NT - 1) / NT);
   sparse_maxpool_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       feats, in_keys, n_in, out_coords, n_out, out, C, g);

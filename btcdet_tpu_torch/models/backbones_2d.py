@@ -12,6 +12,27 @@ import torch.nn as nn
 from ..utils.common import activation_dtype
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode moves the running variance towards the
+    BIASED batch variance, as flax's `nn.BatchNorm` (the JAX package's
+    `backbones_2d._BN`) does; torch's own BatchNorm2d uses the unbiased one.
+    Eval mode is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            mom = self.momentum
+            self.running_mean.mul_(1 - mom).add_(mom * mean.detach())
+            self.running_var.mul_(1 - mom).add_(mom * var.detach())
+            self.num_batches_tracked += 1
+        y = (xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        return y * self.weight[:, None, None] + self.bias[:, None, None]
+
+
 class BaseBEVBackbone(nn.Module):
     def __init__(self, input_channels, layer_nums, layer_strides, num_filters,
                  upsample_strides, num_upsample_filters):
@@ -22,10 +43,10 @@ class BaseBEVBackbone(nn.Module):
         for i, n in enumerate(layer_nums):
             layers = [nn.ZeroPad2d(1),
                       nn.Conv2d(c_in, num_filters[i], 3, layer_strides[i], padding=0, bias=False),
-                      nn.BatchNorm2d(num_filters[i], eps=1e-3, momentum=0.01), nn.ReLU()]
+                      BatchNorm2d(num_filters[i], eps=1e-3, momentum=0.01), nn.ReLU()]
             for _ in range(n):
                 layers += [nn.Conv2d(num_filters[i], num_filters[i], 3, padding=1, bias=False),
-                           nn.BatchNorm2d(num_filters[i], eps=1e-3, momentum=0.01), nn.ReLU()]
+                           BatchNorm2d(num_filters[i], eps=1e-3, momentum=0.01), nn.ReLU()]
             self.blocks.append(nn.Sequential(*layers))
             if i < len(upsample_strides):
                 s = upsample_strides[i]
@@ -34,7 +55,7 @@ class BaseBEVBackbone(nn.Module):
                 self.deblocks.append(nn.Sequential(
                     nn.ConvTranspose2d(num_filters[i], num_upsample_filters[i], int(s),
                                        stride=int(s), bias=False),
-                    nn.BatchNorm2d(num_upsample_filters[i], eps=1e-3, momentum=0.01),
+                    BatchNorm2d(num_upsample_filters[i], eps=1e-3, momentum=0.01),
                     nn.ReLU()))
             c_in = num_filters[i]
 

@@ -69,12 +69,13 @@ class VoxelBackBone8xOcc(nn.Module):
 
     def __init__(self, input_channels: int, channels=(16, 32, 64, 64, 128),
                  out_feat_type=("None", "None", "None", "None", "big_bev_combine"),
-                 level_caps_eval=None, occ_code_num: int = 0, occ_conv_type=(),
+                 level_caps=None, occ_code_num: int = 0, occ_conv_type=(),
                  occ_conv_exec=(), out_att=()):
         super().__init__()
         ch = list(channels)
         self.out_feat_type = tuple(out_feat_type)
-        self.level_caps_eval = tuple(level_caps_eval) if level_caps_eval else None
+        # {"train": per-frame caps or None, "test": ...}
+        self.level_caps = dict(level_caps or {})
         exec_ = [bool(e) for e in occ_conv_exec]
         if any(out_att):
             raise NotImplementedError("OCC_ATT attention blocks")
@@ -119,12 +120,15 @@ class VoxelBackBone8xOcc(nn.Module):
                                      blk(ch[3] * 2, ch[3] * 2, 3, indice_key="subm4"))
 
     def _cap(self, level: int):
-        """Per-frame eval capacity (LEVEL_CAPACITIES.test) of strided level
-        `level`, or None to inherit the input capacity."""
-        caps = self.level_caps_eval
-        if caps is None or level >= len(caps) or not caps[level]:
-            return None
-        return int(caps[level])
+        """(train, eval) per-frame capacities (LEVEL_CAPACITIES) of strided
+        level `level`; None inherits the input capacity. Train without its
+        own caps inherits, as in the JAX package."""
+        def pick(mode):
+            caps = self.level_caps.get(mode)
+            if caps is None or level >= len(caps) or not caps[level]:
+                return None
+            return int(caps[level])
+        return pick("train"), pick("test")
 
     def forward(self, st: sparse.SparseTensor, occ_code=None) -> dict:
         """occ_code: (N, occ_code_num) per-row side table of `st` (the

@@ -1,10 +1,15 @@
-"""BtcNet detector, eval forward (counterpart of
-`btcdet_tpu/models/detectors/btcnet.py`, reference
-`btcdet/models/detectors/{btcnet.py, detector3d_template.py}`).
+"""BtcNet detector (counterpart of `btcdet_tpu/models/detectors/btcnet.py`,
+reference `btcdet/models/detectors/{btcnet.py, detector3d_template.py}`).
 
     [occ subnet -> PassOccVox merge + OccVFE] (MODEL.OCC)
     vfe -> backbone_3d -> map_to_bev -> backbone_2d -> dense_head
         -> proposal NMS -> roi_head -> generate_predicted_boxes
+
+`net.eval()` runs the eval forward without a gradient; `net.train()` runs
+the train forward (train caps, batch-statistics BN, RPN target
+assignment, train NMS, roi sampling, dropout) and returns `loss` and
+`loss_dict` with the JAX package's key names. The random draws of a train
+forward come from the `torch.Generator` it is given.
 
 The modules sit under `occ_modules` and `det_modules`, so the state dict
 carries the reference BtcDet names (`occ_modules.backbone_3d.conv1.0.0.weight`,
@@ -54,12 +59,14 @@ def stage(name: str, times: dict | None = None):
         times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
-def _level_caps_eval(bb_cfg):
+def _level_caps(bb_cfg, mode: str):
+    """BACKBONE_3D.LEVEL_CAPACITIES for `mode` ("train" / "test"): a flat
+    list serves both; None inherits."""
     lc = bb_cfg.get("LEVEL_CAPACITIES")
     if not lc:
         return None
     if hasattr(lc, "get") and not isinstance(lc, (list, tuple)):
-        lc = lc.get("test")
+        lc = lc.get(mode)
     return tuple(int(c) for c in lc) if lc else None
 
 
@@ -93,7 +100,8 @@ class BtcNet(nn.Module):
         det.backbone_3d = backbones_3d.VoxelBackBone8xOcc(
             input_channels=num_point_features + occ_code_num, channels=channels,
             out_feat_type=tuple(bb.get("OUT_FEAT_TYPE", ["None"] * 4 + ["big_bev_combine"])),
-            level_caps_eval=_level_caps_eval(bb), occ_code_num=occ_code_num,
+            level_caps={m: _level_caps(bb, m) for m in ("train", "test")},
+            occ_code_num=occ_code_num,
             occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])),
             occ_conv_exec=tuple(bb.get("OCC_CONV_EXECUTE", [])),
             out_att=tuple(bb.get("OCC_ATT", [])))
@@ -104,14 +112,19 @@ class BtcNet(nn.Module):
             b2.UPSAMPLE_STRIDES, b2.NUM_UPSAMPLE_FILTERS)
         c2d = sum(b2.NUM_UPSAMPLE_FILTERS)
         dh = mc.DENSE_HEAD
-        anchors, _, per_loc = anchor_head.generate_anchors(
+        anchors, anchor_class, per_loc = anchor_head.generate_anchors(
             point_cloud_range, self.det_grid_size, dh.ANCHOR_GENERATOR_CONFIG)
+        lw = dh.LOSS_CONFIG.LOSS_WEIGHTS
         det.dense_head = anchor_head.AnchorHeadSingle(
             c2d, len(class_names), anchors, per_loc,
             use_direction_classifier=dh.get("USE_DIRECTION_CLASSIFIER", True),
             dir_offset=dh.get("DIR_OFFSET", 0.78539),
             dir_limit_offset=dh.get("DIR_LIMIT_OFFSET", 0.0),
-            num_dir_bins=dh.get("NUM_DIR_BINS", 2))
+            num_dir_bins=dh.get("NUM_DIR_BINS", 2), anchor_class=anchor_class,
+            matched_thresholds=[c["matched_threshold"] for c in dh.ANCHOR_GENERATOR_CONFIG],
+            unmatched_thresholds=[c["unmatched_threshold"] for c in dh.ANCHOR_GENERATOR_CONFIG],
+            cls_weight=lw["cls_weight"], loc_weight=lw["loc_weight"],
+            dir_weight=lw["dir_weight"], code_weights=lw["code_weights"])
         rh = mc.ROI_HEAD
         cg = rh.CONV_GRID_POOL
         xc = cg.CONV_LAYER.get("x_combine")
@@ -140,8 +153,29 @@ class BtcNet(nn.Module):
             xc_downsample=tuple(xc.DOWNSAMPLE_FACTOR), xc_scene_times=xc.get("SCENE_TIMES", 1.0),
             shared_fc=tuple(rh.SHARED_FC), cls_fc=tuple(rh.CLS_FC), reg_fc=tuple(rh.REG_FC),
             dp_ratio=rh.get("DP_RATIO", 0.0), point_cloud_range=tuple(point_cloud_range),
-            det_voxel_size=tuple(det_voxel_size), compute_dtype=cd)
+            det_voxel_size=tuple(det_voxel_size), compute_dtype=cd,
+            rcnn_cls_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_cls_weight"],
+            rcnn_reg_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_reg_weight"],
+            rcnn_corner_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_corner_weight"],
+            code_weights=tuple(rh.LOSS_CONFIG.LOSS_WEIGHTS["code_weights"]))
+        # train-only options the port refuses when a train step meets them
+        self.train_refusals = [k for k, on in (
+            ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT",
+             bool(dh.TARGET_ASSIGNER_CONFIG.get("MATCH_HEIGHT", False))),
+            ("ROI_HEAD.LOSS_CONFIG.CORNER_LOSS_REGULARIZATION False",
+             not rh.LOSS_CONFIG.get("CORNER_LOSS_REGULARIZATION", True))) if on]
+        self.nms_cfg_train = rh.NMS_CONFIG.TRAIN
         self.nms_cfg_test = rh.NMS_CONFIG.TEST
+        tc = rh.TARGET_CONFIG
+        self.target_cfg = dict(
+            roi_per_image=int(tc.ROI_PER_IMAGE), fg_ratio=float(tc.FG_RATIO),
+            reg_fg_thresh=float(tc.REG_FG_THRESH), cls_fg_thresh=float(tc.CLS_FG_THRESH),
+            cls_bg_thresh=float(tc.CLS_BG_THRESH), cls_bg_thresh_lo=float(tc.CLS_BG_THRESH_LO),
+            hard_bg_ratio=float(tc.HARD_BG_RATIO))
+        # per-frame gate on using the occ points at train (reference
+        # `btcnet.py:37-41`), drawn when the batch lacks `use_occ_prob`
+        occ_data = data_cfg.get("OCC")
+        self.useocc_percentage = float(occ_data.get("USEOCC_PERCENTAGE", 1.0)) if occ_data else 1.0
         self.det_modules = det
         self.stage_ms = None  # a dict here collects synchronised ms per stage
 
@@ -154,28 +188,45 @@ class BtcNet(nn.Module):
             nz = (nz + 2 * p - k) // s + 1
         return nz
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """batch: points (B, P, 4), points_mask (B, P), and the det voxel
         table voxels (NV, mp, 4) / voxel_coords (NV, 4) (b, z, y, x) /
         voxel_num_points (NV,) -- under `det_*` with MODEL.OCC, which also
         reads occ_voxels / occ_voxel_coords / occ_voxel_num_points,
         gt_boxes, box_mirr_flag, rot_z, use_occ_prob and bm_points(_mask).
-        Returns the JAX package's eval keys and layouts. Each stage runs
-        in `stage(name)` (STAGES)."""
+        Eval mode returns the JAX package's eval keys and layouts, without
+        a gradient. Train mode returns `loss`, `loss_dict` and the train
+        intermediates; `generator` draws its random numbers. Each stage
+        runs in `stage(name)` (STAGES)."""
+        if self.training:
+            if self.train_refusals:
+                raise NotImplementedError(f"train options not ported: {self.train_refusals}")
+            if generator is None:
+                raise ValueError("a train forward needs a torch.Generator")
+            return self._forward(batch, generator, train=True)
+        with torch.no_grad():
+            return self._forward(batch, None, train=False)
+
+    def _forward(self, batch, generator, train: bool) -> dict:
         det = self.det_modules
         out = {}
         B = int(batch["points"].shape[0])
         nx, ny, nz = self.det_grid_size
         occ_pts = occ_mask = occ_code = None
+        if self.use_occ and train and "use_occ_prob" not in batch:
+            batch = dict(batch, use_occ_prob=(draw_use_occ_prob(generator, B).to(
+                batch["points"].device) <= self.useocc_percentage))
         if self.use_occ:
             with stage("occ_subnet", self.stage_ms):
                 occ_out = self.occ_modules(batch)
             occ_pts, occ_mask = occ_out["occ_points"], occ_out["occ_points_mask"]
             out["occ_probs"] = occ_out["probs"]
             out["occ_points"], out["occ_points_mask"] = occ_pts, occ_mask
-            out["occ_pos_mask"] = occ_out["pos_mask"]
-            out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]
+            if train:
+                out["occ_loss"] = occ_out["loss"]
+            else:
+                out["occ_pos_mask"] = occ_out["pos_mask"]
+                out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]
         with stage("backbone_3d", self.stage_ms):
             if self.use_occ:
                 # the occ code rides the sort permutation as a per-row side table
@@ -195,27 +246,53 @@ class BtcNet(nn.Module):
         out["spatial_features_2d"] = spatial_2d.permute(0, 2, 3, 1)
         with stage("dense_head", self.stage_ms):
             head = det.dense_head(spatial_2d)
+            if train:
+                head.update(det.dense_head.assign_targets(batch["gt_boxes"]))
         out["rpn_cls_preds"] = head["cls_preds"]
         out["rpn_box_preds"] = head["batch_box_preds"]
-        nms = self.nms_cfg_test
+        nms = self.nms_cfg_train if train else self.nms_cfg_test
         with stage("proposal_nms", self.stage_ms):
             props = roi_head_utils.proposal_layer(
                 head["batch_box_preds"], head["cls_preds"],
                 nms_pre=int(nms["NMS_PRE_MAXSIZE"]), nms_post=int(nms["NMS_POST_MAXSIZE"]),
                 nms_thresh=float(nms["NMS_THRESH"]))
+            rois, roi_valid = props.rois, props.roi_valid
+            if train:
+                targets = roi_head_utils.assign_targets(generator, props, batch["gt_boxes"],
+                                                        **self.target_cfg)
+                rois, roi_valid = targets["rois"], targets["roi_valid"]
         pts = batch["points"]
         with stage("roi_head", self.stage_ms):
             rcnn_cls, rcnn_reg = det.roi_head(
-                props.rois, props.roi_valid, pts[..., :3], pts[..., 3:], batch["points_mask"],
+                rois, roi_valid, pts[..., :3], pts[..., 3:], batch["points_mask"],
                 bb_out["x_combine"],
                 occ_xyz=None if occ_pts is None else occ_pts[..., :3],
-                occ_feat=None if occ_pts is None else occ_pts[..., 3:4], occ_mask=occ_mask)
-            out["batch_cls_preds"], out["batch_box_preds"] = \
-                det.roi_head.generate_predicted_boxes(props.rois, rcnn_cls, rcnn_reg)
-        out["rois"], out["roi_valid"] = props.rois, props.roi_valid
+                occ_feat=None if occ_pts is None else occ_pts[..., 3:4], occ_mask=occ_mask,
+                generator=generator)
+            if not train:
+                out["batch_cls_preds"], out["batch_box_preds"] = \
+                    det.roi_head.generate_predicted_boxes(rois, rcnn_cls, rcnn_reg)
+        out["rois"], out["roi_valid"] = rois, roi_valid
         out["rcnn_cls"], out["rcnn_reg"] = rcnn_cls, rcnn_reg
-        out["roi_labels"] = props.roi_labels
+        if not train:
+            out["roi_labels"] = props.roi_labels
+            return out
+        out["rcnn_targets"] = targets
+        # the JAX package's `get_training_loss`: rpn + rcnn (+ occ)
+        total, losses = det.dense_head.get_loss(head)
+        rcnn_loss, rcnn_losses = det.roi_head.get_loss(rcnn_cls, rcnn_reg, targets)
+        total = total + rcnn_loss
+        losses.update(rcnn_losses)
+        if self.use_occ:
+            total = total + out["occ_loss"]
+            losses["occ_loss"] = out["occ_loss"]
+        out["loss"], out["loss_dict"] = total, losses
         return out
+
+
+def draw_use_occ_prob(generator: torch.Generator, B: int) -> torch.Tensor:
+    """(B,) uniforms in [0, 0.9999) of the train-time occ-point gate."""
+    return torch.rand((B,), generator=generator, device=generator.device) * 0.9999
 
 
 @torch.no_grad()
@@ -252,7 +329,8 @@ def _post_processing(out, post_cfg, dev):
 
 def build_network(model_cfg, data_cfg, class_names, device=None) -> BtcNet:
     """BtcNet from reference-schema configs, in eval mode on `device`
-    (CUDA unless the caller passes another)."""
+    (CUDA unless the caller passes another); `.train()` switches it to
+    the train forward."""
     dev = resolve_device(device)
     pcr = tuple(data_cfg.POINT_CLOUD_RANGE)
     det_vox = None

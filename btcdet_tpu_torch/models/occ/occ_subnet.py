@@ -1,10 +1,10 @@
-"""Occupancy subnet, eval forward (counterpart of
-`btcdet_tpu/models/occ/occ_subnet.py`, reference module topology
+"""Occupancy subnet (counterpart of `btcdet_tpu/models/occ/occ_subnet.py`,
+reference module topology
 occ_targets -> vfe -> backbone_3d -> occ_dense_head -> occ_pnt_update).
 
-  point chain  the occ voxels' points back to cartesian, the eval target
-               masks (`occ_targets.eval_targets`), the plain-mean occ VFE
-               scattered into the dense occ grid
+  point chain  the occ voxels' points back to cartesian, the target masks
+               (`occ_targets.make_targets`; the loss maps too at train),
+               the plain-mean occ VFE scattered into the dense occ grid
   backbone     `VoxelBackBoneDeconv` (dense masked conv3d on the grid)
   head         OccHead3D: 3x3x3 `conv_cls` (softmax occupancy) and
                `conv_res` (residuals); the probability is masked to
@@ -14,6 +14,12 @@ occ_targets -> vfe -> backbone_3d -> occ_dense_head -> occ_pnt_update).
 
 The selection uses the TRAIN `OCC_THRESH` at eval too, with the eval
 point cap: the reference's `EVAL_OCC_THRESH` quirk, kept on purpose.
+
+In train mode the forward also returns `loss` (softmax focal on the
+occupancy logits plus the residual smooth-L1, `_get_loss`); PassOccVox
+takes MAX_NUM_OCC_PNTS points and, under OCC_PNT_UPDATE.PASS_GRAD False,
+runs without a gradient (the JAX package's stop-gradient of the occ points
+and the merged det table).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 
 from ...datasets.synthetic import compute_grid_size
 from ...ops import voxelizer
-from ...utils import coords
+from ...utils import coords, loss_utils
 from .. import backbones_3d
 from . import occ_targets as T
 
@@ -73,7 +79,19 @@ class OccSubnet(nn.Module):
         self.spec = T.build_grid_spec(data_cfg)
         self.grid = T.GridTables(self.spec)
         self.occ_thresh = float(p.OCC_THRESH)
+        self.max_occ_pnts = int(p.MAX_NUM_OCC_PNTS)
         self.eval_max_occ_pnts = int(p.get("EVAL_MAX_NUM_OCC_PNTS", p.MAX_NUM_OCC_PNTS))
+        # train-only options the port refuses when a train step meets them
+        self.train_refusals = [k for k, on in (
+            ("OCC.DROPOUT_RATE", float(occ_d.get("DROPOUT_RATE", 0.0) or 0.0) > 1e-3),
+            ("PARAMS.REMAIN_PERCENTAGE", p.get("REMAIN_PERCENTAGE") is not None),
+            ("OCC_PNT_UPDATE.PASS_GRAD", bool(upd.get("PASS_GRAD", False))),
+            ("OCC_DENSE_HEAD.LOSS_CONFIG.CLS_LOSS_TYPE not softmax",
+             head.LOSS_CONFIG.get("CLS_LOSS_TYPE", "") != "softmax")) if on]
+        self.box_weight = float(occ_d.get("BOX_WEIGHT", 1.0))
+        lw = head.LOSS_CONFIG.LOSS_WEIGHTS
+        self.loss_weights = {k: float(v) for k, v in lw.items()
+                             if not isinstance(v, (list, tuple))}
         self.reg = bool(p.get("REG", False))
         self.res_num_dim = int(occ_d.get("RES_NUM_DIM", 3))
         self.code_num_dim = int(occ_d.get("CODE_NUM_DIM", 2))
@@ -95,12 +113,22 @@ class OccSubnet(nn.Module):
             dh.conv_res = nn.ModuleList([_HeadConv(channels[1], self.res_num_dim, False)])
         self.occ_dense_head = dh
 
-    @torch.no_grad()
     def forward(self, batch: dict) -> dict:
-        """Returns the eval target masks, `probs` (B, nz, ny, nx), `res_pred`,
-        `occ_points` (B, K, 4) xyz + prob / `occ_points_mask` (B, K), and the
+        """Returns the target masks, `probs` (B, nz, ny, nx), `res_pred`,
+        `occ_points` (B, K, 4) xyz + prob / `occ_points_mask` (B, K), the
         merged det table: `det_voxel_features` (B*(Nd/B+extra), 4 + code),
-        `det_occ_code`, `det_voxel_coords` (b, z, y, x), `det_voxel_num_points`."""
+        `det_occ_code`, `det_voxel_coords` (b, z, y, x), `det_voxel_num_points`;
+        in train mode also the loss maps and `loss`. Eval runs without a
+        gradient."""
+        if self.training:
+            if self.train_refusals:
+                raise NotImplementedError(f"occ subnet train options not ported: "
+                                          f"{self.train_refusals}")
+            return self._forward(batch, train=True)
+        with torch.no_grad():
+            return self._forward(batch, train=False)
+
+    def _forward(self, batch: dict, train: bool) -> dict:
         spec = self.spec
         nx, ny, nz = spec.grid_size
         vox = batch["occ_voxels"]
@@ -113,7 +141,8 @@ class OccSubnet(nn.Module):
         pts_abs = coords.occ_uvd_to_absxyz(vox[..., 0], vox[..., 1], vox[..., 2],
                                            spec.coord_type)
         occ_pnts = torch.cat([pts_abs, vox[..., 3:]], dim=-1)
-        out = T.eval_targets(self.grid, occ_pnts, slot, vc, batch)
+        out = T.make_targets(self.grid, occ_pnts, slot, vc, batch, train, self.loss_weights,
+                             self.box_weight)
 
         # occ VFE: plain mean of the cartesian points over the filled slots
         n = torch.where(cvalid, vn, torch.zeros_like(vn))
@@ -137,10 +166,34 @@ class OccSubnet(nn.Module):
         out["probs"] = prob * out["general_cls_loss_mask"].float()
         res_pred = dh.conv_res[0](x).permute(0, 2, 3, 4, 1) if self.reg else None
         out["res_pred"] = res_pred
-        self._pass_occ_vox(batch, out, out["probs"], res_pred, B)
+        if train:
+            out["loss"] = self._get_loss(logits, res_pred, out)
+        with torch.no_grad():
+            self._pass_occ_vox(batch, out, out["probs"], res_pred, B,
+                               self.max_occ_pnts if train else self.eval_max_occ_pnts)
         return out
 
-    def _pass_occ_vox(self, batch, out, masked_prob, res_pred, B):
+    def _get_loss(self, logits, res_pred, t):
+        """Occupancy loss (JAX `OccSubnet._get_loss`): softmax focal (the
+        only CLS_LOSS_TYPE the port trains) over the general cls mask weighted
+        by the cls weight map, plus the residual smooth-L1 over the reg mask."""
+        w = self.loss_weights
+        mask = t["general_cls_loss_mask"].float()
+        wf = t["general_cls_loss_mask_float"]
+        pos = t["pos_mask"].to(logits.dtype)
+        el = loss_utils.softmax_focal_loss(logits, torch.stack([1.0 - pos, pos], dim=-1),
+                                           alpha=1.0, gamma=2.0)
+        loss = (el * wf * mask).sum() / (wf * mask).sum().clamp(min=1.0)
+        loss = loss * w.get("occ_fore_cls_weight", 1.0)
+        if res_pred is not None:
+            rm = t["general_reg_loss_mask"].float()
+            rf = t["general_reg_loss_mask_float"]
+            rl = loss_utils.smooth_l1_loss(res_pred - t["res_mtrx"], beta=w.get("res_beta", 0.025))
+            rl = (rl.sum(-1) * rf * rm).sum() / (rf * rm).sum().clamp(min=1.0)
+            loss = loss + rl * w.get("occ_fore_res_weight", 0.1)
+        return loss
+
+    def _pass_occ_vox(self, batch, out, masked_prob, res_pred, B, K):
         spec = self.spec
         nx, ny, nz = spec.grid_size
         dev = masked_prob.device
@@ -153,7 +206,7 @@ class OccSubnet(nn.Module):
 
         flat = masked_prob.reshape(B, -1)
         sel = torch.where(flat > self.occ_thresh, flat, torch.zeros((), device=dev))
-        K = min(self.eval_max_occ_pnts, flat.shape[1])
+        K = min(K, flat.shape[1])
         # top-K with lax.top_k's order: values descending, ties by index
         top_prob, top_idx = torch.sort(sel, dim=1, descending=True, stable=True)
         top_prob, top_idx = top_prob[:, :K], top_idx[:, :K]

@@ -1,5 +1,5 @@
-"""Occupancy target masks of the eval forward (counterpart of
-`btcdet_tpu/models/occ/occ_targets.py`, reference
+"""Occupancy targets (counterpart of `btcdet_tpu/models/occ/occ_targets.py`
+and of `OccSubnet._make_targets` in `btcdet_tpu/models/occ/occ_subnet.py`, reference
 `btcdet/models/occ_pnt/occ_training_targets/{occ_targets_template.py,
 occ_targets_3d.py}`).
 
@@ -16,6 +16,11 @@ sensor frame):
               box's local y axis
   bm          best-match points inside the gt boxes
 
+At train `make_targets` adds the loss maps: the per-voxel residual
+targets (`scatter_mean_res` of the fore / mirror / bm points, minus the
+voxel centre), the `forebox` label (voxel centres inside a gt box, when
+BOX_WEIGHT != 1) and the cls / reg weight maps.
+
 The grid spec is built on the host in float64 exactly as the JAX
 package builds it, so both packages use the same sphere -> occ map.
 """
@@ -29,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...utils import box_utils, coords
+from ...utils import box_utils, common, coords
 
 
 class OccGridSpec(NamedTuple):
@@ -143,7 +148,8 @@ class GridTables(nn.Module):
     """The spec's constant tables as non-persistent buffers, so they follow
     the owning module's device and a forward copies nothing from the host:
     the occ and sphere grid origins / extents / voxel sizes / last cells,
-    the sphere -> occ cell map (int64) and the occ cell centres' z."""
+    the sphere -> occ cell map (int64) and the occ cell centres (sensor
+    frame, cartesian) and their z."""
 
     def __init__(self, spec: OccGridSpec):
         super().__init__()
@@ -158,6 +164,7 @@ class GridTables(nn.Module):
                 ("sphere_vs", torch.tensor(spec.sphere_voxel_size, dtype=torch.float32)),
                 ("sphere_hi", torch.tensor([snx - 1, sny - 1, snz - 1])),
                 ("sphere_map", torch.from_numpy(spec.sphere_to_grid_map.astype(np.int64))),
+                ("centers", torch.from_numpy(spec.voxel_centers_xyz.copy())),
                 ("centers_z", torch.from_numpy(spec.voxel_centers_xyz[..., 2].copy()))):
             self.register_buffer(name, val, persistent=False)
 
@@ -172,6 +179,34 @@ def scatter_mask(coords_bzyx, valid, batch_size: int, grid):
     out = torch.zeros(batch_size * ncell + 1, dtype=torch.bool, device=c.device)
     out[idx] = True
     return out[:-1].reshape(batch_size, nz, ny, nx)
+
+
+def scatter_mean_res(points_xyz, coords_bzyx, valid, centers_xyz, batch_size: int, grid):
+    """Per-voxel mean of the contributing points minus the voxel centre
+    (reference `get_mean_res`): (B, nz, ny, nx, 3), 0 where no point
+    falls. centers_xyz (B, nz, ny, nx, 3)."""
+    nx, ny, nz = grid
+    ncell = nz * ny * nx
+    c = coords_bzyx.long()
+    lin = (c[:, 1] * ny + c[:, 2]) * nx + c[:, 3]
+    idx = torch.where(valid, c[:, 0] * ncell + lin, torch.full_like(lin, batch_size * ncell))
+    acc = torch.zeros((batch_size * ncell + 1, 3), device=points_xyz.device)
+    acc.index_add_(0, idx, torch.where(valid[:, None], points_xyz, torch.zeros((), device=acc.device)))
+    cnt = torch.zeros((batch_size * ncell + 1,), device=points_xyz.device)
+    cnt.index_add_(0, idx, valid.float())
+    mean = (acc[:-1] / cnt[:-1, None].clamp(min=1.0)).reshape(batch_size, nz, ny, nx, 3)
+    has = (cnt[:-1] > 0).reshape(batch_size, nz, ny, nx)
+    return torch.where(has[..., None], mean - centers_xyz, torch.zeros((), device=acc.device))
+
+
+def centers_world(tab: GridTables, rot_z) -> torch.Tensor:
+    """Occ voxel centres in each frame's world frame (rotated by rot_z
+    degrees): (B, nz, ny, nx, 3)."""
+    c = tab.centers
+    B = rot_z.shape[0]
+    flat = c.reshape(1, -1, 3).expand(B, -1, 3)
+    return common.rotate_points_along_z(flat, rot_z * (np.pi / 180.0)).reshape(
+        (B,) + tuple(c.shape))
 
 
 def dilate_predict_area(mask, dist_kern, concede_x: int):
@@ -317,10 +352,12 @@ def points_in_gt_blocked(points_xyz, valid, gt_boxes, gt_valid, batch_size: int)
     return (hit.any(dim=-1) & valid.reshape(batch_size, -1)).reshape(n)
 
 
-def eval_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch):
-    """The eval-time target masks of the occ subnet (JAX
-    `OccSubnet._make_targets` at eval). occ_pnts (N, P, 3+) world-frame
-    cartesian voxel points, slot_mask (N, P), vcoords (N, 4)."""
+def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bool = False,
+                 weights=None, box_weight: float = 1.0):
+    """The occ subnet's targets (JAX `OccSubnet._make_targets`, no voxel
+    dropout). occ_pnts (N, P, 3+) world-frame cartesian voxel points,
+    slot_mask (N, P), vcoords (N, 4). At train, `weights` are the
+    OCC_DENSE_HEAD loss weights and `box_weight` DATA_CONFIG.OCC.BOX_WEIGHT."""
     spec = tab.spec
     nx, ny, nz = spec.grid_size
     grid = (nx, ny, nz)
@@ -351,12 +388,15 @@ def eval_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch):
     fore_p, mirr_pts, mirr_val = mirror_points_in_boxes_blocked(
         pts, pvalid, gt_boxes, gt_valid, mirr_flag, B)
     fore_mask = scatter_mask(pcoords, fore_p, B, grid)
+    cw = centers_world(tab, rot_z) if train else None
 
     mirr_cell, mirr_inr = points_to_grid_coords(
         world_to_occ_coords(mirr_pts, rot_z[pb], spec), tab)
     mirr_coords = torch.cat([pb[:, None], mirr_cell.flip(-1)], dim=1)
-    mirr_mask = scatter_mask(mirr_coords, mirr_val & mirr_inr, B, grid) & ~voxelwise
+    mirr_ok = mirr_val & mirr_inr
+    mirr_mask = scatter_mask(mirr_coords, mirr_ok, B, grid) & ~voxelwise
 
+    bm_res = None
     bm_pts = batch.get("bm_points")
     if bm_pts is not None:
         Nbm = bm_pts.shape[1]
@@ -366,13 +406,19 @@ def eval_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch):
                                      gt_valid, B)
         bm_cell, bm_inr = points_to_grid_coords(world_to_occ_coords(bmp, rot_z[bmb], spec), tab)
         bm_coords = torch.cat([bmb[:, None], bm_cell.flip(-1)], dim=1)
-        bm_mask = scatter_mask(bm_coords, in_gt & bm_inr, B, grid) & ~voxelwise & ~mirr_mask
+        bm_ok = in_gt & bm_inr
+        excl = ~voxelwise & ~mirr_mask
+        bm_mask = scatter_mask(bm_coords, bm_ok, B, grid) & excl
+        if train:
+            bm_res = scatter_mean_res(bmp, bm_coords, bm_ok, cw, B, grid) * excl[..., None]
     else:
         bm_mask = torch.zeros_like(voxelwise)
 
     general_cls = vcc & occluded
-    pos = (fore_mask | mirr_mask | bm_mask) & general_cls
-    return {
+    fore_cls, mirr_cls, bm_cls = fore_mask & general_cls, mirr_mask & general_cls, \
+        bm_mask & general_cls
+    pos = fore_cls | mirr_cls | bm_cls
+    out = {
         "voxelwise_mask": voxelwise,
         "vcc_mask": vcc,
         "occ_voxelwise_mask": occluded,
@@ -380,5 +426,34 @@ def eval_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch):
         "mirr_voxelwise_mask": mirr_mask,
         "bm_voxelwise_mask": bm_mask,
         "pos_mask": pos,
+        "neg_mask": general_cls & ~pos,
         "general_cls_loss_mask": general_cls,
     }
+    if not train:
+        return out
+
+    w = weights
+    neg = out["neg_mask"]
+    cls_f = (fore_cls * w["occ_fore_cls_weight"] + mirr_cls * w["occ_mirr_cls_weight"]
+             + bm_cls * w["occ_bm_cls_weight"] + neg * w["occ_neg_cls_weight"]).float()
+    forebox = None
+    if box_weight != 1.0:
+        hit = box_utils.points_in_boxes_mask(cw.reshape(B, -1, 3), gt_boxes[..., :7])
+        forebox = (hit & gt_valid[:, None, :]).any(-1).reshape(voxelwise.shape)
+        cls_f = cls_f + (neg & forebox) * (box_weight - w["occ_neg_cls_weight"])
+    reg_f = (fore_cls * w.get("occ_fore_res_weight", 0.1)
+             + mirr_cls * w.get("occ_mirr_res_weight", 0.1)
+             + bm_cls * w.get("occ_bm_res_weight", 0.1)).float()
+    reg_m = reg_f > 0
+    fore_res = scatter_mean_res(pts, pcoords, fore_p, cw, B, grid)
+    mirr_res = scatter_mean_res(mirr_pts, mirr_coords, mirr_ok, cw, B, grid) \
+        * (~voxelwise)[..., None]
+    res = fore_res + mirr_res if bm_res is None else fore_res + mirr_res + bm_res
+    out.update({
+        "general_cls_loss_mask_float": cls_f,
+        "general_reg_loss_mask": reg_m,
+        "general_reg_loss_mask_float": reg_f,
+        "res_mtrx": res * reg_m[..., None],
+        "forebox_label": forebox,
+    })
+    return out

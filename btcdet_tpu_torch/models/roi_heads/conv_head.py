@@ -1,4 +1,4 @@
-"""ConvHead, eval path (counterpart of `btcdet_tpu/models/roi_heads/conv_head.py`,
+"""ConvHead (counterpart of `btcdet_tpu/models/roi_heads/conv_head.py`,
 reference `btcdet/models/roi_heads/conv_head.py`).
 
 Per roi, a grid of points inside the rotated box pools up to three
@@ -12,7 +12,11 @@ feature sources (the flagship's `FEATURES_SOURCE`):
               with sparse-site semantics reduces it to one vector.
 The sources are concatenated raw | occ | x_combine per grid point, and
 the pooled grid is flattened C-major (the reference layout its first FC
-weights expect) and run through the shared / cls / reg FC trunks.
+weights expect) and run through the shared / cls / reg FC trunks. In
+train mode the trunks' BNs use batch statistics, dropout at DP_RATIO
+draws its masks through `draw_dropout_keep`, and `get_loss` gives the
+BCE cls, smooth-L1 reg and corner losses
+(reference `roi_head_template.py:134-198`).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 
 from ...ops import cuda_interp, group_ops
 from ...ops.sparse import MaskedBatchNorm, SparseTensor
-from ...utils import common
+from ...utils import common, loss_utils
 from ...utils.box_coder import ResidualCoder
 
 # the occ points' pooled feature: the occupancy probability
@@ -82,14 +86,24 @@ def _fc_trunk(module: nn.Module, fcs, cin, dp_ratio, dropout_after, out_dim=None
             n += 1
         cin = c
     if out_dim is not None:
-        module.add_module(str(n), nn.Conv1d(cin, out_dim, 1, bias=True))
+        final = nn.Conv1d(cin, out_dim, 1, bias=True)
+        # the JAX package's init of the output projections
+        nn.init.normal_(final.weight, std=0.001)
+        nn.init.zeros_(final.bias)
+        module.add_module(str(n), final)
         cin = out_dim
     return cin
 
 
-def _run_trunk(module: nn.Module, x, mask, dtype):
+def draw_dropout_keep(generator: torch.Generator, shape, keep_prob: float) -> torch.Tensor:
+    """Bernoulli(keep_prob) keep mask of a dropout layer."""
+    return torch.rand(shape, generator=generator, device=generator.device) < keep_prob
+
+
+def _run_trunk(module: nn.Module, x, mask, dtype, generator=None):
     """x (R, C) through a `_fc_trunk` module: hidden layers in `dtype`
-    (BN in f32, masked by roi validity), the final projection in f32."""
+    (BN in f32, masked by roi validity), the final projection in f32;
+    dropout in train mode only, its masks drawn from `generator`."""
     children = list(module.children())
     for i, m in enumerate(children):
         if isinstance(m, nn.Conv1d):
@@ -101,6 +115,12 @@ def _run_trunk(module: nn.Module, x, mask, dtype):
             x = m(x, mask)
         elif isinstance(m, nn.ReLU):
             x = torch.relu(x)
+        elif isinstance(m, nn.Dropout) and m.training:
+            if generator is None:
+                raise ValueError("ConvHead dropout at train needs a torch.Generator")
+            keep = draw_dropout_keep(generator, x.shape, 1.0 - m.p).to(x.device)
+            x = torch.where(keep, x / (1.0 - m.p), torch.zeros((), dtype=x.dtype,
+                                                               device=x.device))
     return x
 
 
@@ -117,8 +137,12 @@ class ConvHead(nn.Module):
                  xc_channels=(128, 128, 128, 128), xc_downsample=(8, 8, 8), xc_scene_times=1.0,
                  shared_fc=(256, 128), cls_fc=(128, 64), reg_fc=(128, 64), dp_ratio=0.3,
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
-                 det_voxel_size=(0.05, 0.05, 0.1), compute_dtype=None):
+                 det_voxel_size=(0.05, 0.05, 0.1), compute_dtype=None, rcnn_cls_weight=1.0,
+                 rcnn_reg_weight=1.0, rcnn_corner_weight=1.0, code_weights=(1.0,) * 7):
         super().__init__()
+        self.loss_weights = (float(rcnn_cls_weight), float(rcnn_reg_weight),
+                             float(rcnn_corner_weight))
+        self.code_weights = tuple(float(v) for v in code_weights)
         unknown = set(features_source) - {"x_combine", "raw_points", "occ_points"}
         if unknown:
             raise NotImplementedError(f"ConvHead feature sources {sorted(unknown)}")
@@ -169,10 +193,12 @@ class ConvHead(nn.Module):
                   self.box_coder.code_size * num_class)
 
     def forward(self, rois, roi_valid, points_xyz, points_feat, points_mask,
-                x_combine: SparseTensor, occ_xyz=None, occ_feat=None, occ_mask=None):
+                x_combine: SparseTensor, occ_xyz=None, occ_feat=None, occ_mask=None,
+                generator=None):
         """occ_*: the occ subnet's points (B, Q, 3), probs (B, Q, 1) and mask
-        (B, Q), pooled when `occ_points` is a feature source. Returns
-        (rcnn_cls (B*N, num_class), rcnn_reg (B*N, 7))."""
+        (B, Q), pooled when `occ_points` is a feature source; `generator`
+        draws the dropout masks in train mode. Returns (rcnn_cls (B*N,
+        num_class), rcnn_reg (B*N, 7))."""
         B, N, _ = rois.shape
         G = self.grid_num
         cd = self.compute_dtype
@@ -199,9 +225,9 @@ class ConvHead(nn.Module):
         # reference flatten: C-major (channel c of grid point g at c*G + g)
         flat = pooled.reshape(B * N, G, C).permute(0, 2, 1).reshape(B * N, C * G)
         mask = roi_valid.reshape(B * N)
-        h = _run_trunk(self.shared_fc_layer, flat, mask, cd)
-        rcnn_cls = _run_trunk(self.cls_layers, h, mask, cd)
-        rcnn_reg = _run_trunk(self.reg_layers, h, mask, cd)
+        h = _run_trunk(self.shared_fc_layer, flat, mask, cd, generator)
+        rcnn_cls = _run_trunk(self.cls_layers, h, mask, cd, generator)
+        rcnn_reg = _run_trunk(self.reg_layers, h, mask, cd, generator)
         return rcnn_cls, rcnn_reg
 
     def _conv_stack(self, g, m):
@@ -244,25 +270,50 @@ class ConvHead(nn.Module):
         roi_b = torch.arange(B, device=dev).repeat_interleave(N)
         val = roi_valid.reshape(R)[:, None].expand(R, S)
         volume = x_combine.dense().to(self.compute_dtype)                   # (B, D, H, W, C)
-        sampled = cuda_interp.trilinear_pool(volume, zyx, roi_b, val)       # (R, S, C) f32
+        sampled = cuda_interp.TrilinearPoolFunction.apply(volume, zyx, roi_b, val)  # (R, S, C)
         C = sampled.shape[-1]
         g = sampled.to(self.compute_dtype).reshape(R * G, lz, ly, lx, C).permute(0, 4, 1, 2, 3)
         m = roi_valid.reshape(R)[:, None].expand(R, G).reshape(-1)
         g = self._conv_stack(g, m)
         return g.permute(0, 2, 3, 4, 1).reshape(B, N * G, -1)
 
+    def _to_global(self, rois, reg):
+        """Decode (N, 7) residuals in the roi frame back to global boxes."""
+        zeros = torch.zeros_like(rois[..., :1])
+        local_anchor = torch.cat([zeros, zeros, zeros, rois[..., 3:6], zeros], dim=-1)
+        flat = self.box_coder.decode(reg, local_anchor)
+        ry = rois[:, 6]
+        xyz = common.rotate_points_along_z(flat[:, None, 0:3], ry)[:, 0]
+        return torch.cat([xyz + rois[:, 0:3], flat[:, 3:6], (flat[:, 6] + ry)[:, None]], dim=-1)
+
+    def get_loss(self, rcnn_cls, rcnn_reg, targets):
+        """rcnn_cls (B*R, 1), rcnn_reg (B*R, 7); targets of
+        `roi_head_utils.assign_targets`. Returns (total, {rcnn_loss_cls,
+        rcnn_loss_reg, rcnn_loss_corner, rcnn_loss})."""
+        w_cls, w_reg, w_corner = self.loss_weights
+        valid = targets["roi_valid"].reshape(-1).float()
+        bce = loss_utils.binary_cross_entropy_with_logits(
+            rcnn_cls.reshape(-1), targets["rcnn_cls_labels"].reshape(-1))
+        cls_loss = (bce * valid).sum() / valid.sum().clamp(min=1.0) * w_cls
+        rois = targets["rois"].reshape(-1, 7)
+        reg_mask = targets["reg_valid_mask"].reshape(-1).float()
+        zeros = torch.zeros_like(rois[:, :1])
+        local_anchor = torch.cat([zeros, zeros, zeros, rois[:, 3:6], zeros], dim=-1)
+        reg_targets = self.box_coder.encode(targets["gt_of_rois"].reshape(-1, 7), local_anchor)
+        reg_el = loss_utils.weighted_smooth_l1_loss(rcnn_reg[None], reg_targets[None],
+                                                    code_weights=self.code_weights)[0]
+        fg_norm = reg_mask.sum().clamp(min=1.0)
+        reg_loss = (reg_el.sum(-1) * reg_mask).sum() / fg_norm * w_reg
+        corner = loss_utils.get_corner_loss_lidar(
+            self._to_global(rois, rcnn_reg), targets["gt_of_rois_src"].reshape(-1, 7))
+        corner_loss = (corner * reg_mask).sum() / fg_norm * w_corner
+        total = cls_loss + reg_loss + corner_loss
+        return total, {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss,
+                       "rcnn_loss_corner": corner_loss, "rcnn_loss": total}
+
     def generate_predicted_boxes(self, rois, rcnn_cls, rcnn_reg):
         """Decode rcnn_reg in the roi frame back to global boxes
         (reference `conv_head.generate_predicted_boxes:427`)."""
         B, N, _ = rois.shape
-        code = self.box_coder.code_size
-        cls_preds = rcnn_cls.reshape(B, N, -1)
-        reg = rcnn_reg.reshape(B, N, code)
-        zeros = torch.zeros_like(rois[..., :1])
-        local_anchor = torch.cat([zeros, zeros, zeros, rois[..., 3:6], zeros], dim=-1)
-        flat = self.box_coder.decode(reg, local_anchor).reshape(-1, 7)
-        ry = rois[..., 6].reshape(-1)
-        xyz = common.rotate_points_along_z(flat[:, None, 0:3], ry)[:, 0]
-        boxes = torch.cat([xyz + rois.reshape(-1, 7)[:, 0:3], flat[:, 3:6],
-                           (flat[:, 6] + ry)[:, None]], dim=-1).reshape(B, N, 7)
-        return cls_preds, boxes
+        boxes = self._to_global(rois.reshape(-1, 7), rcnn_reg.reshape(B * N, -1))
+        return rcnn_cls.reshape(B, N, -1), boxes.reshape(B, N, 7)

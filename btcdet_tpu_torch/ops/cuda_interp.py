@@ -8,7 +8,11 @@ are 0. The result is (R, S, C) float32 -- `pallas_interp._xla_reference_pool`
 without the TPU kernel's 24x24-cell roi window.
 
 `trilinear_pool` takes the plain version for CPU tensors only; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. `TrilinearPoolFunction` adds the
+gradient with respect to the volume (points and rois are constants, as
+the JAX package's `pallas_interp.trilinear_pool_ad`): a scatter-add of the
+output gradient over the 8 corner weights, in plain PyTorch on both
+devices, as the JAX package runs it in XLA.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import ctypes
 
 import torch
 
-from ..utils.common import trilinear_interpolate_dense
+from ..utils.common import trilinear_corners, trilinear_interpolate_dense
 from . import kernel_build
 
 # kernel launches made by the wrapper below (CPU calls take the plain
@@ -85,3 +89,37 @@ def trilinear_pool(volume, zyx, roi_b, valid):
     launches += 1
     return out
 
+
+
+def trilinear_pool_volume_grad(g, volume_shape, zyx, roi_b, valid):
+    """(B, D, H, W, C) float32 gradient of `trilinear_pool` with respect to
+    the volume: each valid sample adds g * w to its in-volume corners."""
+    B, D, H, W, C = volume_shape
+    ok = valid & (roi_b >= 0)[:, None] & (roi_b < B)[:, None]
+    base = roi_b.long()[:, None].expand(valid.shape) * (D * H * W)
+    grad = torch.zeros((B * D * H * W, C), dtype=torch.float32, device=g.device)
+    gf = g.float().reshape(-1, C)
+    for lin, w in trilinear_corners(zyx, (D, H, W)):
+        w = torch.where(ok, w, torch.zeros_like(w)).reshape(-1)
+        grad.index_add_(0, (base + lin).reshape(-1), gf * w[:, None])
+    return grad.reshape(B, D, H, W, C)
+
+
+class TrilinearPoolFunction(torch.autograd.Function):
+    """`trilinear_pool` (kernel K4 on CUDA tensors) with the gradient of
+    the volume; apply(volume, zyx, roi_b, valid)."""
+
+    @staticmethod
+    def forward(ctx, volume, zyx, roi_b, valid):
+        ctx.save_for_backward(zyx, roi_b, valid)
+        ctx.volume_shape, ctx.volume_dtype = tuple(volume.shape), volume.dtype
+        return trilinear_pool(volume, zyx, roi_b, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        zyx, roi_b, valid = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = trilinear_pool_volume_grad(g, ctx.volume_shape, zyx, roi_b, valid)
+            grad = grad.to(ctx.volume_dtype)
+        return grad, None, None, None

@@ -12,7 +12,9 @@ with 0 for rows where no tap matches (padding rows b < 0 included), in
 the features' float32.
 
 `sparse_pool` takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. K2 has no backward: on the flagship its
+input, the occ code, is stop-gradient (OCC_PNT_UPDATE.PASS_GRAD False), so
+a CUDA input that requires a gradient is refused.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ def sparse_pool(features, in_keys, out_coords, in_spatial_shape, batch_size, ker
                                  stride, padding)
     if features.device.type != "cuda":
         raise ValueError(f"sparse_pool: unsupported device {features.device}")
+    if features.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("sparse_pool: K2 has no backward; its input must not "
+                                  "require a gradient")
     kz, ky, kx = triple(kernel_size)
     sz, sy, sx = triple(stride)
     pz, py, px = triple(padding)

@@ -66,20 +66,62 @@ def _pairwise_intersection_area(corners_a, corners_b):
     return torch.where(alive, area, torch.zeros_like(area)).reshape(N, M)
 
 
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """Rotated BEV overlap area (N, 7) x (M, 7) -> (N, M): box a clipped by box b."""
+    return _pairwise_intersection_area(box_utils.boxes_to_corners_bev(boxes_a),
+                                       box_utils.boxes_to_corners_bev(boxes_b))
+
+
 def boxes_iou_bev(boxes_a, boxes_b):
     """Rotated BEV IoU (N, 7) x (M, 7) -> (N, M)."""
-    inter = _pairwise_intersection_area(box_utils.boxes_to_corners_bev(boxes_a),
-                                        box_utils.boxes_to_corners_bev(boxes_b))
+    inter = boxes_overlap_bev(boxes_a, boxes_b)
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
 
 
-def iou_matrix(boxes, chunk: int = 256):
-    """Row-chunked (k, k) rotated BEV IoU; row i is box i clipped against
-    every box, as the JAX NMS computes a kept box's overlap row."""
-    return torch.cat([boxes_iou_bev(boxes[i:i + chunk], boxes)
-                      for i in range(0, boxes.shape[0], chunk)], dim=0)
+def boxes_iou3d(boxes_a, boxes_b):
+    """3D IoU: rotated BEV overlap x z overlap over the union volume
+    (reference `iou3d_nms_utils.boxes_iou3d_gpu`)."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_top, a_bot = boxes_a[:, 2] + boxes_a[:, 5] / 2, boxes_a[:, 2] - boxes_a[:, 5] / 2
+    b_top, b_bot = boxes_b[:, 2] + boxes_b[:, 5] / 2, boxes_b[:, 2] - boxes_b[:, 5] / 2
+    overlap_h = (torch.minimum(a_top[:, None], b_top[None, :])
+                 - torch.maximum(a_bot[:, None], b_bot[None, :])).clamp(min=0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
+NMS_CHUNK = 256
+
+
+def _greedy_chunked(top_boxes, top_valid, post_max_size: int, thresh: float,
+                    chunk: int = NMS_CHUNK):
+    """The JAX package's chunked NMS (`iou3d.nms_rotated(impl="chunked")`):
+    score-ordered chunks, each first suppressed by the survivors so far
+    (candidate clipped by survivor), then greedily within itself; stops
+    once `post_max_size` survive. About k * (chunk + post) box pairs."""
+    valid = top_valid.cpu().numpy()
+    kept = []
+    for c0 in range(0, top_boxes.shape[0], chunk):
+        if len(kept) >= post_max_size:
+            break
+        cv = valid[c0:c0 + chunk]
+        if not cv.any():
+            continue
+        cb = top_boxes[c0:c0 + chunk]
+        cols = torch.cat([top_boxes[torch.as_tensor(kept, dtype=torch.int64,
+                                                    device=cb.device)], cb])
+        over = (boxes_iou_bev(cb, cols) > thresh).cpu().numpy()
+        alive = cv & ~over[:, :len(kept)].any(axis=1)
+        inner = over[:, len(kept):]
+        for i in range(cb.shape[0]):
+            if alive[i]:
+                alive[i + 1:] &= ~inner[i, i + 1:]
+        kept.extend((c0 + np.flatnonzero(alive))[:post_max_size - len(kept)].tolist())
+    return kept
 
 
 def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
@@ -89,27 +131,21 @@ def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
     The top `pre_max_size` valid candidates by score (ties broken by the
     lower index, like `lax.top_k`) are visited in score order; each one
     still alive is kept and suppresses every candidate whose IoU with it
-    exceeds `thresh`, until `post_max_size` are kept. Returns
-    (indices (post_max_size,) int64 into the input, 0-padded, and their
-    validity)."""
+    exceeds `thresh`, until `post_max_size` are kept. The suppression is
+    worked out chunk by chunk (`_greedy_chunked`), never as a k x k
+    matrix. Returns (indices (post_max_size,) int64 into the input,
+    0-padded, and their validity)."""
     neg_inf = torch.finfo(scores.dtype).min
     s = torch.where(valid, scores, torch.full_like(scores, neg_inf))
     k = min(pre_max_size, boxes.shape[0])
     top_scores, top_idx = torch.sort(s, descending=True, stable=True)
     top_scores, top_idx = top_scores[:k], top_idx[:k]
     top_valid = top_scores > neg_inf
-    n_rounds = min(post_max_size, k)
     out_idx = torch.zeros((post_max_size,), dtype=torch.int64)
     out_valid = torch.zeros((post_max_size,), dtype=torch.bool)
     if k > 0:
-        suppress = (iou_matrix(boxes[top_idx]) > thresh).cpu().numpy()
-        alive = top_valid.cpu().numpy().copy()
-        kept = []
-        while len(kept) < n_rounds and alive.any():
-            i = int(np.argmax(alive))
-            kept.append(i)
-            alive &= ~suppress[i]
-            alive[i] = False
+        top_boxes = boxes[top_idx]
+        kept = _greedy_chunked(top_boxes, top_valid, post_max_size, thresh)
         if kept:
             kept_t = torch.as_tensor(kept, dtype=torch.int64)
             out_idx[:len(kept)] = top_idx.cpu()[kept_t]

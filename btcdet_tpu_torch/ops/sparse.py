@@ -6,8 +6,9 @@ rows come first. Strided convs generate their output sites by candidate
 expansion + sorted unique under a static per-frame capacity, with the
 same drop rule as the JAX engine when a capacity binds. The conv itself
 runs through `cuda_conv.sparse_conv` (kernel K1 on CUDA tensors, the
-rulebook + batched-matmul plain version on CPU tensors), the max-pool
-through `cuda_pool.sparse_pool` (kernel K2).
+rulebook + batched-matmul plain version on CPU tensors) with its
+backward through K1 (df) and K3 (dW), the max-pool through
+`cuda_pool.sparse_pool` (kernel K2, forward only).
 
 `indice_key` semantics follow spconv: layers sharing a key reuse the
 cached output-site set.
@@ -181,16 +182,34 @@ def conv_rulebook(in_st: SparseTensor, out_coords, kernel_size, stride, padding)
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over active rows, eval mode (running statistics); rows
-    outside `mask` come out 0. Holds the reference's BN tensors
-    (weight, bias, running_mean, running_var, num_batches_tracked)."""
+    """BatchNorm over active rows (the JAX package's `MaskedBatchNorm`); rows
+    outside `mask` come out 0. Holds the reference's BN tensors (weight,
+    bias, running_mean, running_var, num_batches_tracked).
+
+    Eval mode normalises with the running statistics. Train mode uses the
+    mean and the biased variance of the active rows, and moves the running
+    statistics by `momentum` towards them -- the biased variance, as the
+    JAX package and flax do (torch's own BatchNorm moves them towards the
+    unbiased one)."""
 
     def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x, mask):
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        y = y * self.weight + self.bias
+        xf = x.float()
+        if self.training:
+            m = mask.float()[:, None]
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf - mean) ** 2 * m).sum(0) / cnt
+            with torch.no_grad():
+                mom = self.momentum
+                self.running_mean.mul_(1 - mom).add_(mom * mean.detach())
+                self.running_var.mul_(1 - mom).add_(mom * var.detach())
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[:, None], y, torch.zeros_like(y)).to(x.dtype)
 
 
@@ -208,7 +227,7 @@ class _SparseConv(nn.Module):
         self.padding = (tuple(k // 2 for k in self.kernel_size) if self.subm
                         else triple(padding))
         self.indice_key = indice_key
-        self.frame_capacity = frame_capacity
+        self.frame_capacity = tuple(frame_capacity) if frame_capacity else (None, None)
         self.in_channels, self.out_channels = int(in_channels), int(out_channels)
         self.weight = nn.Parameter(torch.empty(*self.kernel_size, self.in_channels,
                                                self.out_channels))
@@ -220,7 +239,8 @@ class _SparseConv(nn.Module):
         ck = ("sites", self.indice_key)
         if self.indice_key and ck in cache:
             return cache[ck]
-        cap = self.frame_capacity * st.batch_size if self.frame_capacity else st.capacity
+        per_frame = self.frame_capacity[0 if self.training else 1]
+        cap = per_frame * st.batch_size if per_frame else st.capacity
         sites = conv_output_sites(st, self.kernel_size, self.stride, self.padding, cap)
         if self.indice_key:
             cache[ck] = sites
@@ -228,12 +248,12 @@ class _SparseConv(nn.Module):
 
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
         keys, coords, nnz, out_shape = self._sites(st, cache)
-        dt = activation_dtype()
         K = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
-        w = self.weight.reshape(K, self.in_channels, self.out_channels).to(dt)
-        out = cuda_conv.sparse_conv(
-            st.features.to(dt), st.keys, coords, w, st.spatial_shape, st.batch_size,
-            self.kernel_size, self.stride, self.padding)
+        out = cuda_conv.SparseConvFunction.apply(
+            st.features.to(activation_dtype()),
+            self.weight.reshape(K, self.in_channels, self.out_channels), st.keys, st.coords,
+            keys, coords, (st.spatial_shape, tuple(int(v) for v in out_shape), st.batch_size,
+                           self.kernel_size, self.stride, self.padding, self.subm))
         out = torch.where((keys != INT32_MAX)[:, None], out, torch.zeros_like(out))
         return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
                             tuple(int(v) for v in out_shape), st.batch_size)
@@ -246,8 +266,10 @@ class SubMConv3d(_SparseConv):
 
 
 class SparseConv3d(_SparseConv):
-    """Strided sparse conv: new output sites, capped at `frame_capacity`
-    per frame (default: the input capacity) and cached under `indice_key`."""
+    """Strided sparse conv: new output sites, capped per frame at
+    `frame_capacity` = (train capacity, eval capacity), picked by the
+    module's mode (None: the input capacity), and cached under
+    `indice_key`."""
 
 
 class SparseMaxPool3d(nn.Module):

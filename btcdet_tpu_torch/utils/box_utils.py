@@ -1,10 +1,53 @@
 """3D box utilities (lidar frame; box = x, y, z, dx, dy, dz, heading).
-Counterpart of the parts of `btcdet_tpu/utils/box_utils.py` the eval path
-uses."""
+Counterpart of the parts of `btcdet_tpu/utils/box_utils.py` the eval and
+train paths use."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import common
+
+# unit-box corners: 4 bottom then 4 top (reference corner order)
+_CORNER_TEMPLATE = np.array([
+    [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+    [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1],
+], dtype=np.float32) / 2.0
+
+
+def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(N, 7) -> (N, 8, 3) corners."""
+    template = torch.from_numpy(_CORNER_TEMPLATE).to(boxes.device, boxes.dtype)
+    corners = boxes[:, None, 3:6] * template[None]
+    return common.rotate_points_along_z(corners, boxes[:, 6]) + boxes[:, None, 0:3]
+
+
+def boxes3d_lidar_to_aligned_bev_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """Rotated boxes snapped to axis-aligned BEV rectangles (x1, y1, x2, y2)
+    by rotation quadrant (reference `box_utils.py:299-310`)."""
+    rot = common.limit_period(boxes[:, 6], offset=0.5, period=np.pi).abs()
+    swap = rot[:, None] >= (np.pi / 4)
+    dims = torch.where(swap, boxes[:, [4, 3]], boxes[:, [3, 4]])
+    return torch.cat([boxes[:, 0:2] - dims / 2, boxes[:, 0:2] + dims / 2], dim=1)
+
+
+def boxes_iou_normal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned IoU of (N, 4) x (M, 4) rectangles -> (N, M)."""
+    x_len = (torch.minimum(a[:, None, 2], b[None, :, 2])
+             - torch.maximum(a[:, None, 0], b[None, :, 0])).clamp(min=0)
+    y_len = (torch.minimum(a[:, None, 3], b[None, :, 3])
+             - torch.maximum(a[:, None, 1], b[None, :, 1])).clamp(min=0)
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    inter = x_len * y_len
+    return inter / (area_a[:, None] + area_b[None, :] - inter).clamp(min=1e-6)
+
+
+def boxes3d_nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """RPN matching IoU with MATCH_HEIGHT False (reference `box_utils.py:313-325`)."""
+    return boxes_iou_normal(boxes3d_lidar_to_aligned_bev_boxes(boxes_a),
+                            boxes3d_lidar_to_aligned_bev_boxes(boxes_b))
 
 
 def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:

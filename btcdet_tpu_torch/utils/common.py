@@ -54,14 +54,15 @@ def rotate_points_along_z(points: torch.Tensor, angle: torch.Tensor) -> torch.Te
     return xyz
 
 
-def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.Tensor:
-    """vol (D, H, W, C); zyx (N, 3) float voxel coords -> (N, C). Corners
-    outside the volume weigh zero (no edge clamping)."""
-    D, H, W = vol.shape[0], vol.shape[1], vol.shape[2]
-    z, y, x = zyx[:, 0], zyx[:, 1], zyx[:, 2]
+def trilinear_corners(zyx: torch.Tensor, dhw):
+    """The 8 corners of trilinear samples at float voxel coords zyx (..., 3)
+    in a (D, H, W) grid: a list of (linear cell index, clamped into the
+    grid, and weight, 0 for corners outside the grid)."""
+    D, H, W = dhw
+    z, y, x = zyx[..., 0], zyx[..., 1], zyx[..., 2]
     z0, y0, x0 = torch.floor(z), torch.floor(y), torch.floor(x)
     zi0, yi0, xi0 = z0.long(), y0.long(), x0.long()
-    out = 0.0
+    out = []
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
@@ -70,7 +71,17 @@ def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.T
                 w = (torch.abs(1.0 - torch.abs(z - z0 - dz))
                      * torch.abs(1.0 - torch.abs(y - y0 - dy))
                      * torch.abs(1.0 - torch.abs(x - x0 - dx)))
-                w = torch.where(inb, w, torch.zeros_like(w))
-                v = vol[zi.clamp(0, D - 1), yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
-                out = out + v.float() * w[:, None]
+                lin = (zi.clamp(0, D - 1) * H + yi.clamp(0, H - 1)) * W + xi.clamp(0, W - 1)
+                out.append((lin, torch.where(inb, w, torch.zeros_like(w))))
+    return out
+
+
+def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.Tensor:
+    """vol (D, H, W, C); zyx (N, 3) float voxel coords -> (N, C). Corners
+    outside the volume weigh zero (no edge clamping)."""
+    D, H, W, C = vol.shape
+    flat = vol.reshape(-1, C)
+    out = 0.0
+    for lin, w in trilinear_corners(zyx, (D, H, W)):
+        out = out + flat[lin].float() * w[:, None]
     return out

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (`btcdet_tpu_torch`): the full
 flagship BtcNet eval forward (occupancy subnet included) on one CUDA
-card, and its det-only variant as a second path.
+card, its det-only variant as a second path, and the flagship training
+step as a third.
 
     python3 chip_smoke.py
 
@@ -19,20 +20,33 @@ Phases (any failure raises and exits non-zero, printing no result):
      run once and every kernel (K1, K2, K4) must have launched; occ points
      and merged det voxels per frame, nnz per level, detections, median
      forward ms over 5 runs after 2 warm-ups, peak memory, ms per stage,
-     and one profiled step (device idle share, top kernels); then the
-     det-only flagship as the second path: counts reset, one run, its
-     launches, and its median;
+     and one profiled step (device idle share, top kernels), the proposal
+     NMS's chunked pass against the full-matrix greedy (same kept boxes,
+     both timed); then the det-only flagship as the second path: counts
+     reset, one run, its launches, and its median;
   6. small-input checks: small full and det-only configs in float32 on
      the card against the plain path on the CPU, same weights and batch
      (full config: the occ subnets compared, then the det paths on the
      card's occ outputs);
-  7. a JSON line of per-kernel numbers, then the contract line
+  7. train phase: the full flagship in `net.train()` at B=2 with the
+     train caps. One captured step records its kernel calls; K3 (the
+     weight gradient) is held against its plain version on five of them
+     (bf16, to 1e-2 of the plain output's max, and bit for bit on a
+     repeat), and at the step's own inputs K1's forward (conv1), its
+     transpose-query df (a strided conv) and subm df, K2 and K4; then counts
+     reset, one step where every kernel (K1 forward and df, K2, K3, K4)
+     must launch, with its loss terms, per-partition gradient norms and
+     moved parameters and BN statistics; 10 steps timed; and one step
+     in float32 on the card against the CPU (loss terms
+     to 1e-3, gradients to 1e-3 of each tensor's max) on the micro config;
+  8. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -72,56 +86,79 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the eval path's kernels; a train step adds K1's df and K3
+EVAL_KERNELS = ("sparse_conv", "sparse_pool", "trilinear_pool")
+
+
 def kernel_modules():
-    """{kernel wrapper name: the ops module holding it and its launch count}."""
+    """{kernel wrapper name: (the ops module holding it, its launch counter)}."""
     from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 
-    return {"sparse_conv": cuda_conv, "sparse_pool": cuda_pool, "trilinear_pool": cuda_interp}
+    return {"sparse_conv": (cuda_conv, "launches"), "sparse_conv_df": (cuda_conv, "df_launches"),
+            "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
+            "trilinear_pool": (cuda_interp, "launches")}
 
 
 def reset_launches():
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, counter in kernel_modules().values():
+        setattr(mod, counter, 0)
 
 
-def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+def read_launches(names=None) -> dict:
+    return {name: getattr(mod, counter) for name, (mod, counter) in kernel_modules().items()
+            if names is None or name in names}
 
 
-def capture_kernel_inputs(net, batch):
-    """Run one forward with recording wrappers around the kernel entry
-    points; returns the recorded calls of each, in order."""
+def capture_kernel_inputs(run):
+    """Call run() with recording wrappers around the kernel entry points;
+    returns the recorded calls (args, kwargs) of each, in order."""
     mods = kernel_modules()
     calls = {name: [] for name in mods}
-    orig = {name: getattr(mod, name) for name, mod in mods.items()}
+    orig = {name: getattr(mod, name) for name, (mod, _) in mods.items()}
 
     def recorder(name):
         def rec(*args, **kw):
-            calls[name].append(args)
+            calls[name].append((args, kw))
             return orig[name](*args, **kw)
         return rec
 
-    for name, mod in mods.items():
+    for name, (mod, _) in mods.items():
         setattr(mod, name, recorder(name))
     try:
-        net(batch)
+        run()
     finally:
-        for name, mod in mods.items():
+        for name, (mod, _) in mods.items():
             setattr(mod, name, orig[name])
     return calls
 
 
-def k1_case(name, args):
-    """Compare / time K1 on one captured call."""
+def k1_case(name, args, df: bool = False, transpose: bool = False):
+    """Compare / time K1 on one captured call: a forward (`sparse_conv`), or
+    with `df` the df of a conv's backward (`sparse_conv_df`): a submanifold
+    conv's over the same sites with tap-reversed weights, or with
+    `transpose` a strided conv's in transpose-query mode (the table is the
+    output gradient keyed by the forward's output sites, the queries are
+    its input sites)."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv
 
     feats, keys, coords, w, shape, bsz, ksize, stride, pad = args[:9]
-    feats, w = feats.to(torch.bfloat16), w.to(torch.bfloat16)
+    feats, w = feats.detach().to(torch.bfloat16), w.detach().to(torch.bfloat16)
     cargs = (feats, keys, coords, w, shape, bsz, ksize, stride, pad)
-    out = cuda_conv.sparse_conv(*cargs)
-    ref = cuda_conv.sparse_conv_plain(*cargs)
+    if df:
+        def kern():
+            return cuda_conv.sparse_conv_df(*cargs, transpose=transpose)
+
+        def plain():
+            return cuda_conv.sparse_conv_plain(*cargs, transpose=transpose)
+    else:
+        def kern():
+            return cuda_conv.sparse_conv(*cargs)
+
+        def plain():
+            return cuda_conv.sparse_conv_plain(*cargs)
+    out, ref = kern(), plain()
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
@@ -130,7 +167,7 @@ def k1_case(name, args):
     # tap matched, the live (non-padding) keys the search runs over, the
     # weights of taps that matched anything; out_coords and the output at
     # capacity, since the kernel reads and writes every row of them.
-    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad)
+    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad, transpose)
     matches = int(found.sum())
     rows_read = int(idx[found].unique().numel())
     live_keys = int((keys != cuda_conv.INT32_MAX).sum())
@@ -142,13 +179,13 @@ def k1_case(name, args):
               + M * cout * 4)
     flops = 2.0 * cin * cout * matches
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS)
-    ms = cuda_ms(lambda: cuda_conv.sparse_conv(*cargs), reps=20)
-    plain_ms = cuda_ms(lambda: cuda_conv.sparse_conv_plain(*cargs), reps=5, warmup=1)
+    ms = cuda_ms(kern, reps=20)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
     log(f"K1 {name}: N={N} M={M} Cin={cin} Cout={cout} kernel={ksize} stride={stride} "
         f"matches={matches} rows_read={rows_read} live_keys={live_keys} taps_used={taps_used} "
         f"bytes={nbytes} flops={flops:.0f} max_abs_err={err:.3e} (plain max {scale:.3e}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
-    return {"name": f"sparse_conv:{name}", "route": "cuda",
+    return {"name": f"{'sparse_conv_df' if df else 'sparse_conv'}:{name}", "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_conv.cu",
             "replaces": "btcdet_tpu/ops/pallas_conv.py:511", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
@@ -156,13 +193,16 @@ def k1_case(name, args):
             else "operations", "library_ms": None}
 
 
-def k2_case(args):
-    """Compare (bit for bit) / time K2 max on the captured occ-code pool."""
+def k2_case(args, label: str = ""):
+    """Compare (bit for bit) / time K2 max on the captured occ-code pool
+    (`label` names a call of another path than the eval forward)."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv, cuda_pool
 
     feats, keys, coords, shape, bsz, ksize, stride, pad = args
+    feats = feats.detach()
+    args = (feats, keys, coords, shape, bsz, ksize, stride, pad)
     out = cuda_pool.sparse_pool(*args)
     ref = cuda_pool.sparse_pool_plain(feats, keys, coords, shape, ksize, stride, pad)
     torch.cuda.synchronize()
@@ -183,11 +223,11 @@ def k2_case(args):
     ms = cuda_ms(lambda: cuda_pool.sparse_pool(*args), reps=20)
     plain_ms = cuda_ms(lambda: cuda_pool.sparse_pool_plain(feats, keys, coords, shape, ksize,
                                                            stride, pad), reps=5, warmup=1)
-    log(f"K2 sparse_pool (max): N={N} M={M} C={C} kernel={ksize} stride={stride} "
+    log(f"K2 sparse_pool (max){' ' + label if label else ''}: N={N} M={M} C={C} kernel={ksize} stride={stride} "
         f"matches={matches} rows_read={rows_read} live_keys={live_keys} "
         f"rows_with_a_match={int(found.any(0).sum())} bytes={nbytes} max_abs_err={err} "
         f"(bitwise equal) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
-    return {"name": "sparse_pool", "route": "cuda",
+    return {"name": "sparse_pool" + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_conv.py:511", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
@@ -217,8 +257,9 @@ def k4_reads(vol, zyx, roi_b, valid):
     return int(cells.unique().numel()), int(cells.numel())
 
 
-def k4_case(args):
-    """Compare / time K4 on the captured ConvHead call; grid_sample as the
+def k4_case(args, label: str = ""):
+    """Compare / time K4 on the captured ConvHead call (`label` names a
+    call of another path than the eval forward); grid_sample as the
     library yardstick."""
     import torch
     import torch.nn.functional as F
@@ -226,7 +267,7 @@ def k4_case(args):
     from btcdet_tpu_torch.ops import cuda_interp
 
     vol, zyx, roi_b, valid = args
-    vol = vol.to(torch.bfloat16)
+    vol = vol.detach().to(torch.bfloat16)
     out = cuda_interp.trilinear_pool(vol, zyx, roi_b, valid)
     ref = cuda_interp.trilinear_pool_plain(vol, zyx, roi_b, valid)
     torch.cuda.synchronize()
@@ -263,11 +304,11 @@ def k4_case(args):
         got = lib().float().reshape(B, C, R // B * S).permute(0, 2, 1).reshape(R, S, C)
         lib_err = float((got - out)[valid].abs().max())
         lib_ms = cuda_ms(lib, reps=20)
-    log(f"K4 trilinear_pool: volume={tuple(vol.shape)} R={R} S={S} valid={n_valid} "
+    log(f"K4 trilinear_pool{' ' + label if label else ''}: volume={tuple(vol.shape)} R={R} S={S} valid={n_valid} "
         f"cells_read={n_cells} corner_reads={n_reads} bytes={nbytes} flops={flops:.0f} "
         f"max_abs_err={err:.3e} (plain max {scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"grid_sample_ms={lib_ms} (max diff to kernel {lib_err}) bound_ms={bound_s * 1e3:.4f}")
-    return {"name": "trilinear_pool", "route": "cuda",
+    return {"name": "trilinear_pool" + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/trilinear_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_interp.py:150", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
@@ -279,10 +320,6 @@ def stage_profile(net, batch, post_cfg):
     """Where the time goes in one forward + post-processing: wall ms per
     stage (each between two device synchronisations), then one step under
     torch.profiler for the device's idle share and its top kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
 
     times = {}
@@ -294,21 +331,98 @@ def stage_profile(net, batch, post_cfg):
     log("stage ms (synchronised): " + json.dumps({s: round(times[s], 3) for s in STAGES
                                                   if s in times}))
 
+    profile_step(lambda: post_processing(net(batch), post_cfg, 1), STAGES)
+
+
+def profile_step(fn, ranges=(), label: str = "step"):
+    """One call of fn() under torch.profiler: wall ms, kernel time, the
+    device's idle share and the top kernels (names in `ranges` are the
+    profiler ranges of the stages, not kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        post_processing(net(batch), post_cfg, 1)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in STAGES:
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(t for _, t in kernels.values())
-    log(f"profiled step: wall {wall:.2f} ms (profiler on), kernel time {busy:.2f} ms, "
+    log(f"profiled {label}: wall {wall:.2f} ms (profiler on), kernel time {busy:.2f} ms, "
         f"device idle share {1 - busy / wall:.3f}")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:9.3f} ms  x{n:<5d} {name[:100]}")
+
+
+def full_matrix_nms(boxes, scores, valid, *, thresh, pre_max_size, post_max_size):
+    """Greedy rotated NMS over the whole (k, k) suppression matrix, one IoU
+    row per kept box (the JAX package's eval NMS): the yardstick that the
+    port's chunked pass is held to and timed against. Returns the kept
+    input indices in order."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch.ops import iou3d
+
+    neg_inf = torch.finfo(scores.dtype).min
+    s = torch.where(valid, scores, torch.full_like(scores, neg_inf))
+    k = min(pre_max_size, boxes.shape[0])
+    top_scores, top_idx = torch.sort(s, descending=True, stable=True)
+    top_idx, top_valid = top_idx[:k], top_scores[:k] > neg_inf
+    tb = boxes[top_idx]
+    iou = torch.cat([iou3d.boxes_iou_bev(tb[i:i + 256], tb) for i in range(0, k, 256)])
+    suppress = (iou > thresh).cpu().numpy()
+    alive = top_valid.cpu().numpy().copy()
+    kept = []
+    while len(kept) < post_max_size and alive.any():
+        i = int(np.argmax(alive))
+        kept.append(i)
+        alive &= ~suppress[i]
+        alive[i] = False
+    return top_idx.cpu()[kept]
+
+
+def proposal_nms_check(net, batch):
+    """The eval proposal NMS's calls (one per frame, k = NMS_PRE_MAXSIZE)
+    captured from one forward: the port's chunked pass keeps the same
+    boxes as the full-matrix greedy, and both are timed (host clock, 5
+    runs of every call after 2 warm-ups, median)."""
+    import torch
+
+    from btcdet_tpu_torch.ops import iou3d
+
+    calls, orig = [], iou3d.nms_rotated
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    iou3d.nms_rotated = rec
+    try:
+        net(batch)
+    finally:
+        iou3d.nms_rotated = orig
+    for a, kw in calls:
+        idx, ok = orig(*a, **kw)
+        want = full_matrix_nms(*a, **kw)
+        assert torch.equal(idx[ok].cpu(), want), "chunked and full-matrix NMS keep other boxes"
+
+    def run(fn):
+        def all_calls():
+            for a, kw in calls:
+                fn(*a, **kw)
+            torch.cuda.synchronize()
+        return timed_median(all_calls)[0]
+
+    chunked, full = run(orig), run(full_matrix_nms)
+    log(f"proposal NMS, {len(calls)} calls (k = {[min(kw['pre_max_size'], a[0].shape[0]) for a, kw in calls]}"
+        f" -> {calls[0][1]['post_max_size']}, same kept sets): chunked {chunked:.3f} ms, "
+        f"full matrix {full:.3f} ms (median of 5)")
 
 
 def small_config(full: bool):
@@ -450,6 +564,284 @@ def small_input_check(full: bool):
         log("card run-to-run spread of the occ probabilities over 3 runs: " + json.dumps(spread))
 
 
+def k3_case(name, args):
+    """Compare / time K3 (the sparse-conv weight gradient) on one captured
+    call of a train step's backward; a second run must equal the first
+    bit for bit."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_conv
+
+    feats, keys, coords, g, shape, bsz, ksize, stride, pad = args
+    feats = feats.detach()
+    args = (feats, keys, coords, g, shape, bsz, ksize, stride, pad)
+    out = cuda_conv.sparse_conv_dw(*args)
+    again = cuda_conv.sparse_conv_dw(*args)
+    ref = cuda_conv.sparse_conv_dw_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"K3 {name}: two runs differ"
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= TOL * max(scale, 1e-6), f"K3 {name}: max err {err} vs plain max {scale}"
+    # bound: what this run's data needs: the input rows some tap matched,
+    # the rows of g with a match, each read once, and dW written once;
+    # 2 * Cin * Cout flops per match at the bf16 tensor-core rate, the
+    # rate of the TPU kernel it replaces (bf16 x bf16 products of the rows
+    # and of g, f32 accumulation), as K1's bound
+    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad)
+    matches = int(found.sum())
+    rows_read = int(idx[found].unique().numel())
+    g_rows = int(found.any(dim=0).sum())
+    N, cin = feats.shape
+    M, cout = g.shape
+    K = out.shape[0]
+    nbytes = rows_read * cin * feats.element_size() + g_rows * cout * 4 + K * cin * cout * 4
+    flops = 2.0 * cin * cout * matches
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS)
+    ms = cuda_ms(lambda: cuda_conv.sparse_conv_dw(*args), reps=10)
+    plain_ms = cuda_ms(lambda: cuda_conv.sparse_conv_dw_plain(*args), reps=3, warmup=1)
+    n_chunks, _ = cuda_conv.dw_chunks(M, K, cin, cout)
+    log(f"K3 {name}: N={N} M={M} Cin={cin} Cout={cout} kernel={ksize} stride={stride} "
+        f"{feats.dtype} matches={matches} rows_read={rows_read} g_rows={g_rows} "
+        f"chunks={n_chunks} bytes={nbytes} flops={flops:.0f} max_abs_err={err:.3e} "
+        f"(plain max {scale:.3e}, bitwise repeatable) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_s * 1e3:.4f}")
+    return {"name": f"sparse_conv_dw:{name}", "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/sparse_conv_dw.cu",
+            "replaces": "btcdet_tpu/ops/pallas_conv.py:392", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TENSOR_FLOPS
+            else "operations", "library_ms": None}
+
+
+def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda"):
+    """A flagship-layout net in train mode with synthetic weights, its dual
+    optimizer and a `mode="train"` synthetic batch."""
+    import torch
+
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.train import trainer
+
+    torch.manual_seed(seed)
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device=device)
+    # synthetic weights by name, but the output projections keep the
+    # model's own init (the JAX package's: cls prior bias, std-0.001 box
+    # and rcnn weights); synthetic box weights decode to boxes of up to
+    # 1e22 m whose exp overflows once training moves them
+    own, sd = net.state_dict(), weights.synth_state_dict(net)
+    head = net.det_modules.roi_head
+    finals = [f"det_modules.roi_head.{t}.{len(list(getattr(head, t).children())) - 1}"
+              for t in ("cls_layers", "reg_layers")]
+    for k in ("det_modules.dense_head.conv_cls.bias", "det_modules.dense_head.conv_box.weight",
+              *(f + ".weight" for f in finals), *(f + ".bias" for f in finals)):
+        sd[k] = own[k].cpu()
+    net.load_state_dict(sd)
+    net.train()
+    opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 1000)
+    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
+                                 num_gt=num_gt, seed=seed, mode="train", device=device)
+    return net, opt, batch
+
+
+def train_phase():
+    """The flagship training step at full width (B=2, train caps): kernel
+    checks on a captured step, one counted step, 10 timed steps."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.models.detectors.btcnet import STAGES
+    from btcdet_tpu_torch.ops import cuda_interp
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = config.flagship()
+    net, opt, batch = train_setup(cfg, 16384, 10, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = capture_kernel_inputs(lambda: trainer.train_step(net, opt, batch, gen))
+    torch.cuda.synchronize()
+    log("train capture: " + ", ".join(f"{len(v)} {k} calls" for k, v in calls.items())
+        + " per step")
+
+    def pick_dw(kernel, stride, cin, cout):
+        return next(a for a, _ in calls["sparse_conv_dw"]
+                    if a[6] == kernel and a[7] == stride and a[0].shape[1] == cin
+                    and a[3].shape[1] == cout)
+
+    picks = {"conv1(subm 6->16)": pick_dw((3, 3, 3), (1, 1, 1), 6, 16),
+             "conv2(3^3 s2 16->32)": pick_dw((3, 3, 3), (2, 2, 2), 16, 32),
+             "conv2_combine_0(subm 34->32)": pick_dw((3, 3, 3), (1, 1, 1), 34, 32),
+             "conv_out(3x1x1 s2 64->128)": pick_dw((3, 1, 1), (2, 1, 1), 64, 128),
+             "down_combine_0(subm 256->128)": pick_dw((3, 3, 3), (1, 1, 1), 256, 128)}
+    entries = [k3_case(name, args) for name, args in picks.items()]
+    # K1 at the step's own inputs: conv1's forward over the train-cap
+    # table, the transpose-query df of conv2, the subm df of down_combine_0
+    fwd = next(a for a, _ in calls["sparse_conv"]
+               if a[6] == (3, 3, 3) and a[7] == (1, 1, 1) and a[3].shape[2] == 16)
+    entries.append(k1_case(f"train conv1(subm {fwd[0].shape[1]}->16)", fwd))
+    df = next(a for a, kw in calls["sparse_conv_df"]
+              if kw.get("transpose") and a[6] == (3, 3, 3) and a[7] == (2, 2, 2)
+              and a[3].shape[2] == 16)
+    entries.append(k1_case("conv2 df (transpose query, 32->16)", df, df=True, transpose=True))
+    df = next(a for a, kw in calls["sparse_conv_df"]
+              if not kw.get("transpose") and a[3].shape[1:] == (128, 256))
+    entries.append(k1_case("down_combine_0 df (subm, 128->256)", df, df=True))
+    assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
+    entries.append(k2_case(calls["sparse_pool"][0][0], "train"))
+    entries.append(k4_case(calls["trilinear_pool"][0][0], "train"))
+    calls_k4 = calls["trilinear_pool"][0][0]
+    del calls, picks, df, fwd
+
+    params = {n: p.detach().clone() for n, p in net.named_parameters()}
+    stats = {n: b.clone() for n, b in net.named_buffers() if n.endswith("running_var")}
+    reset_launches()
+    metrics = trainer.train_step(net, opt, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"train-step launches: {json.dumps(launches)}")
+    assert all(n > 0 for n in launches.values()), launches
+    for e in entries:
+        e["launches"] = launches[e["name"].split(":")[0]]
+    vals = {k: float(v) for k, v in metrics.items()}
+    log("train-step metrics: " + json.dumps({k: round(v, 6) for k, v in vals.items()}))
+    assert all(math.isfinite(v) for v in vals.values()), vals
+    for part in ("occ", "det"):
+        assert vals[f"grad_norm_{part}"] > 0, part
+    still = [n for n, p in net.named_parameters() if torch.equal(p, params[n])]
+    bn_moved = sum(not torch.equal(b, stats[n]) for n, b in net.named_buffers()
+                   if n in stats)
+    log(f"parameters moved: {len(params) - len(still)} of {len(params)} (unmoved, zero "
+        f"gradient and no weight decay: {still}); BN running variances moved: "
+        f"{bn_moved} of {len(stats)}")
+    assert len(still) < 0.1 * len(params) and bn_moved > 0.9 * len(stats), (still, bn_moved)
+    del params, stats
+
+    # K4's backward: plain PyTorch (the 8-corner index_add_) on the step's inputs
+    vol, zyx, roi_b, valid = calls_k4
+    g = torch.randn(zyx.shape[0], zyx.shape[1], vol.shape[-1], device=vol.device)
+    bwd_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_volume_grad(
+        g, tuple(vol.shape), zyx, roi_b, valid), reps=5)
+    log(f"K4 backward (plain index_add_, volume {tuple(vol.shape)} R={zyx.shape[0]} "
+        f"S={zyx.shape[1]}): ms={bwd_ms:.4f}")
+    del calls_k4, g
+
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        m = trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(round(float(m["loss"]), 5))
+    log(f"train step ms, full flagship (B=2, train caps, 10 steps on one batch): median "
+        f"{statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+    log(f"train max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    log(f"train loss per step: {losses}")
+    assert all(math.isfinite(v) for v in losses), losses
+    net.stage_ms = {}
+    trainer.train_step(net, opt, batch, gen)
+    log("train stage ms (synchronised, forward only): "
+        + json.dumps({k: round(v, 3) for k, v in net.stage_ms.items()}))
+    net.stage_ms = None
+    profile_step(lambda: trainer.train_step(net, opt, batch, gen), STAGES, "train step")
+    return entries
+
+
+def micro_train_config():
+    """The micro config (`datasets.mini_config`: the flagship's topology on
+    a 6.4 m scene, 8 channels) with the flagship's optimizers."""
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import mini_config
+
+    flag = config.flagship()
+    cfg = config.EasyDict({"DATA_CONFIG": mini_config.micro_data_cfg(with_occ=True),
+                           "MODEL": mini_config.micro_model_cfg(with_occ=True),
+                           "OPTIMIZATION": flag.OPTIMIZATION,
+                           "OCC_OPTIMIZATION": flag.OCC_OPTIMIZATION})
+    cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
+    return cfg
+
+
+def small_train_check():
+    """One train step of the micro config in float32 on the card (kernels)
+    and on the CPU (plain versions) from the same weights and batch, with
+    the same roi and dropout draws. The CPU's PassOccVox outputs (occ
+    points and the merged det table, no gradient under PASS_GRAD False)
+    are replaced by the card's, so both det paths see the same occ points
+    in the same order (see `small_input_check`). At larger sizes the
+    gradients are too ill-conditioned for this tolerance: on the 16 m
+    config a 1e-6 relative change of the weights moves some of them by
+    6 % of their tensor's max (ReLU and active-site boundaries)."""
+    import torch
+
+    from btcdet_tpu_torch.models.occ import occ_subnet
+    from btcdet_tpu_torch.models.roi_heads import conv_head, roi_head_utils
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = micro_train_config()
+    pass_keys = ("occ_points", "occ_points_mask", "det_voxel_features", "det_occ_code",
+                 "det_voxel_coords", "det_voxel_num_points")
+    old = os.environ.get("BTCDET_F32")
+    os.environ["BTCDET_F32"] = "1"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    orig = (roi_head_utils.draw_roi_sampling_uniforms, conv_head.draw_dropout_keep,
+            occ_subnet.OccSubnet._pass_occ_vox)
+    res, card_occ = {}, {}
+    try:
+        for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+            net, opt, batch = train_setup(cfg, 2048, 4, 3, device=dev)
+            draw_gen = torch.Generator().manual_seed(11)
+            roi_head_utils.draw_roi_sampling_uniforms = (
+                lambda generator, B, N, R, g=draw_gen: orig[0](g, B, N, R))
+            conv_head.draw_dropout_keep = (
+                lambda generator, shape, keep, g=draw_gen: orig[1](g, shape, keep))
+
+            def pass_occ_vox(self, batch, out, *a, run=run):
+                orig[2](self, batch, out, *a)
+                if run == "card":
+                    card_occ.update({k: out[k].cpu() for k in pass_keys})
+                else:
+                    res["occ_points_cpu"] = (out["occ_points"], out["occ_points_mask"])
+                    out.update(card_occ)
+            occ_subnet.OccSubnet._pass_occ_vox = pass_occ_vox
+            m = trainer.train_step(net, opt, batch, torch.Generator(device=dev).manual_seed(0))
+            res[run] = ({k: float(v) for k, v in m.items()},
+                        {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+                         if p.grad is not None})
+            del net, opt, batch
+    finally:
+        (roi_head_utils.draw_roi_sampling_uniforms, conv_head.draw_dropout_keep,
+         occ_subnet.OccSubnet._pass_occ_vox) = orig
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        if old is None:
+            del os.environ["BTCDET_F32"]
+        else:
+            os.environ["BTCDET_F32"] = old
+    (gm, gg), (cm, cg) = res["card"], res["cpu"]
+    cpu_pts, cpu_mask = res["occ_points_cpu"]
+    worst_pts = same_point_sets(card_occ["occ_points"], card_occ["occ_points_mask"], cpu_pts,
+                                cpu_mask, 1e-3)
+    worst_loss = {}
+    for k, v in cm.items():
+        worst_loss[k] = abs(gm[k] - v)
+        assert abs(gm[k] - v) <= 1e-3 * max(1.0, abs(v)), (k, gm[k], v)
+    assert set(gg) == set(cg), set(gg) ^ set(cg)
+    rel = {n: float((gg[n] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
+           for n, g in cg.items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:8]
+    log("micro train-step check, largest gradient differences (relative to the tensor's "
+        "max): " + json.dumps({n: f"{v:.3e}" for n, v in worst}))
+    worst_grad = worst[0][1]
+    assert worst_grad <= 1e-3, worst
+    n_occ = [int(v) for v in card_occ["occ_points_mask"].sum(1)]
+    log(f"micro train-step check (cuda f32 vs cpu f32, same weights, batch and draws; occ "
+        f"points per frame {n_occ}, as sets to {worst_pts:.2e}): loss terms "
+        + json.dumps({k: round(v, 6) for k, v in cm.items()})
+        + f"; largest loss-term difference {max(worst_loss.values()):.3e}; largest gradient "
+        f"difference relative to its tensor's max {worst_grad:.3e} over {len(cg)} tensors")
+
+
 def timed_median(step, runs: int = 5, warmup: int = 2):
     import torch
 
@@ -489,7 +881,7 @@ def main() -> int:
 
     # 2. kernels
     t0 = time.perf_counter()
-    kernel_build.build(["sparse_conv", "sparse_pool", "trilinear_pool"])
+    kernel_build.build(["sparse_conv", "sparse_conv_dw", "sparse_pool", "trilinear_pool"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
         for line in text.splitlines():
@@ -502,9 +894,10 @@ def main() -> int:
     net.load_state_dict(weights.synth_state_dict(net))
     batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
                                  seed=0, mode="test")
-    calls = capture_kernel_inputs(net, batch)
+    calls = capture_kernel_inputs(lambda: net(batch))
+    calls = {k: [a for a, _ in v] for k, v in calls.items()}
     convs = calls["sparse_conv"]
-    log("capture: " + ", ".join(f"{len(v)} {k} calls" for k, v in calls.items())
+    log("capture: " + ", ".join(f"{len(calls[k])} {k} calls" for k in EVAL_KERNELS)
         + " per forward")
 
     # 4. kernel phase. Captured args: features, keys, out_coords, weights,
@@ -540,7 +933,7 @@ def main() -> int:
     launches = read_launches()
     hook.remove()
     log(f"main-path launches: {json.dumps(launches)}")
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in EVAL_KERNELS), launches
     for e in kernels:
         e["launches"] = launches[e["name"].split(":")[0]]
     B = batch["points"].shape[0]
@@ -581,6 +974,7 @@ def main() -> int:
         f"all {[round(t, 2) for t in times]}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     stage_profile(net, batch, cfg.MODEL.POST_PROCESSING)
+    proposal_nms_check(net, batch)
     del net, batch, out, post, seen
 
     # 5b. second path: the det-only flagship
@@ -593,7 +987,7 @@ def main() -> int:
     dout = dnet(dbatch)
     post_processing(dout, dcfg.MODEL.POST_PROCESSING, 1)
     torch.cuda.synchronize()
-    dl = read_launches()
+    dl = read_launches(EVAL_KERNELS)
     log(f"det-only path launches: {json.dumps(dl)}")
     assert dl["sparse_conv"] > 0 and dl["trilinear_pool"] > 0 and dl["sparse_pool"] == 0, dl
     med, times = timed_median(lambda: step(dnet, dbatch, dcfg))
@@ -605,7 +999,11 @@ def main() -> int:
     small_input_check(full=True)
     small_input_check(full=False)
 
-    # 7. results
+    # 7. train phase
+    kernels += train_phase()
+    small_train_check()
+
+    # 8. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}), flush=True)

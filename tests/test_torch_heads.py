@@ -66,6 +66,30 @@ def test_nms_rotated_same_kept_set(thresh, pre, post):
     assert 0 < jv.sum() < valid[:pre].sum(), "NMS must suppress some boxes"
 
 
+def test_nms_eval_size_matches_rounds():
+    """The eval proposal NMS's size (k = 1024 -> 100) over boxes crowded
+    round 12 objects, so the chunked pass spans several chunks: the same
+    kept set as the JAX package's eval path (`impl="rounds"`, one IoU row
+    per kept box)."""
+    n = 1200
+    rng = np.random.RandomState(7)
+    centres = random_boxes(6, 12, spread=40.0)
+    boxes = (centres[rng.randint(0, 12, n)] + rng.normal(0, 1, (n, 7))
+             * [0.25, 0.25, 0.1, 0.1, 0.05, 0.05, 0.08]).astype(np.float32)
+    scores = rng.rand(n).astype(np.float32)
+    valid = rng.rand(n) < 0.95
+    kw = dict(thresh=0.7, pre_max_size=1024, post_max_size=100)
+    ji, jv = JI.nms_rotated(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
+                            impl="rounds", **kw)
+    ti, tv = TI.nms_rotated(t(boxes), t(scores), t(valid), **kw)
+    jv = np.asarray(jv)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(ti.numpy()[jv], np.asarray(ji)[jv])
+    order = np.argsort(-np.where(valid, scores, -np.inf), kind="stable")
+    last = max(int(np.flatnonzero(order == i)[0]) for i in ti.numpy()[tv.numpy()])
+    assert last >= TI.NMS_CHUNK, "the case should span several chunks"
+
+
 def test_nms_matches_chunked_jax_path():
     """The JAX package's large-k (train-size) chunked NMS is the same greedy."""
     n = 600
@@ -149,7 +173,7 @@ def test_point_sa_module_msg_matches():
                      rotate_matrix=jnp.asarray(rot))
         v = perturb_variables(v, seed=2)
         ref = jsa.apply(v, *args, features=jnp.asarray(feats), rotate_matrix=jnp.asarray(rot))
-        tsa = TG.PointSAModuleMSG(radii, nsamples, mlps, dtype=torch.float32)
+        tsa = TG.PointSAModuleMSG(radii, nsamples, mlps, dtype=torch.float32).eval()
         sd = {}
         for i in range(len(mlps)):
             pm, sm = v["params"][f"mlp_{i}"], v["batch_stats"][f"mlp_{i}"]

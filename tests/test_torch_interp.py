@@ -81,3 +81,26 @@ def test_trilinear_interpolate_dense_matches(seed):
     # the roi sampler with f32 volume and all samples valid is the same function
     full = _port(dense, zyx, np.zeros(1, np.int32), np.ones((1, 500), bool), bf16_volume=False)
     assert_close(full[0], np.asarray(ref))
+
+
+def test_volume_gradient_matches_xla_twin():
+    """`TrilinearPoolFunction`'s backward (the 8-corner scatter-add, points
+    constant) against `jax.grad` of the XLA twin, whose bf16 volume cast
+    rounds the gradient to bf16 too: bf16 tolerance."""
+    import jax
+
+    dense, zyx, _, roi_b, valid = make_case(seed=4, C=16)
+    dense = torch.from_numpy(dense).to(torch.bfloat16).float().numpy()
+    g = np.random.RandomState(5).randn(*zyx.shape[:2], 16).astype(np.float32)
+    ref = jax.grad(lambda d: (PI._xla_reference_pool(
+        d, jnp.asarray(zyx), jnp.asarray(roi_b), jnp.asarray(valid)) * jnp.asarray(g)).sum())(
+        jnp.asarray(dense))
+    vol = torch.from_numpy(dense).to(torch.bfloat16).requires_grad_()
+    out = cuda_interp.TrilinearPoolFunction.apply(vol, torch.from_numpy(zyx),
+                                                  torch.from_numpy(roi_b), torch.from_numpy(valid))
+    (out * torch.from_numpy(g)).sum().backward()
+    ref = np.asarray(ref)
+    assert vol.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(vol.grad.float().numpy(), ref, rtol=1e-2,
+                               atol=1e-2 * np.abs(ref).max())
+    assert (ref != 0).mean() > 0.05

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: K1 (`ops/cuda_conv.sparse_conv`), K2 max (`ops/cuda_pool.sparse_pool`)
-and K4 (`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
+card: K1 (`ops/cuda_conv.sparse_conv`, and `sparse_conv_df` in
+transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw`), K2 max
+(`ops/cuda_pool.sparse_pool`) and K4 (`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
 `python -m pytest tests/test_torch_kernels.py -m cuda`."""
 
@@ -153,3 +154,99 @@ def test_cpu_tensors_take_the_plain_version():
     cuda_interp.trilinear_pool(vol, zyx, torch.zeros(2, dtype=torch.long),
                                torch.ones(2, 5, dtype=torch.bool))
     assert cuda_interp.launches == n1
+
+
+def _dw_case(device, kernel, stride, padding, cin, cout, dtype, seed=0):
+    st = _sparse_case(device, cin, seed=seed)
+    if stride == 1:
+        coords = st.coords
+    else:
+        _, coords, _, _ = TS.conv_output_sites(st, kernel, stride, padding, st.capacity)
+    g = torch.randn(coords.shape[0], cout, generator=torch.Generator().manual_seed(seed + 1))
+    g = torch.where((coords[:, 0] >= 0).cpu()[:, None], g, torch.zeros(()))
+    return (st.features.to(dtype), st.keys, coords, g.to(device), st.spatial_shape,
+            st.batch_size, kernel, stride, padding)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout", CONV_CASES)
+def test_sparse_conv_dw_kernel_matches_plain(cuda, kernel, stride, padding, cin, cout, dtype):
+    """K3 against its plain version (gather + bmm of the transpose), and
+    bit for bit the same in a second run."""
+    args = _dw_case(cuda, kernel, stride, padding, cin, cout, dtype)
+    n0 = cuda_conv.dw_launches
+    dw = cuda_conv.sparse_conv_dw(*args)
+    again = cuda_conv.sparse_conv_dw(*args)
+    torch.cuda.synchronize()
+    assert cuda_conv.dw_launches == n0 + 2
+    ref = cuda_conv.sparse_conv_dw_plain(*args)
+    assert dw.dtype == torch.float32 and dw.shape == ref.shape
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(dw, ref, rtol=1e-3, atol=1e-4 * scale)
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_dw_on_all_padding_table(cuda):
+    """No live row matches: dW is exactly 0 (every chunk's partial is written)."""
+    keys = torch.full((256,), cuda_conv.INT32_MAX, dtype=torch.int32, device=cuda)
+    feats = torch.rand(256, 8, device=cuda)
+    coords = torch.full((3000, 4), -1, dtype=torch.int32, device=cuda)
+    coords[:10] = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    g = torch.rand(3000, 16, device=cuda)
+    dw = cuda_conv.sparse_conv_dw(feats, keys, coords, g, (9, 20, 20), 2, 3, 1, 1)
+    assert dw.shape == (27, 8, 16) and torch.equal(dw, torch.zeros_like(dw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout",
+                         [c for c in CONV_CASES if c[1] != 1])
+def test_sparse_conv_df_transpose_matches_plain(cuda, kernel, stride, padding, cin, cout, dtype):
+    """K1 in transpose-query mode (the df of a strided conv) against its
+    plain version: input sites read the output table at (s + p - tap) / stride."""
+    st = _sparse_case(cuda, cin)
+    keys, coords, _, out_shape = TS.conv_output_sites(st, kernel, stride, padding, st.capacity)
+    K = int(np.prod(cuda_conv.triple(kernel)))
+    g = torch.randn(keys.shape[0], cout, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    w_t = (torch.randn(K, cout, cin, generator=torch.Generator().manual_seed(4))
+           / np.sqrt(K * cout)).to(cuda, dtype)
+    args = (keys, st.coords, w_t, out_shape, st.batch_size, kernel, stride, padding)
+    n0 = cuda_conv.df_launches
+    out = cuda_conv.sparse_conv_df(g, *args, transpose=True)
+    torch.cuda.synchronize()
+    assert cuda_conv.df_launches == n0 + 1
+    ref = cuda_conv.sparse_conv_plain(g, *args, transpose=True)
+    assert out.shape == (st.capacity, cin)
+    torch.testing.assert_close(out, ref, **TOL)
+    assert float(ref.abs().max()) > 0
+
+
+def test_cpu_tensors_take_the_plain_backward():
+    """The df (K1) and dW (K3) wrappers take their plain versions on CPU
+    tensors and count no launch."""
+    st = _sparse_case("cpu", 4, n=300, shape=(9, 20, 20))
+    g = torch.randn(st.capacity, 8)
+    n0, n1 = cuda_conv.df_launches, cuda_conv.dw_launches
+    dw = cuda_conv.sparse_conv_dw(st.features, st.keys, st.coords, g, st.spatial_shape, 2, 3, 1, 1)
+    torch.testing.assert_close(dw, cuda_conv.sparse_conv_dw_plain(
+        st.features, st.keys, st.coords, g, st.spatial_shape, 2, 3, 1, 1), rtol=0, atol=0)
+    w_t = torch.randn(27, 8, 4)
+    df = cuda_conv.sparse_conv_df(g, st.keys, st.coords, w_t, st.spatial_shape, 2, 3, 1, 1,
+                                  transpose=False)
+    torch.testing.assert_close(df, cuda_conv.sparse_conv_plain(
+        g, st.keys, st.coords, w_t, st.spatial_shape, 2, 3, 1, 1), rtol=0, atol=0)
+    assert (cuda_conv.df_launches, cuda_conv.dw_launches) == (n0, n1)
+
+
+@pytest.mark.cuda
+def test_sparse_pool_refuses_a_gradient(cuda):
+    """K2 has no backward: a CUDA input that requires a gradient is refused."""
+    st = _sparse_case(cuda, 2, n=500)
+    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+    feats = st.features.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        cuda_pool.sparse_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
+    with torch.no_grad():
+        cuda_pool.sparse_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)

@@ -192,7 +192,8 @@ def test_dense_sparse_block_matches(transpose, stride, sub):
         v["batch_stats"]["_DenseBN_0"]["MaskedBatchNorm_0"] = {"mean": bn["mean"],
                                                                "var": bn["var"]}
         ref_y, ref_m = blk.apply(v, jnp.asarray(x), jnp.asarray(mask), False)
-        port = DenseSparseBlock(ci, co, stride=stride, transpose=transpose, submanifold=sub)
+        port = DenseSparseBlock(ci, co, stride=stride, transpose=transpose,
+                                submanifold=sub).eval()
         port.load_state_dict({"0.weight": t(w_ref), "1.weight": t(bn["scale"]),
                               "1.bias": t(bn["bias"]), "1.running_mean": t(bn["mean"]),
                               "1.running_var": t(bn["var"]),
@@ -318,7 +319,7 @@ def test_sparse_maxpool_module_reuses_cached_sites():
 
     st = _sparse_table(8)
     cache = {}
-    conv = TS.SparseConv3d(2, 4, 3, 2, 1, indice_key="spconv2", frame_capacity=300)
+    conv = TS.SparseConv3d(2, 4, 3, 2, 1, indice_key="spconv2", frame_capacity=(300, 300))
     x = conv(st, cache)
     pooled = TS.SparseMaxPool3d(3, 2, 1, indice_key="spconv2")(st, cache)
     assert pooled.keys is x.keys and pooled.capacity == 600

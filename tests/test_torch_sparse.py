@@ -222,7 +222,7 @@ def test_masked_batchnorm_eval():
     s = {"mean": rng.randn(6).astype(np.float32), "var": rng.rand(6).astype(np.float32) + 0.5}
     ref = JS.MaskedBatchNorm().apply({"params": p, "batch_stats": s}, jnp.asarray(x),
                                      jnp.asarray(mask), use_running_average=True)
-    bn = TS.MaskedBatchNorm(6)
+    bn = TS.MaskedBatchNorm(6).eval()
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(p["scale"]))
         bn.bias.copy_(torch.from_numpy(p["bias"]))
@@ -236,3 +236,90 @@ def test_dense_matches():
     jst, tst = make_pair(seed=9, C=5)
     for layout in ("zyx", "yzx"):
         np.testing.assert_array_equal(tst.dense(layout).numpy(), np.asarray(jst.dense(layout)))
+
+
+GRAD_CASES = [(3, 1, 1, 8, 16), (3, 2, 1, 8, 24), ((3, 1, 1), (2, 1, 1), 0, 16, 8),
+              (3, 2, (0, 1, 1), 256, 32)]
+GRAD_IDS = ["subm3", "s2", "k311", "s2-c256"]
+
+
+def _port_conv_grads(tst, w, kernel, stride, padding, cin, cout, feats):
+    """df, dW of sum(out**2) through the port's conv module (autograd:
+    K1 df + K3 dW, plain versions on the CPU)."""
+    mod = (TS.SubMConv3d(cin, cout, kernel) if stride == 1
+           else TS.SparseConv3d(cin, cout, kernel, stride, padding))
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w.reshape(mod.weight.shape)))
+    f = torch.from_numpy(feats).requires_grad_()
+    out = mod(tst.replace(features=f), {})
+    (out.features.float() ** 2).sum().backward()
+    return f.grad.numpy(), mod.weight.grad.reshape(w.shape).numpy()
+
+
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout", GRAD_CASES, ids=GRAD_IDS)
+def test_conv_gradients_match_jax_engine(kernel, stride, padding, cin, cout):
+    """The port's sparse-conv backward (df through K1's plain version, in
+    transpose-query mode for strided convs; dW through K3's) against
+    `jax.grad` of the JAX engine's `apply_rulebook_matmul`, f32."""
+    import jax
+
+    jst, tst, w, K = _conv_case(kernel, stride, padding, cin, cout, seed=21)
+    if stride == 1:
+        idx, found = JS.subm_rulebook(jst, kernel)
+    else:
+        keys, coords, _, _ = JS.conv_output_sites(jst, kernel, stride, padding, jst.capacity)
+        idx, found = JS.conv_rulebook(jst, coords, keys != JS.INT32_MAX, kernel, stride, padding)
+    feats = np.asarray(jst.features)
+    rf, rw = jax.grad(lambda f, ww: (JS.apply_rulebook_matmul(f, idx, found, ww) ** 2).sum(),
+                      argnums=(0, 1))(jnp.asarray(feats), jnp.asarray(w))
+    with f32_mode():
+        gf, gw = _port_conv_grads(tst, w, kernel, stride, padding, cin, cout,
+                                  tst.features.numpy())
+    # jst and tst hold the same rows in the same (key) order
+    rf, rw = np.asarray(rf), np.asarray(rw)
+    assert_close(gf, rf, rtol=1e-4, atol=1e-4 * np.abs(rf).max())
+    assert_close(gw, rw, rtol=1e-4, atol=1e-4 * np.abs(rw).max())
+    assert np.abs(rf).max() > 0 and np.abs(rw).max() > 0
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
+def test_conv_gradients_match_pallas_backward(strided):
+    """The port's backward in bf16 against the Pallas backward it replaces
+    (`_pallas_subm_ad` / `_pallas_strided_ad`: df through the fused conv
+    kernel, dW through `_fused_call_dw`), in interpret mode, at the bf16
+    tolerance of tests/test_pallas_conv.py."""
+    import jax
+
+    cin, cout = 16, 24
+    jst, tst = make_pair(seed=23, n=1200, C=cin)
+    w = (np.random.RandomState(24).randn(27, cin, cout) * 0.1).astype(np.float32)
+    if strided:
+        keys, coords, _, out_shape = JS.conv_output_sites(jst, 3, 2, 1, jst.capacity)
+        T = 128
+        qk, G, TPG = JP.qkeys_conv(coords, keys != JS.INT32_MAX, jst.spatial_shape,
+                                   jst.batch_size, 3, 2, 1, T)
+        cfg = (G, TPG, T, 128, 6, keys.shape[0], tuple(int(x) for x in out_shape),
+               jst.batch_size, (3, 3, 3), (2, 2, 2), (1, 1, 1), JP.tap_perm(3))
+
+        def pal(f, ww):
+            return (JS._pallas_strided_ad(cfg, f, ww, qk, jst.keys, keys, jst.coords) ** 2).sum()
+    else:
+        qk, G, TPG = JP.qkeys_subm(jst.coords, jst.valid, jst.spatial_shape, jst.batch_size,
+                                   3, 256)
+
+        def pal(f, ww):
+            cfg = (G, TPG, 256, 128, 6, jst.capacity, JP.tap_perm(3))
+            return (JS._pallas_subm_ad(cfg, f, ww, qk, jst.keys) ** 2).sum()
+
+    orig, orig_dw = JP._fused_call, JP._fused_call_dw
+    try:
+        JP._fused_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+        JP._fused_call_dw = lambda *a, **k: orig_dw(*a, **{**k, "interpret": True})
+        rf, rw = jax.grad(pal, argnums=(0, 1))(jst.features, jnp.asarray(w))
+    finally:
+        JP._fused_call, JP._fused_call_dw = orig, orig_dw
+    feats = bf16(tst.features.numpy())
+    gf, gw = _port_conv_grads(tst, bf16(w), 3, 2 if strided else 1, 1, cin, cout, feats)
+    np.testing.assert_allclose(gf, np.asarray(rf), atol=0.3, rtol=0.1)
+    np.testing.assert_allclose(gw, np.asarray(rw), atol=0.3, rtol=0.1)
+    assert np.abs(np.asarray(rw)).max() > 1.0

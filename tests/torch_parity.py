@@ -47,7 +47,7 @@ def det_only_micro_cfgs(**roi_overrides):
     return data_cfg, model_cfg
 
 
-def full_micro_cfgs():
+def full_micro_cfgs(**roi_overrides):
     """The full micro config of the JAX package (occ subnet on, exact ball
     queries)."""
     from btcdet_tpu.datasets.mini_config import micro_data_cfg, micro_model_cfg
@@ -55,6 +55,8 @@ def full_micro_cfgs():
     data_cfg = micro_data_cfg(with_occ=True)
     model_cfg = micro_model_cfg(with_occ=True)
     model_cfg.ROI_HEAD.APPROX_QUERY = False
+    for k, v in roi_overrides.items():
+        model_cfg.ROI_HEAD[k] = v
     return data_cfg, model_cfg
 
 
