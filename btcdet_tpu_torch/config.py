@@ -1,5 +1,5 @@
 """YAML configuration: attribute dicts, `_BASE_CONFIG_` inheritance, the
-flagship config and its det-only variant.
+flagship config, its det-only variant and its occ-code variants.
 
 Own copy of the config layer of `btcdet_tpu/config.py`, so the reference
 YAML files under `tools/cfgs/` load unchanged.
@@ -143,3 +143,35 @@ def flagship() -> EasyDict:
 def flagship_det_only() -> EasyDict:
     """`det_only` of the flagship `btcdet_kitti_car.yaml`."""
     return det_only(cfg_from_yaml_file(FLAGSHIP_CFG))
+
+
+OCC_VARIANT_DOWNSAMPLERS = ("fix", "avgpool", "weight", "maxpool")
+
+
+def set_occ_variant(backbone_cfg, down: str):
+    """Set a det `BACKBONE_3D` config (in place) to the occ-code variant
+    with downsampler `down` (fix, avgpool, weight or maxpool): the occ code
+    downsampled by `down` to every level and concatenated into the trunk at
+    every level, with the attention blocks at levels 0 and 1:
+      OCC_CONV_TYPE    ['identity', down, down, down]
+      OCC_CONV_EXECUTE [True, True, True, True]
+      OCC_ATT          [True, True, False, False]
+    No shipped yaml sets these; the reference constructs these blocks in
+    `build_occ_{fix,avgpool,weight,maxpool}_net` and `apply_att`
+    (`spconv_backbone.py:793-876`), and `tests/test_backbone_variants.py`
+    runs the same settings."""
+    if down not in OCC_VARIANT_DOWNSAMPLERS:
+        raise ValueError(f"occ-code downsampler {down!r}: one of {OCC_VARIANT_DOWNSAMPLERS}")
+    backbone_cfg["OCC_CONV_TYPE"] = ["identity", down, down, down]
+    backbone_cfg["OCC_CONV_EXECUTE"] = [True, True, True, True]
+    backbone_cfg["OCC_ATT"] = [True, True, False, False]
+    return backbone_cfg
+
+
+def flagship_occ_variant(down: str) -> EasyDict:
+    """`flagship()` (widths 16/32/64/64/128, test and train caps, the
+    occupancy subnet, ConvHead, exact ball queries) with the det backbone's
+    occ-code variant `down` (`set_occ_variant`)."""
+    cfg = flagship()
+    set_occ_variant(cfg.MODEL.BACKBONE_3D, down)
+    return cfg

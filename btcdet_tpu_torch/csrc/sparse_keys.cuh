@@ -1,5 +1,5 @@
 // Tap matching over key-sorted sparse voxel tables, shared by the sparse
-// conv (sparse_conv.cu, kernel K1) and the sparse max-pool
+// conv (sparse_conv.cu, kernel K1) and the sparse max- and sum-pool
 // (sparse_pool.cu, kernel K2).
 //
 // An input table is sorted by the y-major linear key

@@ -3,12 +3,13 @@
 Same schema and stride chain as the flagship `btcdet_kitti_car.yaml`
 (z grid 41 voxels + the backbone's +1 pad = 42 -> 21 -> 11 -> 5 -> 2) on a
 16 m (mini) or 6.4 m (micro) scene with narrow channels, for small
-checks of the port: the card-vs-CPU train-step check of `chip_smoke.py`.
+checks of the port: the card-vs-CPU checks of `chip_smoke.py`. `occ_down`
+builds the det backbone's occ-code variants.
 """
 
 from __future__ import annotations
 
-from ..config import EasyDict
+from ..config import EasyDict, set_occ_variant
 
 
 def mini_data_cfg(with_occ: bool = False) -> EasyDict:
@@ -53,7 +54,12 @@ def mini_data_cfg(with_occ: bool = False) -> EasyDict:
     return d
 
 
-def mini_model_cfg(with_occ: bool = False, with_roi: bool = True) -> EasyDict:
+def mini_model_cfg(with_occ: bool = False, with_roi: bool = True,
+                   occ_down: str | None = None) -> EasyDict:
+    """`occ_down` (fix, avgpool, weight or maxpool; needs `with_occ`) sets
+    the det backbone's occ-code variant (`config.set_occ_variant`: the code
+    downsampled by `occ_down` and concatenated at every level, OCC_ATT at
+    levels 0 and 1)."""
     m = EasyDict({
         "NAME": "BtcNet",
         "VFE": {"NAME": "OccVFE" if with_occ else "MeanVFE"},
@@ -183,6 +189,10 @@ def mini_model_cfg(with_occ: bool = False, with_roi: bool = True) -> EasyDict:
             "OCC_PNT_UPDATE": {"NAME": "PassOccVox", "PASS_GRAD": False},
             "OCC_POST_PROCESSING": None,
         }
+    if occ_down is not None:
+        if not with_occ:
+            raise ValueError("an occ-code variant needs the occupancy subnet (with_occ)")
+        set_occ_variant(m["BACKBONE_3D"], occ_down)
     return m
 
 
@@ -207,8 +217,9 @@ def micro_data_cfg(with_occ: bool = True) -> EasyDict:
     return d
 
 
-def micro_model_cfg(with_occ: bool = True, with_roi: bool = True) -> EasyDict:
-    m = mini_model_cfg(with_occ=with_occ, with_roi=with_roi)
+def micro_model_cfg(with_occ: bool = True, with_roi: bool = True,
+                    occ_down: str | None = None) -> EasyDict:
+    m = mini_model_cfg(with_occ=with_occ, with_roi=with_roi, occ_down=occ_down)
     m["BACKBONE_3D"]["CHANNELS"] = [8, 8, 8, 8, 8]
     m["BACKBONE_2D"].update({
         "LAYER_NUMS": [1, 1], "NUM_FILTERS": [8, 8],

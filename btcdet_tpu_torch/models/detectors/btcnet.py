@@ -97,9 +97,14 @@ class BtcNet(nn.Module):
 
         det = nn.Module()
         channels = tuple(bb.get("CHANNELS", (16, 32, 64, 64, 128)))
+        out_feat_type = tuple(bb.get("OUT_FEAT_TYPE", ["None"] * 4 + ["big_bev_combine"]))
+        if out_feat_type[4] != "big_bev_combine":
+            # the backbone builds every OUT_FEAT_TYPE; ConvHead's x_combine
+            # pool reads the big_bev_combine grid and widths only
+            raise NotImplementedError(f"OUT_FEAT_TYPE {out_feat_type[4]} in BtcNet")
         det.backbone_3d = backbones_3d.VoxelBackBone8xOcc(
             input_channels=num_point_features + occ_code_num, channels=channels,
-            out_feat_type=tuple(bb.get("OUT_FEAT_TYPE", ["None"] * 4 + ["big_bev_combine"])),
+            out_feat_type=out_feat_type,
             level_caps={m: _level_caps(bb, m) for m in ("train", "test")},
             occ_code_num=occ_code_num,
             occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])),

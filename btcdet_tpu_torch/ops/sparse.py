@@ -7,11 +7,13 @@ expansion + sorted unique under a static per-frame capacity, with the
 same drop rule as the JAX engine when a capacity binds. The conv itself
 runs through `cuda_conv.sparse_conv` (kernel K1 on CUDA tensors, the
 rulebook + batched-matmul plain version on CPU tensors) with its
-backward through K1 (df) and K3 (dW), the max-pool through
-`cuda_pool.sparse_pool` (kernel K2, forward only).
+backward through K1 (df) and K3 (dW), the max-pool and the fixed-weight
+sum-pool through `cuda_pool.sparse_pool` / `sparse_sum_pool` (kernel K2,
+forward only).
 
 `indice_key` semantics follow spconv: layers sharing a key reuse the
-cached output-site set.
+cached output-site set, and a layer whose kernel equals that of the conv
+that made the set also reuses its stride and padding (`shared_sites`).
 Conventions: coords (b, z, y, x) int32; features channels-last (N, C).
 """
 
@@ -234,26 +236,30 @@ class _SparseConv(nn.Module):
         nn.init.normal_(self.weight, std=(1.0 / (self.in_channels * self.weight[..., 0, 0].numel())) ** 0.5)
 
     def _sites(self, st, cache):
+        """(keys, coords, nnz, out_shape, stride, padding) of the output
+        sites and the geometry that pairs inputs with them."""
         if self.subm:
-            return st.keys, st.coords, st.nnz, st.spatial_shape
-        ck = ("sites", self.indice_key)
-        if self.indice_key and ck in cache:
-            return cache[ck]
+            return st.keys, st.coords, st.nnz, st.spatial_shape, self.stride, self.padding
+        if self.indice_key and ("sites", self.indice_key) in cache:
+            return shared_sites(cache, self.indice_key, self.kernel_size, self.stride,
+                                self.padding)
         per_frame = self.frame_capacity[0 if self.training else 1]
         cap = per_frame * st.batch_size if per_frame else st.capacity
         sites = conv_output_sites(st, self.kernel_size, self.stride, self.padding, cap)
         if self.indice_key:
-            cache[ck] = sites
-        return sites
+            cache[("sites", self.indice_key)] = sites
+            cache[("sites_geometry", self.indice_key)] = (self.kernel_size, self.stride,
+                                                          self.padding)
+        return (*sites, self.stride, self.padding)
 
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
-        keys, coords, nnz, out_shape = self._sites(st, cache)
+        keys, coords, nnz, out_shape, stride, padding = self._sites(st, cache)
         K = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
         out = cuda_conv.SparseConvFunction.apply(
             st.features.to(activation_dtype()),
             self.weight.reshape(K, self.in_channels, self.out_channels), st.keys, st.coords,
             keys, coords, (st.spatial_shape, tuple(int(v) for v in out_shape), st.batch_size,
-                           self.kernel_size, self.stride, self.padding, self.subm))
+                           self.kernel_size, stride, padding, self.subm))
         out = torch.where((keys != INT32_MAX)[:, None], out, torch.zeros_like(out))
         return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
                             tuple(int(v) for v in out_shape), st.batch_size)
@@ -272,13 +278,31 @@ class SparseConv3d(_SparseConv):
     `indice_key`."""
 
 
-class SparseMaxPool3d(nn.Module):
-    """Strided sparse max-pool (spconv `SparseMaxPool3d`): per-channel max
-    over the matched inputs of each output site, 0 where none matched. Its
-    output sites are the set that an earlier strided conv cached under the
-    same `indice_key` (the flagship's occ_conv2 pools onto conv2's sites).
-    Runs through `cuda_pool.sparse_pool` (kernel K2 on CUDA tensors); no
-    parameters."""
+def shared_sites(cache: dict, indice_key: str, kernel_size, stride, padding):
+    """(keys, coords, nnz, out_shape, stride, padding) for a conv or pool
+    over the output sites that a strided conv cached under `indice_key`.
+
+    The JAX package shares one pair set per (indice_key, kernel size): its
+    CPU path through the rulebook cache, its TPU path through the query-key
+    cache. So a layer whose kernel equals that of the conv that made the
+    sites pairs inputs with that conv's stride and padding, whatever its
+    own (the level-3 occ downsamplers ask for padding (1,1,1) and get
+    conv4's (0,1,1)); a layer with another kernel (`avgpool`'s k=2) uses its
+    own. Raises when nothing is cached under the key."""
+    if ("sites", indice_key) not in cache:
+        raise RuntimeError(f"no output sites cached under {indice_key!r}; run the strided "
+                           "conv that makes them first")
+    keys, coords, nnz, out_shape = cache[("sites", indice_key)]
+    kernel, site_stride, site_padding = cache[("sites_geometry", indice_key)]
+    if triple(kernel_size) == kernel:
+        return keys, coords, nnz, out_shape, site_stride, site_padding
+    return keys, coords, nnz, out_shape, triple(stride), triple(padding)
+
+
+class _SparsePool(nn.Module):
+    """A strided sparse pool over the output sites that an earlier strided
+    conv cached under the same `indice_key` (`shared_sites`); no
+    parameters, forward only (kernel K2 on CUDA tensors)."""
 
     def __init__(self, kernel_size, stride, padding, indice_key: str):
         super().__init__()
@@ -286,13 +310,41 @@ class SparseMaxPool3d(nn.Module):
                                                        triple(padding))
         self.indice_key = indice_key
 
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+        raise NotImplementedError
+
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
-        ck = ("sites", self.indice_key)
-        if ck not in cache:
-            raise RuntimeError(f"SparseMaxPool3d: no output sites cached under "
-                               f"{self.indice_key!r}; run the conv that makes them first")
-        keys, coords, nnz, out_shape = cache[ck]
-        out = cuda_pool.sparse_pool(st.features.float(), st.keys, coords, st.spatial_shape,
-                                    st.batch_size, self.kernel_size, self.stride, self.padding)
+        keys, coords, nnz, out_shape, stride, padding = shared_sites(
+            cache, self.indice_key, self.kernel_size, self.stride, self.padding)
+        out = self._pool(st.features.float(), st.keys, coords, st.spatial_shape, st.batch_size,
+                         stride, padding)
         return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
                             tuple(int(v) for v in out_shape), st.batch_size)
+
+
+class SparseMaxPool3d(_SparsePool):
+    """Strided sparse max-pool (spconv `SparseMaxPool3d`): per-channel max
+    over the matched inputs of each output site, 0 where none matched
+    (`cuda_pool.sparse_pool`). The flagship's occ_conv2 pools onto conv2's
+    sites."""
+
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+        return cuda_pool.sparse_pool(features, in_keys, out_coords, in_shape, batch_size,
+                                     self.kernel_size, stride, padding)
+
+
+class FixedSparseConv3d(_SparsePool):
+    """Strided conv with one constant weight, `default_value`, on every tap
+    and channel (the reference's `fixspconv` occ-code downsampler,
+    `spconv_backbone.py:812-828`; the JAX package's `FixedSparseConv3d`):
+    the sum of the matched inputs (`cuda_pool.sparse_sum_pool`), times
+    `default_value` after the sum."""
+
+    def __init__(self, kernel_size, stride, padding, indice_key: str,
+                 default_value: float = 1.0 / 27):
+        super().__init__(kernel_size, stride, padding, indice_key)
+        self.default_value = float(default_value)
+
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+        return cuda_pool.sparse_sum_pool(features, in_keys, out_coords, in_shape, batch_size,
+                                         self.kernel_size, stride, padding) * self.default_value

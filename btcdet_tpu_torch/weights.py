@@ -26,7 +26,11 @@ _DET3D = {
     "conv4_combine_0": ("conv4_combine", 0), "conv4_combine_1": ("conv4_combine", 1),
     "down2_0": ("down2", 0), "down2_1": ("down2", 1), "down3": ("down3", 0),
     "down_combine_0": ("down_combine", 0), "down_combine_1": ("down_combine", 1),
-    "squeezeBev": ("squeezeBev", 0),
+    "down_combine_2": ("down_combine", 2), "squeezeBev": ("squeezeBev", 0),
+    # OCC_ATT blocks (conv + BN) and the `weight` occ-code downsamplers (a
+    # bare conv, no BN)
+    "att_conv1": ("att_conv1", 0), "att_conv2": ("att_conv2", 0),
+    "occ_conv2": ("occ_conv2", 0), "occ_conv3": ("occ_conv3", 0), "occ_conv4": ("occ_conv4", 0),
 }
 _DET3D_KERNEL = {"conv_out": (3, 1, 1), "squeezeBev": (2, 1, 1)}
 # occ backbone: ours -> (reference block, sub-block); deconv*_0 are transpose convs
@@ -169,6 +173,22 @@ def _occ_modules(sd, P, S):
         sd["occ_modules.occ_dense_head.conv_res.0.weight"] = po["conv_res"]["kernel"]
 
 
+def det_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> dict:
+    """The JAX det backbone's `params` / `batch_stats` trees (a
+    `VoxelBackBone8xOcc`'s, the `det_backbone_3d` subtrees of BtcNet) ->
+    the port's backbone state dict under `prefix`, numpy arrays. Blocks
+    without a norm (the `weight` occ-code convs) have no BN entries."""
+    sd: dict = {}
+    for ours, sub in params.items():
+        ref, blk = _DET3D[ours]
+        base = f"{prefix}{ref}" + ("" if blk is None else f".{blk}")
+        conv = sub.get("SubMConv3d_0") or sub.get("SparseConv3d_0")
+        sd[f"{base}.0.weight"] = inv_sparse3d(conv["kernel"], _DET3D_KERNEL.get(ours, (3, 3, 3)))
+        if "MaskedBatchNorm_0" in sub:
+            _bn(sd, f"{base}.1", sub["MaskedBatchNorm_0"], batch_stats[ours]["MaskedBatchNorm_0"])
+    return sd
+
+
 def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=None) -> dict:
     """JAX BtcNet variables -> this port's state dict (reference names,
     `occ_modules.` / `det_modules.` prefixes, torch tensors).
@@ -183,12 +203,7 @@ def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=Non
         _occ_modules(sd, P, S)
 
     p3, s3 = P["det_backbone_3d"], S["det_backbone_3d"]
-    for ours, sub in p3.items():
-        ref, blk = _DET3D[ours]
-        base = f"{pre}backbone_3d.{ref}" + ("" if blk is None else f".{blk}")
-        conv = sub.get("SubMConv3d_0") or sub.get("SparseConv3d_0")
-        sd[f"{base}.0.weight"] = inv_sparse3d(conv["kernel"], _DET3D_KERNEL.get(ours, (3, 3, 3)))
-        _bn(sd, f"{base}.1", sub["MaskedBatchNorm_0"], s3[ours]["MaskedBatchNorm_0"])
+    sd.update(det_backbone_3d_state(p3, s3, f"{pre}backbone_3d."))
     bev_channels = p3["conv_out"]["SparseConv3d_0"]["kernel"].shape[-1]
 
     p2, s2 = P["det_backbone_2d"], S["det_backbone_2d"]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (`btcdet_tpu_torch`): the full
 flagship BtcNet eval forward (occupancy subnet included) on one CUDA
-card, its det-only variant as a second path, and the flagship training
-step as a third.
+card, its det-only variant as a second path, the det backbone's four
+occ-code variants (`config.flagship_occ_variant`) as a third, and the
+flagship training step (and the `fix` variant's) as a fourth.
 
     python3 chip_smoke.py
 
@@ -20,14 +21,25 @@ Phases (any failure raises and exits non-zero, printing no result):
      run once and every kernel (K1, K2, K4) must have launched; occ points
      and merged det voxels per frame, nnz per level, detections, median
      forward ms over 5 runs after 2 warm-ups, peak memory, ms per stage,
-     and one profiled step (device idle share, top kernels), the proposal
+     and one profiled step (device idle share, top kernels), the occ
+     subnet identical from run to run and its stage ms with the occ
+     backbone's scoped deterministic cuDNN and without it, the proposal
      NMS's chunked pass against the full-matrix greedy (same kept boxes,
      both timed); then the det-only flagship as the second path: counts
-     reset, one run, its launches, and its median;
+     reset, one run, its launches, and its median; then the occ-code
+     variants (`fix`, `avgpool`, `weight`, `maxpool`) as the third: the
+     `fix` and `avgpool` forwards captured and K2 sum held bit for bit
+     against its plain version on their calls (the three levels of `fix`,
+     the k=2 call of `avgpool`), then for each variant counts reset, one
+     run with its launches asserted, its outputs checked and nnz per
+     level, and for `fix` its median and ms per stage;
   6. small-input checks: small full and det-only configs in float32 on
      the card against the plain path on the CPU, same weights and batch
-     (full config: the occ subnets compared, then the det paths on the
-     card's occ outputs);
+     (full config: the occ subnets compared, run to run on the card as
+     well, then the det paths on the card's occ outputs); the micro
+     config's `fix` and `avgpool` variants the same way; the det backbone
+     module alone at the flagship's widths for OUT_FEAT_TYPE `combine` and
+     `big_combine`;
   7. train phase: the full flagship in `net.train()` at B=2 with the
      train caps. One captured step records its kernel calls; K3 (the
      weight gradient) is held against its plain version on five of them
@@ -39,12 +51,16 @@ Phases (any failure raises and exits non-zero, printing no result):
      moved parameters and BN statistics; 10 steps timed; and one step
      in float32 on the card against the CPU (loss terms
      to 1e-3, gradients to 1e-3 of each tensor's max) on the micro config;
+     then the `fix` variant's train step: one counted step in which K1
+     forward and df, K3, K2 sum and K4 launch and the attention blocks and
+     conv1_combine get gradients, then 3 timed steps;
   8. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -96,6 +112,7 @@ def kernel_modules():
 
     return {"sparse_conv": (cuda_conv, "launches"), "sparse_conv_df": (cuda_conv, "df_launches"),
             "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
+            "sparse_sum_pool": (cuda_pool, "sum_launches"),
             "trilinear_pool": (cuda_interp, "launches")}
 
 
@@ -130,6 +147,27 @@ def capture_kernel_inputs(run):
         for name, (mod, _) in mods.items():
             setattr(mod, name, orig[name])
     return calls
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the kernels whose name holds `kernel` over
+    `reps` calls of fn(), from torch.profiler: the kernel's own time, where
+    `cuda_ms` of back-to-back calls also counts the gaps a slower host
+    leaves between short launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    assert times, f"the profiler saw no {kernel} kernel"
+    return sum(times) / len(times) / 1e3
 
 
 def k1_case(name, args, df: bool = False, transpose: bool = False):
@@ -193,20 +231,23 @@ def k1_case(name, args, df: bool = False, transpose: bool = False):
             else "operations", "library_ms": None}
 
 
-def k2_case(args, label: str = ""):
-    """Compare (bit for bit) / time K2 max on the captured occ-code pool
-    (`label` names a call of another path than the eval forward)."""
+def k2_case(args, label: str = "", mode: str = "max"):
+    """Compare (bit for bit) / time K2 on a captured occ-code pool: max mode
+    (`sparse_pool`) or sum mode (`sparse_sum_pool`, FixedSparseConv3d).
+    `label` names a call of another path than the eval forward."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv, cuda_pool
 
+    kern_fn, plain_fn = ((cuda_pool.sparse_pool, cuda_pool.sparse_pool_plain) if mode == "max"
+                         else (cuda_pool.sparse_sum_pool, cuda_pool.sparse_sum_pool_plain))
     feats, keys, coords, shape, bsz, ksize, stride, pad = args
     feats = feats.detach()
     args = (feats, keys, coords, shape, bsz, ksize, stride, pad)
-    out = cuda_pool.sparse_pool(*args)
-    ref = cuda_pool.sparse_pool_plain(feats, keys, coords, shape, ksize, stride, pad)
+    out = kern_fn(*args)
+    ref = plain_fn(feats, keys, coords, shape, ksize, stride, pad)
     torch.cuda.synchronize()
-    assert torch.equal(out, ref), "K2: kernel and plain version differ"
+    assert torch.equal(out, ref), f"K2 {mode} {label}: kernel and plain version differ"
     err = float((out - ref).abs().max())
     # bound: the input rows some tap matched, the live keys the search runs
     # over, out_coords and the f32 output at capacity; one comparison per
@@ -220,14 +261,18 @@ def k2_case(args, label: str = ""):
     nbytes = rows_read * C * 4 + live_keys * 4 + M * 16 + M * C * 4
     flops = float(matches * C)
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    ms = cuda_ms(lambda: cuda_pool.sparse_pool(*args), reps=20)
-    plain_ms = cuda_ms(lambda: cuda_pool.sparse_pool_plain(feats, keys, coords, shape, ksize,
-                                                           stride, pad), reps=5, warmup=1)
-    log(f"K2 sparse_pool (max){' ' + label if label else ''}: N={N} M={M} C={C} kernel={ksize} stride={stride} "
+    ms = cuda_ms(lambda: kern_fn(*args), reps=20)
+    kernel_ms = device_ms(lambda: kern_fn(*args), "sparse_pool_kernel")
+    plain_ms = cuda_ms(lambda: plain_fn(feats, keys, coords, shape, ksize, stride, pad), reps=5,
+                       warmup=1)
+    log(f"K2 {kern_fn.__name__} ({mode}){' ' + label if label else ''}: N={N} M={M} C={C} "
+        f"kernel={ksize} stride={stride} padding={pad} "
         f"matches={matches} rows_read={rows_read} live_keys={live_keys} "
         f"rows_with_a_match={int(found.any(0).sum())} bytes={nbytes} max_abs_err={err} "
-        f"(bitwise equal) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
-    return {"name": "sparse_pool" + (f":{label}" if label else ""), "route": "cuda",
+        f"(bitwise equal) ms={ms:.4f} (kernel alone, profiler: {kernel_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
+    name = "sparse_pool" if mode == "max" else "sparse_pool_sum"
+    return {"name": name + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_conv.py:511", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
@@ -316,10 +361,9 @@ def k4_case(args, label: str = ""):
             else "operations", "library_ms": lib_ms}
 
 
-def stage_profile(net, batch, post_cfg):
-    """Where the time goes in one forward + post-processing: wall ms per
-    stage (each between two device synchronisations), then one step under
-    torch.profiler for the device's idle share and its top kernels."""
+def stage_times(net, batch, post_cfg) -> dict:
+    """Wall ms per stage of one forward + post-processing, each stage
+    between two device synchronisations."""
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
 
     times = {}
@@ -328,10 +372,121 @@ def stage_profile(net, batch, post_cfg):
         post_processing(net(batch), post_cfg, 1, stage_ms=times)
     finally:
         net.stage_ms = None
-    log("stage ms (synchronised): " + json.dumps({s: round(times[s], 3) for s in STAGES
-                                                  if s in times}))
+    return {s: round(times[s], 3) for s in STAGES if s in times}
 
+
+def stage_profile(net, batch, post_cfg):
+    """Where the time goes in one forward + post-processing: wall ms per
+    stage, then one step under torch.profiler for the device's idle share
+    and its top kernels."""
+    from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
+
+    log("stage ms (synchronised): " + json.dumps(stage_times(net, batch, post_cfg)))
     profile_step(lambda: post_processing(net(batch), post_cfg, 1), STAGES)
+
+
+def occ_determinism(net, batch, post_cfg):
+    """The occ subnet's probabilities must be the same from run to run (the
+    occ backbone runs its convs under a scoped deterministic cuDNN), and
+    what that costs: the `occ_subnet` stage ms with the scope and with it
+    bypassed (cuDNN's default algorithms), median of 5 runs each, taken in
+    turns."""
+    bb = net.occ_modules.backbone_3d
+    probs = [net.occ_modules(batch)["probs"] for _ in range(3)]
+    spread = max(float((p - probs[0]).abs().max()) for p in probs)
+    assert spread == 0.0, f"occ probabilities move by {spread} between runs"
+    ms = {"scoped deterministic cuDNN": [], "cuDNN default algorithms": []}
+    for i in range(10):
+        bypass = i % 4 in (1, 2)
+        if bypass:
+            bb.forward = bb._forward
+        try:
+            ms["cuDNN default algorithms" if bypass else "scoped deterministic cuDNN"].append(
+                stage_times(net, batch, post_cfg)["occ_subnet"])
+        finally:
+            if bypass:
+                del bb.forward
+    log("occ subnet, full flagship (B=2): probabilities identical over 3 runs; occ_subnet stage "
+        "ms, median of 5: " + json.dumps({k: round(statistics.median(v), 3)
+                                          for k, v in ms.items()})
+        + " all " + json.dumps({k: [round(t, 3) for t in v] for k, v in ms.items()}))
+
+
+def check_eval_outputs(net, batch, out, post):
+    """Finite eval outputs of the expected shapes and finite detections;
+    returns the detections per frame."""
+    import torch
+
+    B = batch["points"].shape[0]
+    occ_grid = tuple(int(v) for v in net.occ_modules.spec.grid_size[::-1])
+    n_anchor = net.det_modules.dense_head.anchors.shape[0]
+    K = net.occ_modules.eval_max_occ_pnts
+    expect = {"occ_probs": (B, *occ_grid), "occ_points": (B, K, 4),
+              "rpn_box_preds": (B, n_anchor, 7), "batch_box_preds": (B, 100, 7),
+              "batch_cls_preds": (B, 100, 1), "spatial_features_2d": (B, 200, 176, 256)}
+    for k, shp in expect.items():
+        assert tuple(out[k].shape) == shp, (k, tuple(out[k].shape), shp)
+        assert torch.isfinite(out[k].float()).all(), k
+    assert ((out["occ_probs"] >= 0) & (out["occ_probs"] <= 1)).all()
+    assert torch.isfinite(post["pred_boxes"]).all() and torch.isfinite(post["pred_scores"]).all()
+    return [int(v) for v in post["pred_valid"].sum(dim=1)]
+
+
+def occ_variant_paths():
+    """The third path: the full flagship with each of the det backbone's
+    occ-code variants (`config.flagship_occ_variant`), eval forward +
+    post-processing at B=2. K2 sum is held bit for bit against its plain
+    version on the captured calls of `fix` (levels 1-3, k=3) and of
+    `avgpool` (level 1, k=2); then per variant the launch counts are reset,
+    one run's launches asserted and its outputs checked. Returns the K2 sum
+    entries of the kernels line."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    entries = []
+    for down in config.OCC_VARIANT_DOWNSAMPLERS:
+        cfg = config.flagship_occ_variant(down)
+        net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
+        net.load_state_dict(weights.synth_state_dict(net))
+        batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                     seed=0, mode="test")
+        cases = []
+        if down in ("fix", "avgpool"):
+            calls = capture_kernel_inputs(lambda: net(batch))["sparse_sum_pool"]
+            assert len(calls) == 3, (down, len(calls))
+            for level, (args, _) in enumerate(calls[:3 if down == "fix" else 1], start=1):
+                cases.append(k2_case(args, f"{down}_l{level}", mode="sum"))
+            del calls
+        reset_launches()
+        out = net(batch)
+        post = post_processing(out, cfg.MODEL.POST_PROCESSING, 1)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {"sparse_conv": 23 if down == "weight" else 20, "sparse_conv_df": 0,
+                "sparse_conv_dw": 0, "sparse_pool": 3 if down == "maxpool" else 0,
+                "sparse_sum_pool": 3 if down in ("fix", "avgpool") else 0, "trilinear_pool": 1}
+        log(f"occ variant {down!r} path launches: {json.dumps(launches)}")
+        assert launches == want, (down, launches, want)
+        for e in cases:
+            e["launches"] = launches["sparse_sum_pool"]
+        entries += cases
+        n_det = check_eval_outputs(net, batch, out, post)
+        log(f"occ variant {down!r}: nnz per level {json.dumps(out['nnz'])}; occ points per frame "
+            f"{[int(v) for v in out['occ_points_mask'].sum(dim=1)]}; detections per frame {n_det}")
+        if down == "fix":
+            med, times = timed_median(lambda: forward_post(net, batch, cfg))
+            log(f"forward+post ms, flagship occ variant 'fix' (B=2, 5 runs after 2 warm-ups): "
+                f"median {med:.2f} all {[round(t, 2) for t in times]}")
+            log(f"occ variant 'fix' max_memory_allocated: "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            log("occ variant 'fix' stage ms (synchronised): "
+                + json.dumps(stage_times(net, batch, cfg.MODEL.POST_PROCESSING)))
+        del net, batch, out, post
+    return entries
 
 
 def profile_step(fn, ranges=(), label: str = "step"):
@@ -475,27 +630,58 @@ def same_point_sets(a, am, b, bm, tol):
     return worst
 
 
-def small_input_check(full: bool):
+@contextlib.contextmanager
+def f32_everywhere():
+    """Float32 activations in the port (`BTCDET_F32=1`) and no TF32 in
+    cuBLAS or cuDNN, for the duration."""
+    import torch
+
+    old = os.environ.get("BTCDET_F32")
+    os.environ["BTCDET_F32"] = "1"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        if old is None:
+            del os.environ["BTCDET_F32"]
+        else:
+            os.environ["BTCDET_F32"] = old
+
+
+def micro_variant_config(down: str):
+    """The micro config (`datasets.mini_config`, 8 channels on a 6.4 m scene)
+    with the det backbone's occ-code variant `down`."""
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import mini_config
+
+    cfg = config.EasyDict({"DATA_CONFIG": mini_config.micro_data_cfg(with_occ=True),
+                           "MODEL": mini_config.micro_model_cfg(with_occ=True, occ_down=down)})
+    cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
+    return cfg
+
+
+def small_input_check(cfg, label: str, spread: bool = False):
     """f32 on the card (kernels) against f32 on the CPU (plain versions).
 
-    Full config: the occ subnets of the two devices are compared first
-    (probabilities, occ point sets, merged det voxel sets); the CPU's det
-    path then reads the card's occ outputs, so the downstream comparison
-    sees the same occ points in the same order. The order of probabilities
-    that tie to within f32 rounding differs between the devices (and
-    between card runs), and it decides the ball query's first picks."""
+    With the occupancy subnet (MODEL.OCC) the occ subnets of the two
+    devices are compared first (probabilities, occ point sets, merged det
+    voxel sets); the CPU's det path then reads the card's occ outputs, so
+    the downstream comparison sees the same occ points in the same order.
+    The order of probabilities that tie to within f32 rounding differs
+    between the devices, and it decides the ball query's first picks.
+    `spread`: the card's occ probabilities must also be identical over 3
+    runs (the occ backbone's scoped deterministic cuDNN); the spread with
+    that scope bypassed is printed beside it."""
     import torch
 
     from btcdet_tpu_torch import weights
     from btcdet_tpu_torch.datasets import make_synthetic_batch
     from btcdet_tpu_torch.models import build_network
 
-    cfg = small_config(full)
-    old = os.environ.get("BTCDET_F32")
-    os.environ["BTCDET_F32"] = "1"
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
+    full = cfg.MODEL.get("OCC") is not None
+    with f32_everywhere():
         outs, occ = {}, {}
         for dev in ("cuda", "cpu"):
             net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device=dev)
@@ -513,22 +699,17 @@ def small_input_check(full: bool):
             outs[dev] = {k: v.cpu() for k, v in net(batch).items() if torch.is_tensor(v)}
             if hook is not None:
                 hook.remove()
-            if full and dev == "cuda":
-                # the card's run-to-run spread of the occ probabilities, with
-                # cuDNN free to pick any algorithm and with deterministic ones
-                spread, det0 = {}, torch.backends.cudnn.deterministic
-                for det in (False, True):
-                    torch.backends.cudnn.deterministic = det
-                    p = [net.occ_modules(batch)["probs"] for _ in range(3)]
-                    spread[f"cudnn.deterministic={det}"] = max(
-                        float((q - p[0]).abs().max()) for q in p)
-                torch.backends.cudnn.deterministic = det0
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        if old is None:
-            del os.environ["BTCDET_F32"]
-        else:
-            os.environ["BTCDET_F32"] = old
+            if spread and dev == "cuda":
+                bb, spreads = net.occ_modules.backbone_3d, {}
+                for scope in ("scoped deterministic cuDNN", "cuDNN default algorithms"):
+                    if scope == "cuDNN default algorithms":
+                        bb.forward = bb._forward
+                    try:
+                        p = [net.occ_modules(batch)["probs"] for _ in range(3)]
+                    finally:
+                        bb.__dict__.pop("forward", None)
+                    spreads[scope] = max(float((q - p[0]).abs().max()) for q in p)
+                assert spreads["scoped deterministic cuDNN"] == 0.0, spreads
     g, c = outs["cuda"], outs["cpu"]
     assert torch.equal(g["roi_valid"], c["roi_valid"]), "roi sets differ"
     worst = {}
@@ -558,10 +739,63 @@ def small_input_check(full: bool):
     if full:
         n_occ = [int(v) for v in g["occ_points_mask"].sum(1)]
         extra = f" (occ points per frame {n_occ}, merged det voxels {len(merged['cuda'])})"
-    log(f"small-input check, {'full' if full else 'det-only'} config{extra} (cuda f32 vs cpu "
-        "f32, rtol=atol=1e-3): max abs diff " + json.dumps(worst))
-    if full:
-        log("card run-to-run spread of the occ probabilities over 3 runs: " + json.dumps(spread))
+    log(f"small-input check, {label}{extra} (cuda f32 vs cpu f32, rtol=atol=1e-3): max abs diff "
+        + json.dumps(worst))
+    if spread:
+        log("card run-to-run spread of the occ probabilities over 3 runs: " + json.dumps(spreads))
+
+
+def backbone_module_check():
+    """The det backbone alone, the `fix` variant at the flagship's widths
+    (16/32/64/64/128) on the flagship's grid, in float32 on the card against
+    the CPU for OUT_FEAT_TYPE `combine` and `big_combine` (the model runs
+    `big_bev_combine` only): every output level to 1e-3."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.models import backbones_3d
+    from btcdet_tpu_torch.ops import sparse
+
+    grid, B, per_frame, cap = (41, 200, 176), 2, 4000, 24000
+    rng = np.random.RandomState(5)
+    coords = []
+    for b in range(B):
+        c = np.stack([np.full(3 * per_frame, b), rng.randint(0, 41, 3 * per_frame),
+                      rng.randint(40, 120, 3 * per_frame), rng.randint(20, 100, 3 * per_frame)], 1)
+        coords.append(np.unique(c, axis=0)[:per_frame])
+    coords = np.concatenate(coords + [np.full((cap - B * per_frame, 4), -1)]).astype(np.int32)
+    feats = rng.randn(cap, 6).astype(np.float32)
+    feats[:, -2:] = rng.rand(cap, 2)
+    worst = {}
+    with f32_everywhere():
+        for comb in ("combine", "big_combine"):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                bb = backbones_3d.VoxelBackBone8xOcc(
+                    6, (16, 32, 64, 64, 128), out_feat_type=("None",) * 4 + (comb,),
+                    occ_code_num=2, occ_conv_type=("identity",) + ("fix",) * 3,
+                    occ_conv_exec=(True,) * 4, out_att=(True, True, False, False))
+                bb.load_state_dict(weights.synth_state_dict(bb))
+                bb.to(dev).eval()
+                st = sparse.from_coords(torch.from_numpy(feats).to(dev),
+                                        torch.from_numpy(coords).to(dev), grid, B)
+                with torch.no_grad():
+                    out = bb(st, st.features[:, -2:])
+                outs[dev] = {k: (v.features.cpu(), v.keys.cpu(), int(v.nnz))
+                             for k, v in out.items() if v is not None}
+            assert outs["cuda"].keys() == outs["cpu"].keys()
+            for k, (gf, gk, gn) in outs["cuda"].items():
+                cf, ck, cn = outs["cpu"][k]
+                assert torch.equal(gk, ck) and gn == cn, f"{comb} {k}: site sets differ"
+                assert torch.isfinite(gf).all(), (comb, k)
+                torch.testing.assert_close(gf, cf, rtol=1e-3, atol=1e-3,
+                                           msg=lambda m, k=k: f"{comb} {k}: {m}")
+                worst[f"{comb}:{k}"] = float((gf - cf).abs().max())
+            log(f"backbone module check, OUT_FEAT_TYPE {comb!r}: nnz "
+                + json.dumps({k: v[2] for k, v in outs["cuda"].items()}))
+    log("backbone module check (the `fix` variant at flagship widths, cuda f32 vs cpu f32, "
+        "rtol=atol=1e-3): max abs diff " + json.dumps(worst))
 
 
 def k3_case(name, args):
@@ -699,7 +933,7 @@ def train_phase():
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"train-step launches: {json.dumps(launches)}")
-    assert all(n > 0 for n in launches.values()), launches
+    assert launches.pop("sparse_sum_pool") == 0 and all(n > 0 for n in launches.values()), launches
     for e in entries:
         e["launches"] = launches[e["name"].split(":")[0]]
     vals = {k: float(v) for k, v in metrics.items()}
@@ -747,6 +981,46 @@ def train_phase():
     return entries
 
 
+def variant_train_phase():
+    """The `fix` occ-code variant of the flagship in `net.train()` at B=2
+    with the train caps: one counted step in which K1 forward and df, K3,
+    K2 sum (3 levels) and K4 must launch, and the attention blocks and
+    conv1_combine (which read the occ code) get a non-zero gradient; then
+    3 timed steps."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    net, opt, batch = train_setup(config.flagship_occ_variant("fix"), 16384, 10, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_launches()
+    metrics = trainer.train_step(net, opt, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"occ variant 'fix' train-step launches: {json.dumps(launches)}")
+    assert launches["sparse_sum_pool"] == 3 and launches["sparse_pool"] == 0, launches
+    assert all(launches[k] > 0 for k in ("sparse_conv", "sparse_conv_df", "sparse_conv_dw",
+                                         "trilinear_pool")), launches
+    vals = {k: float(v) for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in vals.values()), vals
+    params = dict(net.named_parameters())
+    grads = {k: float(params[f"det_modules.backbone_3d.{k}"].grad.abs().max())
+             for k in ("att_conv1.0.0.weight", "att_conv2.0.0.weight",
+                       "conv1_combine.0.0.weight")}
+    log(f"occ variant 'fix' train step: loss {vals['loss']:.5f}; largest gradient "
+        f"{json.dumps(grads)}")
+    assert all(g > 0 and math.isfinite(g) for g in grads.values()), grads
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"train step ms, flagship occ variant 'fix' (B=2, train caps, 3 steps after the counted "
+        f"one): median {statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+
+
 def micro_train_config():
     """The micro config (`datasets.mini_config`: the flagship's topology on
     a 6.4 m scene, 8 channels) with the flagship's optimizers."""
@@ -781,16 +1055,13 @@ def small_train_check():
     cfg = micro_train_config()
     pass_keys = ("occ_points", "occ_points_mask", "det_voxel_features", "det_occ_code",
                  "det_voxel_coords", "det_voxel_num_points")
-    old = os.environ.get("BTCDET_F32")
-    os.environ["BTCDET_F32"] = "1"
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     orig = (roi_head_utils.draw_roi_sampling_uniforms, conv_head.draw_dropout_keep,
             occ_subnet.OccSubnet._pass_occ_vox)
     res, card_occ = {}, {}
     try:
         for run, dev in (("card", "cuda"), ("cpu", "cpu")):
-            net, opt, batch = train_setup(cfg, 2048, 4, 3, device=dev)
+            with f32_everywhere():
+                net, opt, batch = train_setup(cfg, 2048, 4, 3, device=dev)
             draw_gen = torch.Generator().manual_seed(11)
             roi_head_utils.draw_roi_sampling_uniforms = (
                 lambda generator, B, N, R, g=draw_gen: orig[0](g, B, N, R))
@@ -805,7 +1076,9 @@ def small_train_check():
                     res["occ_points_cpu"] = (out["occ_points"], out["occ_points_mask"])
                     out.update(card_occ)
             occ_subnet.OccSubnet._pass_occ_vox = pass_occ_vox
-            m = trainer.train_step(net, opt, batch, torch.Generator(device=dev).manual_seed(0))
+            with f32_everywhere():
+                m = trainer.train_step(net, opt, batch,
+                                       torch.Generator(device=dev).manual_seed(0))
             res[run] = ({k: float(v) for k, v in m.items()},
                         {n: p.grad.detach().cpu() for n, p in net.named_parameters()
                          if p.grad is not None})
@@ -813,11 +1086,6 @@ def small_train_check():
     finally:
         (roi_head_utils.draw_roi_sampling_uniforms, conv_head.draw_dropout_keep,
          occ_subnet.OccSubnet._pass_occ_vox) = orig
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        if old is None:
-            del os.environ["BTCDET_F32"]
-        else:
-            os.environ["BTCDET_F32"] = old
     (gm, gg), (cm, cg) = res["card"], res["cpu"]
     cpu_pts, cpu_mask = res["occ_points_cpu"]
     worst_pts = same_point_sets(card_occ["occ_points"], card_occ["occ_points_mask"], cpu_pts,
@@ -840,6 +1108,16 @@ def small_train_check():
         + json.dumps({k: round(v, 6) for k, v in cm.items()})
         + f"; largest loss-term difference {max(worst_loss.values()):.3e}; largest gradient "
         f"difference relative to its tensor's max {worst_grad:.3e} over {len(cg)} tensors")
+
+
+def forward_post(net, batch, cfg):
+    """One eval forward + post-processing, ended by a synchronisation."""
+    import torch
+
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    post_processing(net(batch), cfg.MODEL.POST_PROCESSING, 1)
+    torch.cuda.synchronize()
 
 
 def timed_median(step, runs: int = 5, warmup: int = 2):
@@ -875,6 +1153,7 @@ def main() -> int:
     from btcdet_tpu_torch.ops import kernel_build
 
     # 1. the card
+    t_start = time.perf_counter()
     card = gpu_name_and_power_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -933,10 +1212,11 @@ def main() -> int:
     launches = read_launches()
     hook.remove()
     log(f"main-path launches: {json.dumps(launches)}")
-    assert all(launches[k] > 0 for k in EVAL_KERNELS), launches
+    assert all(launches[k] > 0 for k in EVAL_KERNELS) and launches["sparse_sum_pool"] == 0, launches
     for e in kernels:
         e["launches"] = launches[e["name"].split(":")[0]]
     B = batch["points"].shape[0]
+    n_det = check_eval_outputs(net, batch, out, post)
     n_occ = [int(v) for v in out["occ_points_mask"].sum(dim=1)]
     st_c = seen["st"].coords
     merged = [int((st_c[:, 0] == b).sum()) for b in range(B)]
@@ -945,18 +1225,6 @@ def main() -> int:
         f"per frame: {merged} (new occ rows {[m - d for m, d in zip(merged, det_rows)]})")
     assert min(n_occ) > 0 and all(m > d for m, d in zip(merged, det_rows)), (n_occ, merged)
     log(f"nnz per level: {json.dumps(out['nnz'])}")
-    occ_grid = tuple(int(v) for v in net.occ_modules.spec.grid_size[::-1])
-    n_anchor = net.det_modules.dense_head.anchors.shape[0]
-    K = net.occ_modules.eval_max_occ_pnts
-    expect = {"occ_probs": (B, *occ_grid), "occ_points": (B, K, 4),
-              "rpn_box_preds": (B, n_anchor, 7), "batch_box_preds": (B, 100, 7),
-              "batch_cls_preds": (B, 100, 1), "spatial_features_2d": (B, 200, 176, 256)}
-    for k, shp in expect.items():
-        assert tuple(out[k].shape) == shp, (k, tuple(out[k].shape), shp)
-        assert torch.isfinite(out[k].float()).all(), k
-    assert ((out["occ_probs"] >= 0) & (out["occ_probs"] <= 1)).all()
-    assert torch.isfinite(post["pred_boxes"]).all() and torch.isfinite(post["pred_scores"]).all()
-    n_det = [int(v) for v in post["pred_valid"].sum(dim=1)]
     log(f"rois per frame: {[int(v) for v in out['roi_valid'].sum(dim=1)]}; "
         f"detections per frame: {n_det}")
     for b in range(B):
@@ -964,16 +1232,12 @@ def main() -> int:
         for box, sc in list(zip(post["pred_boxes"][b][keep], post["pred_scores"][b][keep]))[:3]:
             log(f"  frame {b}: score {float(sc):.3f} box {[round(float(v), 2) for v in box]}")
 
-    def step(n=net, bt=batch, c=cfg):
-        o = n(bt)
-        post_processing(o, c.MODEL.POST_PROCESSING, 1)
-        torch.cuda.synchronize()
-
-    med, times = timed_median(step)
+    med, times = timed_median(lambda: forward_post(net, batch, cfg))
     log(f"forward+post ms, full flagship (B=2, 5 runs after 2 warm-ups): median {med:.2f} "
         f"all {[round(t, 2) for t in times]}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     stage_profile(net, batch, cfg.MODEL.POST_PROCESSING)
+    occ_determinism(net, batch, cfg.MODEL.POST_PROCESSING)
     proposal_nms_check(net, batch)
     del net, batch, out, post, seen
 
@@ -990,20 +1254,28 @@ def main() -> int:
     dl = read_launches(EVAL_KERNELS)
     log(f"det-only path launches: {json.dumps(dl)}")
     assert dl["sparse_conv"] > 0 and dl["trilinear_pool"] > 0 and dl["sparse_pool"] == 0, dl
-    med, times = timed_median(lambda: step(dnet, dbatch, dcfg))
+    med, times = timed_median(lambda: forward_post(dnet, dbatch, dcfg))
     log(f"forward+post ms, det-only flagship (B=2, 5 runs after 2 warm-ups): median {med:.2f} "
         f"all {[round(t, 2) for t in times]}; nnz {json.dumps(dout['nnz'])}")
     del dnet, dbatch, dout
 
+    # 5c. third path: the det backbone's occ-code variants
+    kernels += occ_variant_paths()
+
     # 6. small-input checks
-    small_input_check(full=True)
-    small_input_check(full=False)
+    small_input_check(small_config(full=True), "full config", spread=True)
+    small_input_check(small_config(full=False), "det-only config")
+    for down in ("fix", "avgpool"):
+        small_input_check(micro_variant_config(down), f"micro config, occ variant {down!r}")
+    backbone_module_check()
 
     # 7. train phase
     kernels += train_phase()
     small_train_check()
+    variant_train_phase()
 
     # 8. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}), flush=True)

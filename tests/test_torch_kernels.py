@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: K1 (`ops/cuda_conv.sparse_conv`, and `sparse_conv_df` in
-transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw`), K2 max
-(`ops/cuda_pool.sparse_pool`) and K4 (`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
+transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw`), K2 max and sum
+(`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`) and K4
+(`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
 `python -m pytest tests/test_torch_kernels.py -m cuda`."""
 
@@ -117,6 +118,68 @@ def test_sparse_pool_kernel_on_all_padding_table(cuda):
     coords[:10] = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
     out = cuda_pool.sparse_pool(feats, keys, coords, (9, 20, 20), 2, 3, 2, 1)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride,padding,cin,seed", [
+    (3, 2, 1, 2, 0), (3, 2, (0, 1, 1), 2, 1), (2, 2, 1, 2, 2), (2, 2, (1, 1, 1), 2, 3),
+    (3, 2, 1, 5, 4)], ids=["fix", "fix-level3", "avgpool", "avgpool-level3", "5ch"])
+def test_sparse_sum_pool_kernel_matches_plain(cuda, kernel, stride, padding, cin, seed):
+    """K2 sum against its plain version: the same rows added in the same
+    (tap) order in float32, so bit for bit (tolerance 0), for the `fix`
+    (k=3) and `avgpool` (k=2) downsamplers' geometries."""
+    st = _sparse_case(cuda, cin, seed=seed)
+    feats = st.features.abs()                                  # occ codes are >= 0
+    _, coords, _, _ = TS.conv_output_sites(st, 3, stride, (0, 1, 1) if seed % 2 else 1,
+                                           st.capacity)
+    args = (st.keys, coords, st.spatial_shape, st.batch_size, kernel, stride, padding)
+    n0, m0 = cuda_pool.sum_launches, cuda_pool.launches
+    out = cuda_pool.sparse_sum_pool(feats, *args)
+    torch.cuda.synchronize()
+    assert (cuda_pool.sum_launches, cuda_pool.launches) == (n0 + 1, m0)
+    ref = cuda_pool.sparse_sum_pool_plain(feats, st.keys, coords, st.spatial_shape, kernel,
+                                          stride, padding)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out, ref)
+    assert (out[coords[:, 0] < 0] == 0).all() and float(out.max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_sparse_sum_pool_kernel_on_all_padding_table(cuda):
+    keys = torch.full((256,), cuda_conv.INT32_MAX, dtype=torch.int32, device=cuda)
+    feats = torch.rand(256, 2, device=cuda)
+    coords = torch.full((300, 4), -1, dtype=torch.int32, device=cuda)
+    coords[:10] = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    for kernel in (3, 2):
+        out = cuda_pool.sparse_sum_pool(feats, keys, coords, (9, 20, 20), 2, kernel, 2, 1)
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+def test_sparse_sum_pool_refuses_a_gradient(cuda):
+    """K2 sum has no backward: a CUDA input that requires a gradient is refused."""
+    st = _sparse_case(cuda, 2, n=500)
+    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+    feats = st.features.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        cuda_pool.sparse_sum_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
+    with torch.no_grad():
+        cuda_pool.sparse_sum_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
+
+
+def test_cpu_tensors_take_the_plain_sum_pool():
+    """K2 sum's wrapper takes its plain version on CPU tensors and counts no
+    launch."""
+    st = _sparse_case("cpu", 2, n=300, shape=(9, 20, 20))
+    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+    n0 = cuda_pool.sum_launches
+    for kernel in (3, 2):
+        out = cuda_pool.sparse_sum_pool(st.features, st.keys, coords, st.spatial_shape, 2, kernel,
+                                        2, 1)
+        torch.testing.assert_close(out, cuda_pool.sparse_sum_pool_plain(
+            st.features, st.keys, coords, st.spatial_shape, kernel, 2, 1), rtol=0, atol=0)
+    assert cuda_pool.sum_launches == n0
+    assert float(out.abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Inputs and weights carried across: the port's synthetic batch equals the
 JAX package's bit for bit (occupancy keys included), `from_jax_variables`
 inverts the JAX package's reference import exactly (occ subnet, deconv
-flip and SA_occpoints included), the flagship model's state dict is the
+flip, SA_occpoints and the det backbone's variant blocks included), the
+flagship model's state dict is the
 reference BtcDet's, and the port's synthetic weights are the JAX
 package's golden ones."""
 
@@ -128,6 +129,55 @@ def test_from_jax_variables_loads_strictly(roundtrip_variables):
     if "OCC" in model_cfg:
         assert any(".SA_occpoints." in k for k in sd)
         assert "occ_modules.backbone_3d.deconv5.0.0.weight" in sd
+
+
+def test_variant_backbone_names_round_trip():
+    """The det backbone's variant names through `det_backbone_3d_state` and
+    back through the JAX package's reference import: `att_conv1/2` (conv +
+    BN), the BN-less `weight` occ convs `occ_conv2..4` and OUT_FEAT_TYPE
+    `combine`'s `down_combine.2` (`from_jax_variables` maps the det
+    backbone through the same function); the port's backbone loads them
+    strictly."""
+    import jax
+    import jax.numpy as jnp
+
+    from btcdet_tpu.models import backbones_3d as JB
+    from btcdet_tpu.ops import sparse as S
+    from btcdet_tpu_torch.models import backbones_3d as TB
+
+    rng = np.random.RandomState(0)
+    coords = np.concatenate([np.unique(np.stack([np.zeros(40), rng.randint(0, 41, 40),
+                                                 rng.randint(0, 16, 40), rng.randint(0, 16, 40)],
+                                                1), axis=0),
+                             np.full((24, 4), -1)]).astype(np.int32)[:64]
+    st = S.from_coords(jnp.asarray(rng.randn(64, 6).astype(np.float32)), jnp.asarray(coords),
+                       (41, 16, 16), 1)
+    kw = dict(occ_code_num=2, occ_conv_type=("identity",) + ("weight",) * 3,
+              occ_conv_exec=(True,) * 4, out_att=(True, True, False, False))
+    jbb = JB.VoxelBackBone8xOcc(input_channels=6, channels=(4, 4, 4, 4, 8),
+                                out_feat_type=("None",) * 4 + ("combine",), **kw)
+    v = perturb_variables(jax.jit(lambda s: jbb.init(jax.random.PRNGKey(0), s,
+                                                     s.features[:, -2:]))(st))
+    sd = weights.det_backbone_3d_state(v["params"], v["batch_stats"], "det_modules.backbone_3d.")
+    for k in ("att_conv1.0.0.weight", "att_conv1.0.1.running_mean", "occ_conv3.0.0.weight",
+              "down_combine.2.0.weight", "down_combine.2.1.weight"):
+        assert f"det_modules.backbone_3d.{k}" in sd, k
+    assert not any(".occ_conv2.0.1." in k for k in sd)
+    tree = {"params": {"det_backbone_3d": v["params"]},
+            "batch_stats": {"det_backbone_3d": v["batch_stats"]}}
+    back, report = ref_import.map_reference_state(sd, tree)
+    assert report["unmapped_ref"] == report["uncovered_flax"] == report["shape_mismatch"] == []
+    flat_v = {"/".join(map(str, p)): x for p, x in _flatten(tree)}
+    flat_b = {"/".join(map(str, p)): x for p, x in _flatten(back)}
+    assert flat_v.keys() == flat_b.keys()
+    for k in flat_v:
+        np.testing.assert_array_equal(np.asarray(flat_b[k]), np.asarray(flat_v[k]), err_msg=k)
+    port = TB.VoxelBackBone8xOcc(6, (4, 4, 4, 4, 8), out_feat_type=("None",) * 4 + ("combine",),
+                                 **kw)
+    prefix = len("det_modules.backbone_3d.")
+    res = port.load_state_dict({k[prefix:]: torch.from_numpy(np.array(x)) for k, x in sd.items()},
+                               strict=True)
+    assert not res.missing_keys and not res.unexpected_keys
 
 
 def test_flagship_state_dict_is_the_reference_one():
