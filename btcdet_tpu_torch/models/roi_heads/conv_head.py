@@ -269,10 +269,12 @@ class ConvHead(nn.Module):
         zyx = torch.stack([tgt[..., 2], tgt[..., 1], tgt[..., 0]], dim=-1).contiguous()
         roi_b = torch.arange(B, device=dev).repeat_interleave(N)
         val = roi_valid.reshape(R)[:, None].expand(R, S)
-        volume = x_combine.dense().to(self.compute_dtype)                   # (B, D, H, W, C)
+        # (B, D, H, W, C) in the compute dtype: a permuted view of the
+        # scatter-native (B, H, D, W, C) table, which the sampler reads in place
+        volume = x_combine.replace(features=x_combine.features.to(self.compute_dtype)).dense()
         sampled = cuda_interp.TrilinearPoolFunction.apply(volume, zyx, roi_b, val)  # (R, S, C)
         C = sampled.shape[-1]
-        g = sampled.to(self.compute_dtype).reshape(R * G, lz, ly, lx, C).permute(0, 4, 1, 2, 3)
+        g = sampled.reshape(R * G, lz, ly, lx, C).permute(0, 4, 1, 2, 3)
         m = roi_valid.reshape(R)[:, None].expand(R, G).reshape(-1)
         g = self._conv_stack(g, m)
         return g.permute(0, 2, 3, 4, 1).reshape(B, N * G, -1)

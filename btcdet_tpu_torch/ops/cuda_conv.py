@@ -1,7 +1,7 @@
-"""Sparse conv with gradients: CUDA kernels K1 (`csrc/sparse_conv.cu`)
-and K3 (`csrc/sparse_conv_dw.cu`) beside their plain PyTorch versions
-(counterpart of `btcdet_tpu/ops/pallas_conv.py` and of the two
-`custom_vjp` bridges in `btcdet_tpu/ops/sparse.py`).
+"""Sparse conv with gradients: CUDA kernels K1 (`csrc/sparse_nbr.cu` and
+`csrc/sparse_conv.cu`) and K3 (`csrc/sparse_conv_dw.cu`) beside their
+plain PyTorch versions (counterpart of `btcdet_tpu/ops/pallas_conv.py` and
+of the two `custom_vjp` bridges in `btcdet_tpu/ops/sparse.py`).
 
 The forward computes, for output sites `out_coords` of a conv over a
 key-sorted input table,
@@ -13,11 +13,18 @@ with q(m, k) the y-major key of the input site out*stride - pad + tap_k
 with no active input, and 0 for padding rows (b < 0). A submanifold conv
 is stride 1, pad k//2 with `out_coords` = the input coords.
 
+K1 runs in two kernels: `neighbor_map` writes the (K, M) int32 map of
+matched input rows (-1 for none) once per (input table, output sites,
+geometry), and the gather-GEMM (`sparse_conv`, bf16 on the tensor cores,
+f32 on exact FMAs) reads it. `sparse.neighbor_map_cached` shares one map
+between the convs of a forward that pair alike.
+
 The backward (`SparseConvFunction`) is:
-  df  K1 again (`sparse_conv_df`): for a submanifold conv over the same
-      sites with tap-reversed, transposed weights; for a strided conv in
-      transpose-query mode over the forward's output table, input site s
-      reading output (s + pad - tap_k) / stride where it divides exactly;
+  df  K1 again (`sparse_conv_df`): for a submanifold conv over the
+      forward's own map with tap-reversed, transposed weights; for a
+      strided conv over a transpose-query map of the forward's output
+      table, input site s reading output (s + pad - tap_k) / stride where
+      it divides exactly;
   dW  K3 (`sparse_conv_dw`): dW[k] = sum_m features[match(q(m, k))]^T g[m].
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
@@ -35,9 +42,10 @@ import torch
 from . import kernel_build
 
 # kernel launches made by the wrappers below (CPU calls take the plain
-# versions and are not counted): the forward (`sparse_conv`), the df of
-# the backward (`sparse_conv_df`, K1 too) and the weight gradient
-# (`sparse_conv_dw`, K3)
+# versions and are not counted): the neighbour-map builds (`neighbor_map`),
+# the forward gather-GEMM (`sparse_conv`), the df of the backward
+# (`sparse_conv_df`, K1 too) and the weight gradient (`sparse_conv_dw`, K3)
+nbr_launches = 0
 launches = 0
 df_launches = 0
 dw_launches = 0
@@ -115,6 +123,20 @@ def apply_rulebook_matmul(features, idx, found, weights):
     return torch.bmm(g, weights.float()).sum(0)
 
 
+def neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride, padding,
+                       transpose: bool = False):
+    """The plain version of the map kernel: (K, M) int32, the input row of
+    tap k of output row m (`conv_rulebook`), -1 where nothing matched."""
+    idx, found = conv_rulebook(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
+                               padding, transpose)
+    return torch.where(found, idx, torch.full_like(idx, -1)).to(torch.int32)
+
+
+def apply_map_matmul(features, nbr, weights):
+    """The plain gather-GEMM over a neighbour map (`apply_rulebook_matmul`)."""
+    return apply_rulebook_matmul(features, nbr.clamp(min=0).long(), nbr >= 0, weights)
+
+
 def sparse_conv_plain(features, in_keys, out_coords, weights, in_spatial_shape,
                       batch_size, kernel_size, stride, padding, transpose: bool = False):
     """The plain PyTorch version of K1: rulebook + gather + batched matmul."""
@@ -134,9 +156,10 @@ def sparse_conv_dw_plain(features, in_keys, out_coords, g, in_spatial_shape, bat
     return torch.bmm(a.transpose(1, 2), g.float()[None].expand(a.shape[0], *g.shape))
 
 
-_K1_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+_NBR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+_K1_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p] + [ctypes.c_int] * 16 + [ctypes.c_void_p])
@@ -151,74 +174,124 @@ def _lib(name: str, fn: str, argtypes):
     return f
 
 
+def _check_pairs(who, in_keys, out_coords, in_spatial_shape, batch_size, kernel_size):
+    """Validate a pair search's inputs; returns (N, M, K)."""
+    if in_keys.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {in_keys.device}")
+    kz, ky, kx = triple(kernel_size)
+    nz, ny, nx = (int(v) for v in in_spatial_shape)
+    K = kz * ky * kx
+    if in_keys.dtype != torch.int32 or out_coords.dtype != torch.int32:
+        raise TypeError(f"{who}: keys and coords must be int32")
+    if K > 27 or in_keys.dim() != 1 or out_coords.dim() != 2 or out_coords.shape[1] != 4:
+        raise ValueError(f"{who}: bad shapes keys {tuple(in_keys.shape)} "
+                         f"coords {tuple(out_coords.shape)} kernel {(kz, ky, kx)}")
+    if batch_size * nz * ny * nx >= INT32_MAX:
+        raise ValueError(f"{who}: grid x batch overflows int32 keys")
+    if out_coords.device != in_keys.device:
+        raise ValueError(f"{who}: tensors on different devices")
+    return in_keys.shape[0], out_coords.shape[0], K
+
+
 def _check(who, features, in_keys, out_coords, weights, in_spatial_shape, batch_size,
            kernel_size):
     """Validate a kernel call's inputs; returns (N, Cin, M, K)."""
     if features.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {features.device}")
-    kz, ky, kx = triple(kernel_size)
-    nz, ny, nx = (int(v) for v in in_spatial_shape)
-    N, cin = features.shape
-    M = out_coords.shape[0]
-    K = kz * ky * kx
     if features.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{who}: features {features.dtype}")
-    if in_keys.dtype != torch.int32 or out_coords.dtype != torch.int32:
-        raise TypeError(f"{who}: keys and coords must be int32")
-    if K > 27 or out_coords.shape[1:] != (4,) or in_keys.shape != (N,):
-        raise ValueError(f"{who}: bad shapes features {tuple(features.shape)} "
-                         f"keys {tuple(in_keys.shape)} coords {tuple(out_coords.shape)} "
-                         f"kernel {(kz, ky, kx)}")
+    N, M, K = _check_pairs(who, in_keys, out_coords, in_spatial_shape, batch_size, kernel_size)
+    cin = features.shape[1]
+    if features.shape[0] != N:
+        raise ValueError(f"{who}: features {tuple(features.shape)} for {N} keys")
     if weights is not None and weights.dtype != features.dtype:
         raise TypeError(f"{who}: features {features.dtype} / weights {weights.dtype}")
     if weights is not None and tuple(weights.shape[:2]) != (K, cin):
         raise ValueError(f"{who}: weights {tuple(weights.shape)} for features "
                          f"{tuple(features.shape)} and {K} taps")
-    if batch_size * nz * ny * nx >= INT32_MAX:
-        raise ValueError(f"{who}: grid x batch overflows int32 keys")
-    for t in (in_keys, out_coords) + (() if weights is None else (weights,)):
+    for t in (in_keys,) + (() if weights is None else (weights,)):
         if t.device != features.device:
             raise ValueError(f"{who}: tensors on different devices")
     return N, cin, M, K
 
 
-def _launch_k1(who, features, in_keys, out_coords, weights, in_spatial_shape, batch_size,
-               kernel_size, stride, padding, transpose: bool):
-    N, cin, M, K = _check(who, features, in_keys, out_coords, weights, in_spatial_shape,
-                          batch_size, kernel_size)
-    cout = weights.shape[2]
+def neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size, kernel_size, stride,
+                 padding, transpose: bool = False):
+    """(K, M) int32 neighbour map (the map kernel, `csrc/sparse_nbr.cu`):
+    the row of the sorted key table `in_keys` that tap k of output row m
+    reads, or -1. `transpose` selects the transpose query (the df of a
+    strided conv: `in_keys` is then its output table, `out_coords` its
+    input sites)."""
+    if in_keys.device.type == "cpu":
+        return neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
+                                  padding, transpose)
+    N, M, K = _check_pairs("neighbor_map", in_keys, out_coords, in_spatial_shape, batch_size,
+                           kernel_size)
+    in_keys, out_coords = in_keys.contiguous(), out_coords.contiguous()
+    nbr = torch.empty((K, M), dtype=torch.int32, device=in_keys.device)
+    if M == 0:
+        return nbr
+    stream = torch.cuda.current_stream(in_keys.device).cuda_stream
+    err = _lib("sparse_nbr", "sparse_conv_nbr", _NBR_ARGTYPES)(
+        in_keys.data_ptr(), N, out_coords.data_ptr(), M, nbr.data_ptr(), *triple(kernel_size),
+        *triple(stride), *triple(padding), *(int(v) for v in in_spatial_shape), int(transpose),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"neighbor_map kernel launch failed: cudaError {err}")
+    global nbr_launches
+    nbr_launches += 1
+    return nbr
+
+
+def _launch_k1(who, features, nbr, weights):
+    """K1's gather-GEMM over the map `nbr`: (out (M, Cout) f32, launched).
+    A bf16 Cin or Cout that is not a multiple of 8 is zero-padded here
+    (features and weights), so that the kernel's 16-byte copies align."""
+    K, cin, cout = weights.shape
+    M = nbr.shape[1]
     if cout > 256:
         raise ValueError(f"{who}: Cout {cout} > 256")
-    features, in_keys = features.contiguous(), in_keys.contiguous()
-    out_coords, weights = out_coords.contiguous(), weights.contiguous()
+    if nbr.dtype != torch.int32 or nbr.shape[0] != K or nbr.device != features.device:
+        raise ValueError(f"{who}: neighbour map {nbr.dtype} {tuple(nbr.shape)} on {nbr.device} "
+                         f"for {K} taps")
+    cin_k, cout8 = cin, cout
+    if features.dtype == torch.bfloat16:
+        cin_k, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+        if cin_k != cin:
+            features = torch.nn.functional.pad(features, (0, cin_k - cin))
+        if (cin_k, cout8) != (cin, cout):
+            weights = torch.nn.functional.pad(weights, (0, cout8 - cout, 0, cin_k - cin))
+    features, nbr, weights = features.contiguous(), nbr.contiguous(), weights.contiguous()
     out = torch.empty((M, cout), dtype=torch.float32, device=features.device)
     if M == 0:
         return out, False
     stream = torch.cuda.current_stream(features.device).cuda_stream
     err = _lib("sparse_conv", "sparse_conv_fwd", _K1_ARGTYPES)(
-        features.data_ptr(), int(features.dtype == torch.bfloat16), in_keys.data_ptr(), N,
-        out_coords.data_ptr(), M, weights.data_ptr(), out.data_ptr(), cin, cout,
-        *triple(kernel_size), *triple(stride), *triple(padding),
-        *(int(v) for v in in_spatial_shape), int(transpose), stream)
+        features.data_ptr(), int(features.dtype == torch.bfloat16), nbr.data_ptr(), M, K,
+        weights.data_ptr(), out.data_ptr(), cin_k, cout, cout8, stream)
     if err != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
     return out, True
 
 
 def sparse_conv(features, in_keys, out_coords, weights, in_spatial_shape, batch_size,
-                kernel_size, stride, padding):
+                kernel_size, stride, padding, nbr=None):
     """(M, Cout) float32 sparse-conv forward (K1).
 
     features (N, Cin) f32 or bf16; in_keys (N,) int32 ascending, padding
     INT32_MAX; out_coords (M, 4) int32; weights (K, Cin, Cout) in the
-    features' dtype.
+    features' dtype; nbr the (K, M) map of these pairs (`neighbor_map`),
+    built here when None.
     """
+    if features.device.type != "cpu":
+        _check("sparse_conv", features, in_keys, out_coords, weights, in_spatial_shape,
+               batch_size, kernel_size)
+    if nbr is None:
+        nbr = neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
+                           stride, padding)
     if features.device.type == "cpu":
-        return sparse_conv_plain(features, in_keys, out_coords, weights, in_spatial_shape,
-                                 batch_size, kernel_size, stride, padding)
-    out, launched = _launch_k1("sparse_conv", features, in_keys, out_coords, weights,
-                               in_spatial_shape, batch_size, kernel_size, stride, padding,
-                               False)
+        return apply_map_matmul(features, nbr, weights)
+    out, launched = _launch_k1("sparse_conv", features, nbr, weights)
     if launched:
         global launches
         launches += 1
@@ -226,20 +299,24 @@ def sparse_conv(features, in_keys, out_coords, weights, in_spatial_shape, batch_
 
 
 def sparse_conv_df(g, table_keys, query_coords, weights, table_spatial_shape, batch_size,
-                   kernel_size, stride, padding, transpose: bool):
+                   kernel_size, stride, padding, transpose: bool, nbr=None):
     """(M', C) float32: K1 computing the df of a sparse conv's backward.
 
     g (N', Cout) is the output gradient as a table keyed by `table_keys`
     (sorted, over the grid `table_spatial_shape`); `query_coords` are the
     forward's input sites and `weights` (K, Cout, Cin) the per-tap
     transposed weights (tap-reversed for a submanifold conv). `transpose`
-    selects the transpose query of a strided conv."""
+    selects the transpose query of a strided conv. `nbr`: the map of these
+    pairs (a submanifold conv's forward map), built here when None."""
+    if g.device.type != "cpu":
+        _check("sparse_conv_df", g, table_keys, query_coords, weights, table_spatial_shape,
+               batch_size, kernel_size)
+    if nbr is None:
+        nbr = neighbor_map(table_keys, query_coords, table_spatial_shape, batch_size,
+                           kernel_size, stride, padding, transpose)
     if g.device.type == "cpu":
-        return sparse_conv_plain(g, table_keys, query_coords, weights, table_spatial_shape,
-                                 batch_size, kernel_size, stride, padding, transpose)
-    out, launched = _launch_k1("sparse_conv_df", g, table_keys, query_coords, weights,
-                               table_spatial_shape, batch_size, kernel_size, stride, padding,
-                               transpose)
+        return apply_map_matmul(g, nbr, weights)
+    out, launched = _launch_k1("sparse_conv_df", g, nbr, weights)
     if launched:
         global df_launches
         df_launches += 1
@@ -295,23 +372,25 @@ class SparseConvFunction(torch.autograd.Function):
     """`sparse_conv` with its backward through K1 (df) and K3 (dW), the
     counterpart of the JAX package's `_pallas_subm_ad` / `_pallas_strided_ad`.
 
-    apply(features, weights, in_keys, in_coords, out_keys, out_coords, geo)
+    apply(features, weights, in_keys, in_coords, out_keys, out_coords, geo, nbr)
     with geo = (in_shape, out_shape, batch_size, kernel, stride, padding,
-    subm); `weights` (K, Cin, Cout) in any float dtype (the forward runs
-    in the features' dtype, dW comes back in the weights' dtype). The df
-    is skipped when the features need no gradient."""
+    subm) and nbr the forward's (K, M) neighbour map (`neighbor_map`);
+    `weights` (K, Cin, Cout) in any float dtype (the forward runs in the
+    features' dtype, dW comes back in the weights' dtype). The df is
+    skipped when the features need no gradient; a submanifold conv's df
+    reads the forward's map."""
 
     @staticmethod
-    def forward(ctx, features, weights, in_keys, in_coords, out_keys, out_coords, geo):
+    def forward(ctx, features, weights, in_keys, in_coords, out_keys, out_coords, geo, nbr):
         in_shape, _, batch, kernel, stride, padding, _ = geo
         ctx.geo = geo
-        ctx.save_for_backward(features, weights, in_keys, in_coords, out_keys, out_coords)
+        ctx.save_for_backward(features, weights, in_keys, in_coords, out_keys, out_coords, nbr)
         return sparse_conv(features, in_keys, out_coords, weights.to(features.dtype), in_shape,
-                           batch, kernel, stride, padding)
+                           batch, kernel, stride, padding, nbr=nbr)
 
     @staticmethod
     def backward(ctx, g):
-        features, weights, in_keys, in_coords, out_keys, out_coords = ctx.saved_tensors
+        features, weights, in_keys, in_coords, out_keys, out_coords, nbr = ctx.saved_tensors
         in_shape, out_shape, batch, kernel, stride, padding, subm = ctx.geo
         g = g.float().contiguous()
         df = dw = None
@@ -320,7 +399,7 @@ class SparseConvFunction(torch.autograd.Function):
             if subm:
                 df = sparse_conv_df(g.to(dt), in_keys, in_coords,
                                     weights.flip(0).transpose(1, 2).to(dt), in_shape, batch,
-                                    kernel, 1, padding, transpose=False)
+                                    kernel, 1, padding, transpose=False, nbr=nbr)
             else:
                 df = sparse_conv_df(g.to(dt), out_keys, in_coords,
                                     weights.transpose(1, 2).to(dt), out_shape, batch, kernel,
@@ -329,4 +408,4 @@ class SparseConvFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = sparse_conv_dw(features, in_keys, out_coords, g, in_shape, batch, kernel,
                                 stride, padding).to(weights.dtype)
-        return df, dw, None, None, None, None, None
+        return df, dw, None, None, None, None, None, None

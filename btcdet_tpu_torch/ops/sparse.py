@@ -6,7 +6,9 @@ rows come first. Strided convs generate their output sites by candidate
 expansion + sorted unique under a static per-frame capacity, with the
 same drop rule as the JAX engine when a capacity binds. The conv itself
 runs through `cuda_conv.sparse_conv` (kernel K1 on CUDA tensors, the
-rulebook + batched-matmul plain version on CPU tensors) with its
+rulebook + batched-matmul plain version on CPU tensors) over a neighbour
+map built once per forward for each (input table, output sites,
+geometry) (`neighbor_map_cached`), with its
 backward through K1 (df) and K3 (dW), the max-pool and the fixed-weight
 sum-pool through `cuda_pool.sparse_pool` / `sparse_sum_pool` (kernel K2,
 forward only).
@@ -255,11 +257,12 @@ class _SparseConv(nn.Module):
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
         keys, coords, nnz, out_shape, stride, padding = self._sites(st, cache)
         K = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
+        nbr = neighbor_map_cached(cache, st, keys, coords, self.kernel_size, stride, padding)
         out = cuda_conv.SparseConvFunction.apply(
             st.features.to(activation_dtype()),
             self.weight.reshape(K, self.in_channels, self.out_channels), st.keys, st.coords,
             keys, coords, (st.spatial_shape, tuple(int(v) for v in out_shape), st.batch_size,
-                           self.kernel_size, stride, padding, self.subm))
+                           self.kernel_size, stride, padding, self.subm), nbr)
         out = torch.where((keys != INT32_MAX)[:, None], out, torch.zeros_like(out))
         return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
                             tuple(int(v) for v in out_shape), st.batch_size)
@@ -297,6 +300,28 @@ def shared_sites(cache: dict, indice_key: str, kernel_size, stride, padding):
     if triple(kernel_size) == kernel:
         return keys, coords, nnz, out_shape, site_stride, site_padding
     return keys, coords, nnz, out_shape, triple(stride), triple(padding)
+
+
+def neighbor_map_cached(cache: dict, in_st: SparseTensor, out_keys, out_coords, kernel_size,
+                        stride, padding):
+    """The (K, M) neighbour map (`cuda_conv.neighbor_map`) pairing the rows
+    of `in_st` with the output sites (`out_keys`, `out_coords`) under
+    (kernel, stride, padding), built once per forward `cache` and shared by
+    every conv that pairs the same input key table with the same sites the
+    same way: the subm convs of one indice_key, and the strided convs that
+    read one table onto one cached site set (conv3 and down2[0]). The entry
+    is keyed by the identity of both key tables and by the geometry, so a
+    map never crosses tables or geometries (the JAX package shares pair
+    sets per (indice_key, kernel size) instead, ROADMAP Queue 3)."""
+    geo = (triple(kernel_size), triple(stride), triple(padding))
+    key = ("nbr", id(in_st.keys), id(out_keys), geo)
+    hit = cache.get(key)
+    if hit is not None and hit[0] is in_st.keys and hit[1] is out_keys:
+        return hit[2]
+    nbr = cuda_conv.neighbor_map(in_st.keys, out_coords, in_st.spatial_shape, in_st.batch_size,
+                                 *geo)
+    cache[key] = (in_st.keys, out_keys, nbr)
+    return nbr
 
 
 class _SparsePool(nn.Module):

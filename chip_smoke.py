@@ -14,11 +14,17 @@ Phases (any failure raises and exits non-zero, printing no result):
   3. capture: one forward of the full flagship model at B=2 records the
      inputs its kernels see (these launches are not counted);
   4. kernel phase: each kernel against its plain PyTorch version on the
-     captured inputs (K1 / K4 in bf16 to 1e-2 of the plain output's max,
-     K2 max bit for bit), with kernel / plain / library times and the
-     card's bound;
+     captured inputs (K1's neighbour map bit for bit, its bf16 gather-GEMM
+     to 1e-2 of the plain output's max and bit for bit on a repeat, K4 in
+     bf16 within one bf16 ulp, K2 max bit for bit), with kernel (event and
+     profiler kernel-alone) / plain / library times and the card's bound;
+     a table of all 18 K1 launches of the eval forward over the maps it
+     built (shape, matches, kernel-alone ms, bound) and their sum; the
+     maps built per forward asserted equal to the distinct (input table,
+     sites, geometry) pairs;
   5. main path: launch counts reset, the full forward + post-processing
-     run once and every kernel (K1, K2, K4) must have launched; occ points
+     run once and every kernel (K1 map and GEMM, K2, K4) must have
+     launched, the maps EVAL_MAPS times; occ points
      and merged det voxels per frame, nnz per level, detections, median
      forward ms over 5 runs after 2 warm-ups, peak memory, ms per stage,
      and one profiled step (device idle share, top kernels), the occ
@@ -26,7 +32,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      backbone's scoped deterministic cuDNN and without it, the proposal
      NMS's chunked pass against the full-matrix greedy (same kept boxes,
      both timed); then the det-only flagship as the second path: counts
-     reset, one run, its launches, and its median; then the occ-code
+     reset, one run, its launches (K1 map and GEMM and K4), and its
+     median; then the occ-code
      variants (`fix`, `avgpool`, `weight`, `maxpool`) as the third: the
      `fix` and `avgpool` forwards captured and K2 sum held bit for bit
      against its plain version on their calls (the three levels of `fix`,
@@ -102,15 +109,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-# the eval path's kernels; a train step adds K1's df and K3
-EVAL_KERNELS = ("sparse_conv", "sparse_pool", "trilinear_pool")
+# the eval path's kernels (K1 is the neighbour map and the gather-GEMM);
+# a train step adds K1's df and K3
+EVAL_KERNELS = ("neighbor_map", "sparse_conv", "sparse_pool", "trilinear_pool")
+# neighbour maps a flagship-layout eval forward builds, one per distinct
+# (input key table, output sites, geometry): subm1-4, spconv2, spconv3
+# (conv3 and down2[0]), spconv4 (conv4, down2[1] and down3 all read the
+# spconv3 table), spconv_down2, subm_down2; the occ-code variants add
+# none (their convs pair like the trunk's)
+EVAL_MAPS = 9
 
 
 def kernel_modules():
     """{kernel wrapper name: (the ops module holding it, its launch counter)}."""
     from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 
-    return {"sparse_conv": (cuda_conv, "launches"), "sparse_conv_df": (cuda_conv, "df_launches"),
+    return {"neighbor_map": (cuda_conv, "nbr_launches"), "sparse_conv": (cuda_conv, "launches"),
+            "sparse_conv_df": (cuda_conv, "df_launches"),
             "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
             "sparse_sum_pool": (cuda_pool, "sum_launches"),
             "trilinear_pool": (cuda_interp, "launches")}
@@ -153,7 +168,8 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the kernels whose name holds `kernel` over
     `reps` calls of fn(), from torch.profiler: the kernel's own time, where
     `cuda_ms` of back-to-back calls also counts the gaps a slower host
-    leaves between short launches."""
+    leaves between short launches. The profiler may miss a few of a
+    session's launches; the mean is over those it saw, at least half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,17 +182,50 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and kernel in e.name]
-    assert times, f"the profiler saw no {kernel} kernel"
+    assert 2 * len(times) >= reps, f"the profiler saw {len(times)} {kernel} kernels of {reps}"
     return sum(times) / len(times) / 1e3
 
 
+def k1_bound(feats, w, nbr):
+    """(bytes, flops, bound seconds, bound_by) of K1's gather-GEMM over the
+    map `nbr`: what this run's data needs. The input rows some tap
+    matched, the map, the weights of taps that matched anything and the
+    f32 output, each once; 2 * Cin * Cout flops a match at the bf16
+    tensor-core rate, the rate of the TPU kernel it replaces."""
+    found = nbr >= 0
+    matches = int(found.sum())
+    rows_read = int(nbr[found].unique().numel())
+    taps_used = int(found.any(dim=1).sum())
+    cin = feats.shape[1]
+    K, M = nbr.shape
+    cout = w.shape[2]
+    nbytes = (rows_read * cin * feats.element_size() + K * M * 4
+              + taps_used * cin * cout * w.element_size() + M * cout * 4)
+    flops = 2.0 * cin * cout * matches
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    return nbytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbr_bound(keys, nbr):
+    """(bytes, bound seconds) of a neighbour-map build: the output coords
+    and the live keys the searches run over, read once, and the (K, M)
+    int32 map written once."""
+    K, M = nbr.shape
+    live_keys = int((keys != 2**31 - 1).sum())
+    nbytes = M * 16 + live_keys * 4 + K * M * 4
+    return nbytes, nbytes / HBM_BYTES_PER_S
+
+
 def k1_case(name, args, df: bool = False, transpose: bool = False):
-    """Compare / time K1 on one captured call: a forward (`sparse_conv`), or
-    with `df` the df of a conv's backward (`sparse_conv_df`): a submanifold
-    conv's over the same sites with tap-reversed weights, or with
-    `transpose` a strided conv's in transpose-query mode (the table is the
-    output gradient keyed by the forward's output sites, the queries are
-    its input sites)."""
+    """Compare / time K1 on one captured call: the neighbour map (bit for
+    bit against its plain version), then the gather-GEMM over it in bf16 (a
+    forward, `sparse_conv`, or with `df` the df of a conv's backward,
+    `sparse_conv_df`: a submanifold conv's over the same sites with
+    tap-reversed weights, or with `transpose` a strided conv's in
+    transpose-query mode, where the table is the output gradient keyed by
+    the forward's output sites and the queries are its input sites),
+    against its plain version to TOL and bit for bit on a repeat. Returns
+    the entries of the map and of the GEMM."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv
@@ -184,51 +233,92 @@ def k1_case(name, args, df: bool = False, transpose: bool = False):
     feats, keys, coords, w, shape, bsz, ksize, stride, pad = args[:9]
     feats, w = feats.detach().to(torch.bfloat16), w.detach().to(torch.bfloat16)
     cargs = (feats, keys, coords, w, shape, bsz, ksize, stride, pad)
+
+    def build():
+        return cuda_conv.neighbor_map(keys, coords, shape, bsz, ksize, stride, pad, transpose)
+
+    nbr = build()
+    nbr_ref = cuda_conv.neighbor_map_plain(keys, coords, shape, ksize, stride, pad, transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(nbr, nbr_ref), f"K1 map {name}: kernel and plain version differ"
     if df:
         def kern():
-            return cuda_conv.sparse_conv_df(*cargs, transpose=transpose)
+            return cuda_conv.sparse_conv_df(*cargs, transpose=transpose, nbr=nbr)
 
         def plain():
             return cuda_conv.sparse_conv_plain(*cargs, transpose=transpose)
     else:
         def kern():
-            return cuda_conv.sparse_conv(*cargs)
+            return cuda_conv.sparse_conv(*cargs, nbr=nbr)
 
         def plain():
             return cuda_conv.sparse_conv_plain(*cargs)
-    out, ref = kern(), plain()
+    out, again, ref = kern(), kern(), plain()
     torch.cuda.synchronize()
+    assert torch.equal(out, again), f"K1 {name}: two bf16 runs differ"
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     assert err <= TOL * max(scale, 1e-6), f"K1 {name}: max err {err} vs plain max {scale}"
-    # bound: what this run's data needs. Features of the input rows some
-    # tap matched, the live (non-padding) keys the search runs over, the
-    # weights of taps that matched anything; out_coords and the output at
-    # capacity, since the kernel reads and writes every row of them.
-    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad, transpose)
-    matches = int(found.sum())
-    rows_read = int(idx[found].unique().numel())
-    live_keys = int((keys != cuda_conv.INT32_MAX).sum())
-    taps_used = int(found.any(dim=1).sum())
-    N, cin = feats.shape
-    M = coords.shape[0]
-    K, _, cout = w.shape
-    nbytes = (rows_read * cin * 2 + live_keys * 4 + M * 16 + taps_used * cin * cout * 2
-              + M * cout * 4)
-    flops = 2.0 * cin * cout * matches
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS)
+    nbytes, flops, bound_s, bound_by = k1_bound(feats, w, nbr)
+    map_bytes, map_bound_s = nbr_bound(keys, nbr)
     ms = cuda_ms(kern, reps=20)
+    kernel_ms = device_ms(kern, "sparse_conv_mma_kernel")
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    map_ms = cuda_ms(build, reps=20)
+    map_kernel_ms = device_ms(build, "sparse_nbr_kernel")
+    map_plain_ms = cuda_ms(lambda: cuda_conv.neighbor_map_plain(keys, coords, shape, ksize, stride,
+                                                                pad, transpose), reps=5, warmup=1)
+    N, cin = feats.shape
+    K, M = nbr.shape
+    cout = w.shape[2]
     log(f"K1 {name}: N={N} M={M} Cin={cin} Cout={cout} kernel={ksize} stride={stride} "
-        f"matches={matches} rows_read={rows_read} live_keys={live_keys} taps_used={taps_used} "
-        f"bytes={nbytes} flops={flops:.0f} max_abs_err={err:.3e} (plain max {scale:.3e}) "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
-    return {"name": f"{'sparse_conv_df' if df else 'sparse_conv'}:{name}", "route": "cuda",
+        f"matches={int((nbr >= 0).sum())} bytes={nbytes} flops={flops:.0f} max_abs_err={err:.3e} "
+        f"(plain max {scale:.3e}, bitwise repeatable) ms={ms:.4f} (kernel alone, profiler: "
+        f"{kernel_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}; map: bitwise "
+        f"equal, ms={map_ms:.4f} (kernel alone {map_kernel_ms:.4f}) plain_ms={map_plain_ms:.4f} "
+        f"bound_ms={map_bound_s * 1e3:.4f}")
+    gemm = {"name": f"{'sparse_conv_df' if df else 'sparse_conv'}:{name}", "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_conv.cu",
             "replaces": "btcdet_tpu/ops/pallas_conv.py:511", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TENSOR_FLOPS
-            else "operations", "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": None}
+    nmap = {"name": f"neighbor_map:{name}", "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/sparse_nbr.cu",
+            "replaces": "btcdet_tpu/ops/pallas_conv.py:511", "max_abs_err": 0.0, "ms": map_ms,
+            "plain_ms": map_plain_ms, "bound_ms": map_bound_s * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+    return [nmap, gemm]
+
+
+def k1_eval_table(conv_calls, map_calls):
+    """Every K1 launch of one eval forward, from its captured calls: each
+    gather-GEMM over the map the forward built for it (shape, matches,
+    kernel-alone ms from one profiler session, bound), their sum, and the
+    forward's map builds with theirs."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_conv
+
+    fns, rows = [], []
+    for i, (a, kw) in enumerate(conv_calls):
+        feats, keys, coords, w, shape, bsz, ksize, stride, pad = a[:9]
+        nbr = kw["nbr"]
+        fns.append(lambda a=a, nbr=nbr: cuda_conv.sparse_conv(*a[:9], nbr=nbr))
+        _, flops, bound_s, by = k1_bound(feats, w, nbr)
+        rows.append((i, tuple(feats.shape), coords.shape[0], w.shape[2], ksize, stride,
+                     int((nbr >= 0).sum()), flops, bound_s, by))
+    ms = [device_ms(fn, "sparse_conv_mma_kernel", reps=5) for fn in fns]
+    log(f"K1 eval launches ({len(rows)}, bf16 gather-GEMM, kernel alone from the profiler, "
+        "mean of 5 runs each):")
+    for (i, fshape, M, cout, ksize, stride, matches, flops, bound_s, by), t in zip(rows, ms):
+        log(f"  #{i:2d} N,Cin={fshape} M={M} Cout={cout} kernel={ksize} stride={stride} "
+            f"matches={matches} ms={t:.4f} bound_ms={bound_s * 1e3:.4f} ({by}) "
+            f"TFLOP/s={flops / (t * 1e-3) / 1e12:.1f}")
+    maps = [lambda a=a, kw=kw: cuda_conv.neighbor_map(*a, **kw) for a, kw in map_calls]
+    map_ms = [device_ms(fn, "sparse_nbr_kernel", reps=5) for fn in maps]
+    log(f"K1 eval forward: {len(rows)} gather-GEMM launches {sum(ms):.4f} ms of kernel in all; "
+        f"{len(maps)} map builds {sum(map_ms):.4f} ms ({[round(t, 4) for t in map_ms]})")
+    torch.cuda.synchronize()
 
 
 def k2_case(args, label: str = "", mode: str = "max"):
@@ -312,29 +402,39 @@ def k4_case(args, label: str = ""):
     from btcdet_tpu_torch.ops import cuda_interp
 
     vol, zyx, roi_b, valid = args
-    vol = vol.detach().to(torch.bfloat16)
+    vol = vol.detach().to(torch.bfloat16)      # the view ConvHead passes, read in place
     out = cuda_interp.trilinear_pool(vol, zyx, roi_b, valid)
     ref = cuda_interp.trilinear_pool_plain(vol, zyx, roi_b, valid)
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    scale = float(ref.abs().max())
-    assert err <= TOL * max(scale, 1e-6), f"K4: max err {err} vs plain max {scale}"
+    assert out.dtype == ref.dtype == torch.bfloat16
+    # both add the 8 weighted corners in the same order in f32 and round
+    # once: at most one bf16 ulp apart (bit for bit when no f32 step differs)
+    diff = (out.float() - ref.float()).abs()
+    mag = torch.maximum(out.float().abs(), ref.float().abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool((diff <= ulp).all()), f"K4: {float((diff / ulp).max())} bf16 ulps from plain"
+    n_diff = int((diff > 0).sum())
+    err = float(diff.max())
+    scale = float(ref.float().abs().max())
     B, D, H, W, C = vol.shape
     R, S, _ = zyx.shape
     n_valid = int(valid.sum())
     # bound: the volume cells this run's samples touch, every point, flag
-    # and roi index (the kernel reads them all), and the whole output
+    # and roi index (the kernel reads them all), and the whole output in
+    # its dtype
     n_cells, n_reads = k4_reads(vol, zyx, roi_b, valid)
     nbytes = (n_cells * C * vol.element_size() + R * S * 12 + R * S + R * 4
-              + R * S * C * 4)
+              + R * S * C * out.element_size())
     flops = 2.0 * C * n_reads
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
     ms = cuda_ms(lambda: cuda_interp.trilinear_pool(vol, zyx, roi_b, valid), reps=20)
+    kernel_ms = device_ms(lambda: cuda_interp.trilinear_pool(vol, zyx, roi_b, valid),
+                          "trilinear_pool_kernel")
     plain_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_plain(vol, zyx, roi_b, valid),
                        reps=5, warmup=1)
     # library yardstick: 5-D grid_sample (zeros padding, align_corners) on the
     # same volume; rois are batch-ordered, N per frame
-    lib_ms, lib_err = None, None
+    lib_ms, lib_err, lib_kernel_ms = None, None, None
     if R % B == 0 and bool((roi_b == torch.arange(B, device=roi_b.device)
                             .repeat_interleave(R // B)).all()):
         # f32 copy of the bf16 volume (same values): a bf16 grid would round
@@ -347,12 +447,16 @@ def k4_case(args, label: str = ""):
             return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
                                  align_corners=True)
         got = lib().float().reshape(B, C, R // B * S).permute(0, 2, 1).reshape(R, S, C)
-        lib_err = float((got - out)[valid].abs().max())
+        lib_err = float((got - out.float())[valid].abs().max())
         lib_ms = cuda_ms(lib, reps=20)
-    log(f"K4 trilinear_pool{' ' + label if label else ''}: volume={tuple(vol.shape)} R={R} S={S} valid={n_valid} "
+        lib_kernel_ms = device_ms(lib, "grid_sampler_3d")
+    log(f"K4 trilinear_pool{' ' + label if label else ''}: volume={tuple(vol.shape)} "
+        f"strides={vol.stride()} out {out.dtype} R={R} S={S} valid={n_valid} "
         f"cells_read={n_cells} corner_reads={n_reads} bytes={nbytes} flops={flops:.0f} "
-        f"max_abs_err={err:.3e} (plain max {scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"grid_sample_ms={lib_ms} (max diff to kernel {lib_err}) bound_ms={bound_s * 1e3:.4f}")
+        f"max_abs_err={err:.3e} ({n_diff} of {out.numel()} elements differ, all within one "
+        f"bf16 ulp; plain max {scale:.3e}) ms={ms:.4f} (kernel alone, profiler: "
+        f"{kernel_ms:.4f}) plain_ms={plain_ms:.4f} grid_sample_ms={lib_ms} (kernel alone "
+        f"{lib_kernel_ms}; max diff to kernel {lib_err}) bound_ms={bound_s * 1e3:.4f}")
     return {"name": "trilinear_pool" + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/trilinear_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_interp.py:150", "max_abs_err": err, "ms": ms,
@@ -466,7 +570,8 @@ def occ_variant_paths():
         post = post_processing(out, cfg.MODEL.POST_PROCESSING, 1)
         torch.cuda.synchronize()
         launches = read_launches()
-        want = {"sparse_conv": 23 if down == "weight" else 20, "sparse_conv_df": 0,
+        want = {"neighbor_map": EVAL_MAPS, "sparse_conv": 23 if down == "weight" else 20,
+                "sparse_conv_df": 0,
                 "sparse_conv_dw": 0, "sparse_pool": 3 if down == "maxpool" else 0,
                 "sparse_sum_pool": 3 if down in ("fix", "avgpool") else 0, "trilinear_pool": 1}
         log(f"occ variant {down!r} path launches: {json.dumps(launches)}")
@@ -912,14 +1017,14 @@ def train_phase():
     # table, the transpose-query df of conv2, the subm df of down_combine_0
     fwd = next(a for a, _ in calls["sparse_conv"]
                if a[6] == (3, 3, 3) and a[7] == (1, 1, 1) and a[3].shape[2] == 16)
-    entries.append(k1_case(f"train conv1(subm {fwd[0].shape[1]}->16)", fwd))
+    entries += k1_case(f"train conv1(subm {fwd[0].shape[1]}->16)", fwd)
     df = next(a for a, kw in calls["sparse_conv_df"]
               if kw.get("transpose") and a[6] == (3, 3, 3) and a[7] == (2, 2, 2)
               and a[3].shape[2] == 16)
-    entries.append(k1_case("conv2 df (transpose query, 32->16)", df, df=True, transpose=True))
+    entries += k1_case("conv2 df (transpose query, 32->16)", df, df=True, transpose=True)
     df = next(a for a, kw in calls["sparse_conv_df"]
               if not kw.get("transpose") and a[3].shape[1:] == (128, 256))
-    entries.append(k1_case("down_combine_0 df (subm, 128->256)", df, df=True))
+    entries += k1_case("down_combine_0 df (subm, 128->256)", df, df=True)
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
     entries.append(k2_case(calls["sparse_pool"][0][0], "train"))
     entries.append(k4_case(calls["trilinear_pool"][0][0], "train"))
@@ -1160,7 +1265,8 @@ def main() -> int:
 
     # 2. kernels
     t0 = time.perf_counter()
-    kernel_build.build(["sparse_conv", "sparse_conv_dw", "sparse_pool", "trilinear_pool"])
+    kernel_build.build(["sparse_nbr", "sparse_conv", "sparse_conv_dw", "sparse_pool",
+                        "trilinear_pool"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
         for line in text.splitlines():
@@ -1173,11 +1279,17 @@ def main() -> int:
     net.load_state_dict(weights.synth_state_dict(net))
     batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
                                  seed=0, mode="test")
-    calls = capture_kernel_inputs(lambda: net(batch))
-    calls = {k: [a for a, _ in v] for k, v in calls.items()}
+    captured = capture_kernel_inputs(lambda: net(batch))
+    calls = {k: [a for a, _ in v] for k, v in captured.items()}
     convs = calls["sparse_conv"]
     log("capture: " + ", ".join(f"{len(calls[k])} {k} calls" for k in EVAL_KERNELS)
         + " per forward")
+    # one map per distinct (input key table, output sites, geometry)
+    pairings = {(a[1].data_ptr(), a[2].data_ptr(), a[6], a[7], a[8]) for a in convs}
+    log(f"neighbour maps: {len(calls['neighbor_map'])} built for {len(convs)} convs, "
+        f"{len(pairings)} distinct (input table, sites, geometry)")
+    assert len(calls["neighbor_map"]) == len(pairings) == EVAL_MAPS, (
+        len(calls["neighbor_map"]), len(pairings))
 
     # 4. kernel phase. Captured args: features, keys, out_coords, weights,
     # in_shape, batch, kernel, stride, padding; picked by kernel / stride /
@@ -1195,11 +1307,12 @@ def main() -> int:
         "conv_out(3x1x1 s2 64->128)": pick((3, 1, 1), (2, 1, 1), 128),
         "down_combine_0(subm 256->128)": pick((3, 3, 3), (1, 1, 1), 128),
     }
-    kernels = [k1_case(name, args) for name, args in picks.items()]
+    kernels = [e for name, args in picks.items() for e in k1_case(name, args)]
+    k1_eval_table(captured["sparse_conv"], captured["neighbor_map"])
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
     kernels.append(k2_case(calls["sparse_pool"][0]))
     kernels.append(k4_case(calls["trilinear_pool"][0]))
-    del calls, convs, picks
+    del calls, captured, convs, picks
 
     # 5. main path: the full flagship forward + post-processing
     seen = {}
@@ -1213,6 +1326,7 @@ def main() -> int:
     hook.remove()
     log(f"main-path launches: {json.dumps(launches)}")
     assert all(launches[k] > 0 for k in EVAL_KERNELS) and launches["sparse_sum_pool"] == 0, launches
+    assert launches["neighbor_map"] == EVAL_MAPS, launches
     for e in kernels:
         e["launches"] = launches[e["name"].split(":")[0]]
     B = batch["points"].shape[0]
@@ -1253,7 +1367,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dl = read_launches(EVAL_KERNELS)
     log(f"det-only path launches: {json.dumps(dl)}")
-    assert dl["sparse_conv"] > 0 and dl["trilinear_pool"] > 0 and dl["sparse_pool"] == 0, dl
+    assert (dl["neighbor_map"] > 0 and dl["sparse_conv"] > 0 and dl["trilinear_pool"] > 0
+            and dl["sparse_pool"] == 0), dl
     med, times = timed_median(lambda: forward_post(dnet, dbatch, dcfg))
     log(f"forward+post ms, det-only flagship (B=2, 5 runs after 2 warm-ups): median {med:.2f} "
         f"all {[round(t, 2) for t in times]}; nnz {json.dumps(dout['nnz'])}")

@@ -1,7 +1,9 @@
 """ROI trilinear sampler parity: the plain version of kernel K4
 (`btcdet_tpu_torch/ops/cuda_interp.py`) against the Pallas sampler it
 replaces (interpret mode, bf16 tolerance) and its XLA twin
-`pallas_interp._xla_reference_pool` (f32 tolerance). Samples outside the
+`pallas_interp._xla_reference_pool` (f32 tolerance on an f32 volume that
+holds the bf16-rounded values; one bf16 ulp for the bf16 output of a bf16
+volume, which the sampler sums in f32 and rounds once). Samples outside the
 Pallas kernel's 24x24-cell roi window are compared with the twin only:
 the port keeps them, the TPU kernel drops them."""
 
@@ -31,11 +33,19 @@ def make_case(seed=0, B=2, D=5, H=40, W=48, C=64, R=6, S=576, spread=14.0):
 
 
 def _port(dense, zyx, roi_b, valid, bf16_volume=True):
+    """The plain sampler in f32 on the volume, bf16-rounded first as the
+    twin rounds it (`bf16_volume`)."""
     vol = torch.from_numpy(dense)
     if bf16_volume:
-        vol = vol.to(torch.bfloat16)
+        vol = vol.to(torch.bfloat16).float()
     return cuda_interp.trilinear_pool(vol, torch.from_numpy(zyx), torch.from_numpy(roi_b),
                                       torch.from_numpy(valid)).numpy()
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    a = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
 
 
 def _twin(dense, zyx, roi_b, valid):
@@ -104,3 +114,62 @@ def test_volume_gradient_matches_xla_twin():
     np.testing.assert_allclose(vol.grad.float().numpy(), ref, rtol=1e-2,
                                atol=1e-2 * np.abs(ref).max())
     assert (ref != 0).mean() > 0.05
+
+
+@pytest.mark.parametrize("layout", ["zyx", "yzx-permuted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_sampler_on_strided_volumes(layout, dtype):
+    """The sampler takes the volume as a strided view with a unit channel
+    stride: the contiguous (B, D, H, W, C) volume, or the permuted view of
+    the scatter-native (B, H, D, W, C) table that `SparseTensor.dense()`
+    returns (what ConvHead passes). Both give the same samples, in the
+    volume's dtype: the XLA twin's within 1e-5 in f32, within one bf16 ulp
+    of the twin's f32 value in bf16."""
+    dense, zyx, _, roi_b, valid = make_case(seed=6, C=16)
+    # bf16-rounded values, as the twin rounds its volume
+    dense = torch.from_numpy(dense).to(torch.bfloat16).to(dtype)
+    if layout == "zyx":
+        vol = dense
+    else:
+        vol = dense.permute(0, 2, 1, 3, 4).contiguous().permute(0, 2, 1, 3, 4)
+        assert not vol.is_contiguous() and vol.stride(-1) == 1
+    out = cuda_interp.trilinear_pool(vol, torch.from_numpy(zyx), torch.from_numpy(roi_b),
+                                     torch.from_numpy(valid))
+    assert out.dtype == dtype and out.shape == zyx.shape[:2] + (16,)
+    ref = _twin(dense.float().numpy(), zyx, roi_b, valid)
+    got = out.float().numpy()
+    if dtype == torch.float32:
+        assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(got - ref) <= bf16_ulp(ref)).all()
+    assert (got[~valid] == 0).all() and np.abs(got).max() > 0.5
+    flat = cuda_interp.trilinear_pool(dense, torch.from_numpy(zyx), torch.from_numpy(roi_b),
+                                      torch.from_numpy(valid))
+    assert torch.equal(out, flat)
+
+
+def test_plain_sampler_on_a_sparse_tensor_dense_view():
+    """ConvHead's volume: `SparseTensor.dense()` (a permuted view, no copy)
+    of a bf16 table, sampled in bf16, against the twin on the JAX package's
+    dense volume of the same table, within one bf16 ulp."""
+    from btcdet_tpu.ops import sparse as JS
+    from btcdet_tpu_torch.ops import sparse as TS
+
+    rng = np.random.RandomState(7)
+    B, D, H, W, C = 2, 5, 40, 48, 16
+    coords = np.unique(np.stack([rng.randint(0, B, 3000), rng.randint(0, D, 3000),
+                                 rng.randint(0, H, 3000), rng.randint(0, W, 3000)], 1), axis=0)
+    coords = np.concatenate([coords, np.full((50, 4), -1)]).astype(np.int32)
+    feats = torch.from_numpy(rng.randn(len(coords), C).astype(np.float32)).to(torch.bfloat16)
+    st = TS.from_coords(feats, torch.from_numpy(coords), (D, H, W), B)
+    vol = st.dense()
+    assert vol.shape == (B, D, H, W, C) and not vol.is_contiguous()
+    _, zyx, _, roi_b, valid = make_case(seed=8, B=B, D=D, H=H, W=W, C=C)
+    out = cuda_interp.trilinear_pool(vol, torch.from_numpy(zyx), torch.from_numpy(roi_b),
+                                     torch.from_numpy(valid))
+    assert out.dtype == torch.bfloat16
+    jst = JS.from_coords(jnp.asarray(feats.float().numpy()), jnp.asarray(coords), (D, H, W), B)
+    ref = _twin(np.asarray(jst.dense()), zyx, roi_b, valid)
+    got = out.float().numpy()
+    assert (np.abs(got - ref) <= bf16_ulp(ref)).all()
+    assert np.abs(ref).max() > 0.5

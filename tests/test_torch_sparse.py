@@ -323,3 +323,110 @@ def test_conv_gradients_match_pallas_backward(strided):
     np.testing.assert_allclose(gf, np.asarray(rf), atol=0.3, rtol=0.1)
     np.testing.assert_allclose(gw, np.asarray(rw), atol=0.3, rtol=0.1)
     assert np.abs(np.asarray(rw)).max() > 1.0
+
+
+MAP_CASES = [  # kernel, stride, padding, transpose
+    (3, 1, 1, False), (3, 2, 1, False), ((3, 1, 1), (2, 1, 1), 0, False),
+    ((2, 1, 1), (2, 1, 1), 0, False), (3, 2, (0, 1, 1), False), (3, 2, 1, True),
+    ((3, 1, 1), (2, 1, 1), 0, True)]
+MAP_IDS = ["subm3", "s2", "k311", "k211", "s2-p011", "s2-transpose", "k311-transpose"]
+
+
+@pytest.mark.parametrize("kernel,stride,padding,transpose", MAP_CASES, ids=MAP_IDS)
+def test_plain_neighbor_map_matches_rulebook(kernel, stride, padding, transpose):
+    """The map kernel's plain version is `where(found, idx, -1)` of the
+    rulebook, and that rulebook is the JAX engine's (forward cases; the
+    transpose query pairs the strided conv's output table with its input
+    sites)."""
+    jst, tst = make_pair(seed=12)
+    keys, coords, _, out_shape = TS.conv_output_sites(tst, kernel, stride, padding,
+                                                      tst.capacity)
+    if stride == 1:
+        keys, coords, out_shape = tst.keys, tst.coords, tst.spatial_shape
+    if transpose:
+        table, queries, shape = keys, tst.coords, out_shape
+    else:
+        table, queries, shape = tst.keys, coords, tst.spatial_shape
+    nbr = cuda_conv.neighbor_map(table, queries, shape, tst.batch_size, kernel, stride, padding,
+                                 transpose)
+    K = int(np.prod(cuda_conv.triple(kernel)))
+    assert nbr.dtype == torch.int32 and nbr.shape == (K, queries.shape[0])
+    idx, found = cuda_conv.conv_rulebook(table, queries, shape, kernel, stride, padding,
+                                         transpose)
+    assert torch.equal(nbr, torch.where(found, idx, torch.full_like(idx, -1)).to(torch.int32))
+    assert (nbr[:, queries[:, 0] < 0] == -1).all() and found.any()
+    if not transpose:
+        if stride == 1:
+            ji, jf = JS.subm_rulebook(jst, kernel)
+        else:
+            jk, jc, _, _ = JS.conv_output_sites(jst, kernel, stride, padding, jst.capacity)
+            ji, jf = JS.conv_rulebook(jst, jc, jk != JS.INT32_MAX, kernel, stride, padding)
+        jref = np.where(np.asarray(jf), np.asarray(ji), -1)
+        np.testing.assert_array_equal(nbr.numpy(), jref)
+
+
+def _count_maps(monkeypatch):
+    """Record the (kernel, stride, padding) of every neighbour map built."""
+    builds, orig = [], cuda_conv.neighbor_map
+
+    def counting(*a, **k):
+        builds.append(tuple(a[4:7]))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(cuda_conv, "neighbor_map", counting)
+    return builds
+
+
+def test_convs_that_pair_alike_share_one_map(monkeypatch):
+    """Within one forward cache: the subm convs of one key share one map;
+    a subm conv with another kernel under the same key builds its own; two
+    strided convs onto the same cached sites from the same input table
+    share one; a strided conv from another input table builds its own."""
+    _, tst = make_pair(seed=13, C=8)
+    builds = _count_maps(monkeypatch)
+    cache = {}
+    with torch.no_grad():
+        a = TS.SubMConv3d(8, 8, 3, indice_key="subm1")(tst, cache)
+        b = TS.SubMConv3d(8, 8, 3, indice_key="subm1")(a, cache)
+        assert len(builds) == 1
+        TS.SubMConv3d(8, 8, (3, 1, 1), indice_key="subm1")(b, cache)
+        assert len(builds) == 2 and builds[1][0] == (3, 1, 1)
+        d1 = TS.SparseConv3d(8, 8, 3, 2, 1, indice_key="spconv2")(b, cache)
+        d2 = TS.SparseConv3d(8, 16, 3, 2, 1, indice_key="spconv2")(a, cache)
+        assert len(builds) == 3
+        assert torch.equal(d1.keys, d2.keys)
+        # same sites, another input table (the strided output): a new map
+        TS.SparseConv3d(8, 8, 3, 2, 1, indice_key="spconv2")(d1, cache)
+        assert len(builds) == 4
+    # a new forward (a new cache) builds again
+    with torch.no_grad():
+        TS.SubMConv3d(8, 8, 3, indice_key="subm1")(tst, {})
+    assert len(builds) == 5
+
+
+@pytest.mark.parametrize("kernel", [3, (3, 1, 1)], ids=["k3", "k311"])
+def test_subm_df_reads_the_forward_map(kernel):
+    """A subm conv's df through the forward's neighbour map (tap-reversed,
+    transposed weights) equals the df through its own pair search, bit for
+    bit, and the autograd backward of the module gives the same df."""
+    cin, cout = 8, 16
+    jst, tst, w, K = _conv_case(kernel, 1, 1, cin, cout, seed=14)
+    pad = tuple(k // 2 for k in cuda_conv.triple(kernel))
+    nbr = cuda_conv.neighbor_map(tst.keys, tst.coords, tst.spatial_shape, tst.batch_size, kernel,
+                                 1, pad)
+    g = torch.from_numpy(np.random.RandomState(15).randn(tst.capacity, cout).astype(np.float32))
+    w_t = torch.from_numpy(w).flip(0).transpose(1, 2)
+    args = (g, tst.keys, tst.coords, w_t, tst.spatial_shape, tst.batch_size, kernel, 1, pad)
+    via_map = cuda_conv.sparse_conv_df(*args, transpose=False, nbr=nbr)
+    searched = cuda_conv.sparse_conv_df(*args, transpose=False)
+    assert torch.equal(via_map, searched) and float(searched.abs().max()) > 0
+    mod = TS.SubMConv3d(cin, cout, kernel)
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w.reshape(mod.weight.shape)))
+    f = tst.features.clone().requires_grad_()
+    with f32_mode():
+        out = mod(tst.replace(features=f), {})
+    out.features.backward(torch.where(tst.valid[:, None], g, torch.zeros(())))
+    ref = cuda_conv.sparse_conv_df(torch.where(tst.valid[:, None], g, torch.zeros(())),
+                                   *args[1:], transpose=False)
+    torch.testing.assert_close(f.grad, ref, rtol=0, atol=0)
