@@ -1,6 +1,7 @@
-// Tap matching over key-sorted sparse voxel tables, shared by the sparse
-// conv (sparse_conv.cu, kernel K1) and the sparse max- and sum-pool
-// (sparse_pool.cu, kernel K2).
+// Tap matching over key-sorted sparse voxel tables: the neighbour map of
+// the sparse conv (sparse_nbr.cu) searches with it, and K1's gather-GEMM
+// (sparse_conv.cu) takes its KMAX. K1 and K2 (sparse_pool.cu) and K3
+// (sparse_conv_dw.cu) read the map and search nothing.
 //
 // An input table is sorted by the y-major linear key
 // ((b*ny + y)*nz + z)*nx + x of its rows, with INT32_MAX on padding rows.

@@ -25,7 +25,10 @@ The backward (`SparseConvFunction`) is:
       strided conv over a transpose-query map of the forward's output
       table, input site s reading output (s + pad - tap_k) / stride where
       it divides exactly;
-  dW  K3 (`sparse_conv_dw`): dW[k] = sum_m features[match(q(m, k))]^T g[m].
+  dW  K3 (`sparse_conv_dw`): dW[k] = sum_m features[nbr[k, m]]^T g[m] over
+      the forward's map, compacted per tap into its matched pairs
+      (`tap_pairs`); bf16 features round g to bf16 first, as the TPU
+      kernel does, and the products run on the tensor cores.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
@@ -44,14 +47,23 @@ from . import kernel_build
 # kernel launches made by the wrappers below (CPU calls take the plain
 # versions and are not counted): the neighbour-map builds (`neighbor_map`),
 # the forward gather-GEMM (`sparse_conv`), the df of the backward
-# (`sparse_conv_df`, K1 too) and the weight gradient (`sparse_conv_dw`, K3)
+# (`sparse_conv_df`, K1 too), K3's per-tap compaction of the map
+# (`tap_pairs`) and the weight gradient (`sparse_conv_dw`, K3)
 nbr_launches = 0
 launches = 0
 df_launches = 0
+pair_launches = 0
 dw_launches = 0
 
 # K3's workspace of per-chunk partial weight gradients is held below this
 WS_BYTES = 64 << 20
+# ... and the partials of the chunks of one call below this: the reduction
+# reads back every partial written, so at the wide levels more chunks cost
+# more in partial tiles than the blocks they add, while the narrow levels
+# (small tiles) gain from every block up to the chunk limit
+DW_PARTIAL_BYTES = 32 << 20
+# rows of one tap that one block of K3's compaction counts
+PAIR_BLOCK_ROWS = 1024
 
 INT32_MAX = 2**31 - 1
 
@@ -145,24 +157,50 @@ def sparse_conv_plain(features, in_keys, out_coords, weights, in_spatial_shape,
     return apply_rulebook_matmul(features, idx, found, weights)
 
 
+def apply_map_dw(features, nbr, g):
+    """The plain K3 over a neighbour map: the matched rows gathered, then
+    the transpose of `apply_map_matmul`'s batched matmul, (K, Cin, Cout)
+    f32. bf16 features take g rounded to bf16, as the TPU kernel does
+    (`pallas_conv._make_kernel_dw`), so every product is exact in f32;
+    f32 features keep g in f32."""
+    a = features.float()[nbr.clamp(min=0).long()]                   # (K, M, Cin)
+    a = torch.where((nbr >= 0)[..., None], a, torch.zeros((), dtype=a.dtype, device=a.device))
+    gg = g.to(features.dtype).float()
+    return torch.bmm(a.transpose(1, 2), gg[None].expand(a.shape[0], *gg.shape))
+
+
 def sparse_conv_dw_plain(features, in_keys, out_coords, g, in_spatial_shape, batch_size,
-                         kernel_size, stride, padding):
-    """The plain PyTorch version of K3: the rulebook gather, then the
-    transpose of `apply_rulebook_matmul`'s batched matmul. (K, Cin, Cout) f32."""
-    idx, found = conv_rulebook(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
-                               padding)
-    a = features.float()[idx]                                      # (K, M, Cin)
-    a = torch.where(found[..., None], a, torch.zeros((), dtype=a.dtype, device=a.device))
-    return torch.bmm(a.transpose(1, 2), g.float()[None].expand(a.shape[0], *g.shape))
+                         kernel_size, stride, padding, nbr=None):
+    """The plain PyTorch version of K3 over the map `nbr` of these pairs
+    (`neighbor_map_plain`, built here when None): `apply_map_dw`."""
+    if nbr is None:
+        nbr = neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
+                                 padding)
+    return apply_map_dw(features, nbr, g)
+
+
+def tap_pairs_plain(nbr):
+    """The plain version of K3's compaction: (pairs (K, M, 2) int32,
+    counts (K,) int32), tap k's matched (input row, output row) pairs in
+    ascending output row in pairs[k, :counts[k]], -1 past them."""
+    K, M = nbr.shape
+    pairs = torch.full((K, M, 2), -1, dtype=torch.int32, device=nbr.device)
+    counts = (nbr >= 0).sum(1).to(torch.int32)
+    for k in range(K):
+        m = torch.nonzero(nbr[k] >= 0).squeeze(1)
+        pairs[k, :m.numel(), 0] = nbr[k, m]
+        pairs[k, :m.numel(), 1] = m.to(torch.int32)
+    return pairs, counts
 
 
 _NBR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                  + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 _K1_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p] + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+_PAIR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+_K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _lib(name: str, fn: str, argtypes):
@@ -243,6 +281,13 @@ def neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
     return nbr
 
 
+def check_map(who, nbr, K, M, device):
+    """Raise unless nbr is an int32 (K, M) neighbour map on `device`."""
+    if nbr.dtype != torch.int32 or tuple(nbr.shape) != (K, M) or nbr.device != device:
+        raise ValueError(f"{who}: neighbour map {nbr.dtype} {tuple(nbr.shape)} on {nbr.device} "
+                         f"for {K} taps and {M} output rows")
+
+
 def _launch_k1(who, features, nbr, weights):
     """K1's gather-GEMM over the map `nbr`: (out (M, Cout) f32, launched).
     A bf16 Cin or Cout that is not a multiple of 8 is zero-padded here
@@ -251,9 +296,7 @@ def _launch_k1(who, features, nbr, weights):
     M = nbr.shape[1]
     if cout > 256:
         raise ValueError(f"{who}: Cout {cout} > 256")
-    if nbr.dtype != torch.int32 or nbr.shape[0] != K or nbr.device != features.device:
-        raise ValueError(f"{who}: neighbour map {nbr.dtype} {tuple(nbr.shape)} on {nbr.device} "
-                         f"for {K} taps")
+    check_map(who, nbr, K, M, features.device)
     cin_k, cout8 = cin, cout
     if features.dtype == torch.bfloat16:
         cin_k, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
@@ -324,43 +367,92 @@ def sparse_conv_df(g, table_keys, query_coords, weights, table_spatial_shape, ba
 
 
 def dw_chunks(M: int, K: int, cin: int, cout: int) -> tuple[int, int]:
-    """(n_chunks, rows_per_chunk) of K3's row split: chunks of at least 256
-    rows, at most 128 of them, and a workspace of partials within WS_BYTES.
-    Depends on the shapes alone, so the result is repeatable."""
-    by_ws = max(1, WS_BYTES // (K * cin * cout * 4))
-    n = max(1, min(by_ws, -(-M // 256), 128))
+    """(n_chunks, rows_per_chunk) of K3's split of each tap's pair list:
+    chunks of at least 256 pairs, at most 256 of them, and partials within
+    DW_PARTIAL_BYTES (and the workspace within WS_BYTES). Depends on the
+    shapes alone, so the result is repeatable."""
+    per_chunk = K * cin * cout * 4
+    n = max(1, min(-(-M // 256), 256, DW_PARTIAL_BYTES // per_chunk, WS_BYTES // per_chunk))
     return n, -(-M // n)
 
 
+def tap_pairs(nbr):
+    """K3's compaction of a (K, M) neighbour map (`sparse_conv_dw_pairs` in
+    `csrc/sparse_conv_dw.cu`): (pairs (K, M, 2) int32, counts (K,) int32)
+    with tap k's matched (input row, output row) pairs in ascending output
+    row in pairs[k, :counts[k]]; the entries past counts[k] are undefined
+    (the plain version, `tap_pairs_plain`, fills them with -1)."""
+    if nbr.device.type == "cpu":
+        return tap_pairs_plain(nbr)
+    if (nbr.device.type != "cuda" or nbr.dtype != torch.int32 or nbr.dim() != 2
+            or not 0 < nbr.shape[0] <= 27):
+        raise ValueError(f"tap_pairs: bad neighbour map {nbr.dtype} {tuple(nbr.shape)} on "
+                         f"{nbr.device}")
+    K, M = nbr.shape
+    nbr = nbr.contiguous()
+    pairs = torch.empty((K, M, 2), dtype=torch.int32, device=nbr.device)
+    counts = torch.zeros((K,), dtype=torch.int32, device=nbr.device)
+    if M == 0:
+        return pairs, counts
+    blk = torch.empty((K * -(-M // PAIR_BLOCK_ROWS),), dtype=torch.int32, device=nbr.device)
+    stream = torch.cuda.current_stream(nbr.device).cuda_stream
+    err = _lib("sparse_conv_dw", "sparse_conv_dw_pairs", _PAIR_ARGTYPES)(
+        nbr.data_ptr(), M, K, blk.data_ptr(), pairs.data_ptr(), counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"tap_pairs kernel launch failed: cudaError {err}")
+    global pair_launches
+    pair_launches += 1
+    return pairs, counts
+
+
 def sparse_conv_dw(features, in_keys, out_coords, g, in_spatial_shape, batch_size,
-                   kernel_size, stride, padding):
+                   kernel_size, stride, padding, nbr=None):
     """(K, Cin, Cout) float32 weight gradient (K3): dW[k] = sum over the
-    output rows m of features[match(q(m, k))]^T g[m], every match counted.
+    output rows m of features[nbr[k, m]]^T g[m], every match counted.
 
     features (N, Cin) f32 or bf16; in_keys, out_coords, the geometry as
-    `sparse_conv`; g (M, Cout) float32."""
+    `sparse_conv`; g (M, Cout) float32, rounded to bf16 for bf16 features;
+    nbr the forward's (K, M) map of these pairs (`neighbor_map`), built
+    here when None. The map is compacted per tap (`tap_pairs`), then the
+    kernel contracts over the matched pairs only."""
+    if features.device.type != "cpu":
+        _check("sparse_conv_dw", features, in_keys, out_coords, None, in_spatial_shape,
+               batch_size, kernel_size)
+    if nbr is None:
+        nbr = neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
+                           stride, padding)
     if features.device.type == "cpu":
-        return sparse_conv_dw_plain(features, in_keys, out_coords, g, in_spatial_shape,
-                                    batch_size, kernel_size, stride, padding)
-    N, cin, M, K = _check("sparse_conv_dw", features, in_keys, out_coords, None,
-                          in_spatial_shape, batch_size, kernel_size)
-    if g.dtype != torch.float32 or g.shape[0] != M or g.device != features.device:
+        return apply_map_dw(features, nbr, g)
+    cin = features.shape[1]
+    K, M = nbr.shape[0], out_coords.shape[0]
+    check_map("sparse_conv_dw", nbr, K, M, features.device)
+    if g.dtype != torch.float32 or g.dim() != 2 or g.shape[0] != M or g.device != features.device:
         raise ValueError(f"sparse_conv_dw: g {g.dtype} {tuple(g.shape)} for {M} output rows")
     cout = g.shape[1]
-    dw = torch.zeros((K, cin, cout), dtype=torch.float32, device=features.device)
     if M == 0:
-        return dw
+        return torch.zeros((K, cin, cout), dtype=torch.float32, device=features.device)
+    bf16 = features.dtype == torch.bfloat16
+    cin_k, cout_k = cin, cout
+    if bf16:
+        # the TPU kernel's rounding of g; 16-byte rows for the cp.async copies
+        g = g.to(torch.bfloat16)
+        cin_k, cout_k = -(-cin // 8) * 8, -(-cout // 8) * 8
+        if cin_k != cin:
+            features = torch.nn.functional.pad(features, (0, cin_k - cin))
+        if cout_k != cout:
+            g = torch.nn.functional.pad(g, (0, cout_k - cout))
+    features, g = features.contiguous(), g.contiguous()
+    pairs, counts = tap_pairs(nbr)
     n_chunks, rows = dw_chunks(M, K, cin, cout)
-    ws = (torch.empty((n_chunks, K, cin, cout), dtype=torch.float32, device=features.device)
-          if n_chunks > 1 else dw)
-    features, in_keys = features.contiguous(), in_keys.contiguous()
-    out_coords, g = out_coords.contiguous(), g.contiguous()
+    if n_chunks == 1:
+        dw = ws = torch.zeros((K, cin, cout), dtype=torch.float32, device=features.device)
+    else:
+        dw = torch.empty((K, cin, cout), dtype=torch.float32, device=features.device)
+        ws = torch.empty((n_chunks, K, cin, cout), dtype=torch.float32, device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     err = _lib("sparse_conv_dw", "sparse_conv_dw", _K3_ARGTYPES)(
-        features.data_ptr(), int(features.dtype == torch.bfloat16), in_keys.data_ptr(), N,
-        out_coords.data_ptr(), M, g.data_ptr(), dw.data_ptr(), ws.data_ptr(), n_chunks, rows,
-        cin, cout, *triple(kernel_size), *triple(stride), *triple(padding),
-        *(int(v) for v in in_spatial_shape), stream)
+        features.data_ptr(), int(bf16), g.data_ptr(), pairs.data_ptr(), counts.data_ptr(), M, K,
+        dw.data_ptr(), ws.data_ptr(), n_chunks, rows, cin, cin_k, cout, cout_k, stream)
     if err != 0:
         raise RuntimeError(f"sparse_conv_dw kernel launch failed: cudaError {err}")
     global dw_launches
@@ -407,5 +499,5 @@ class SparseConvFunction(torch.autograd.Function):
             df = df.to(dt)
         if ctx.needs_input_grad[1]:
             dw = sparse_conv_dw(features, in_keys, out_coords, g, in_shape, batch, kernel,
-                                stride, padding).to(weights.dtype)
+                                stride, padding, nbr=nbr).to(weights.dtype)
         return df, dw, None, None, None, None, None, None

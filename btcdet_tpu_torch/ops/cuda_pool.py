@@ -10,8 +10,11 @@ key-sorted input table,
     sum: out[m, c] = sum over the taps k matching an input row i of features[i, c]
 
 with 0 for rows where no tap matches (padding rows b < 0 included), in
-the features' float32. The sum adds the taps one at a time in tap order,
-in the kernel and in the plain version alike.
+the features' float32. The matches come from the (K, M) neighbour map of
+K1 (`cuda_conv.neighbor_map`): the pools of the det backbone read the map
+that the trunk's strided conv built for the same input table, sites and
+geometry (`sparse.neighbor_map_cached`). The sum adds the taps one at a
+time in tap order, in the kernel and in the plain version alike.
 
 `sparse_pool` (max) and `sparse_sum_pool` (sum) take the plain version for
 CPU tensors only; a CUDA tensor launches the kernel or raises. K2 has no
@@ -26,8 +29,8 @@ import ctypes
 
 import torch
 
-from . import kernel_build
-from .cuda_conv import INT32_MAX, conv_rulebook, triple
+from . import cuda_conv, kernel_build
+from .cuda_conv import INT32_MAX, check_map, neighbor_map_plain, triple
 
 # kernel launches made by the wrappers below, max and sum mode (CPU calls
 # take the plain versions and are not counted)
@@ -36,12 +39,15 @@ sum_launches = 0
 
 
 def sparse_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_size, stride,
-                      padding):
-    """The plain PyTorch version of K2 max: rulebook + gather + max over the
-    matched taps."""
-    idx, found = conv_rulebook(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
-                               padding)
-    g = features[idx]                                                  # (K, M, C)
+                      padding, nbr=None):
+    """The plain PyTorch version of K2 max over the map `nbr` of these pairs
+    (`cuda_conv.neighbor_map_plain`, built here when None): gather, then
+    the max over the matched taps, 0 where none matched."""
+    if nbr is None:
+        nbr = neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
+                                 padding)
+    found = nbr >= 0
+    g = features[nbr.clamp(min=0).long()]                              # (K, M, C)
     neg = torch.finfo(features.dtype).min
     g = torch.where(found[..., None], g, torch.full((), neg, dtype=g.dtype, device=g.device))
     out = g.amax(dim=0)
@@ -50,21 +56,23 @@ def sparse_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_si
 
 
 def sparse_sum_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_size, stride,
-                          padding):
-    """The plain PyTorch version of K2 sum: rulebook + gather, then the
-    matched taps added one at a time in tap order (the kernel's order)."""
-    idx, found = conv_rulebook(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
-                               padding)
+                          padding, nbr=None):
+    """The plain PyTorch version of K2 sum over the map `nbr` (built here
+    when None): the matched rows added one tap at a time in tap order (the
+    kernel's order)."""
+    if nbr is None:
+        nbr = neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
+                                 padding)
     zero = torch.zeros((), dtype=features.dtype, device=features.device)
-    out = torch.zeros((out_coords.shape[0], features.shape[1]), dtype=features.dtype,
+    out = torch.zeros((nbr.shape[1], features.shape[1]), dtype=features.dtype,
                       device=features.device)
-    for k in range(idx.shape[0]):
-        out = out + torch.where(found[k, :, None], features[idx[k]], zero)
+    for k in range(nbr.shape[0]):
+        out = out + torch.where(nbr[k, :, None] >= 0, features[nbr[k].clamp(min=0).long()], zero)
     return out
 
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def _fn(name: str):
@@ -76,17 +84,17 @@ def _fn(name: str):
 
 
 def _launch(who, entry, features, in_keys, out_coords, in_spatial_shape, batch_size,
-            kernel_size, stride, padding):
-    """Check the inputs and launch K2's `entry` on a CUDA tensor; returns
-    (out (M, C) float32, launched)."""
+            kernel_size, stride, padding, nbr):
+    """Check the inputs and launch K2's `entry` on a CUDA tensor over the
+    map `nbr` (built here when None); returns (out (M, C) float32,
+    launched)."""
     if features.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {features.device}")
     if features.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(f"{who}: K2 has no backward; its input must not "
                                   "require a gradient")
     kz, ky, kx = triple(kernel_size)
-    sz, sy, sx = triple(stride)
-    pz, py, px = triple(padding)
+    K = kz * ky * kx
     nz, ny, nx = (int(v) for v in in_spatial_shape)
     N, C = features.shape
     M = out_coords.shape[0]
@@ -94,7 +102,7 @@ def _launch(who, entry, features, in_keys, out_coords, in_spatial_shape, batch_s
         raise TypeError(f"{who}: features must be float32, got {features.dtype}")
     if in_keys.dtype != torch.int32 or out_coords.dtype != torch.int32:
         raise TypeError(f"{who}: keys and coords must be int32")
-    if kz * ky * kx > 27 or out_coords.shape[1:] != (4,) or in_keys.shape != (N,):
+    if K > 27 or out_coords.shape[1:] != (4,) or in_keys.shape != (N,):
         raise ValueError(f"{who}: bad shapes features {tuple(features.shape)} "
                          f"keys {tuple(in_keys.shape)} coords {tuple(out_coords.shape)}")
     if batch_size * nz * ny * nx >= INT32_MAX:
@@ -102,31 +110,35 @@ def _launch(who, entry, features, in_keys, out_coords, in_spatial_shape, batch_s
     for t in (in_keys, out_coords):
         if t.device != features.device:
             raise ValueError(f"{who}: tensors on different devices")
-    features, in_keys, out_coords = (features.contiguous(), in_keys.contiguous(),
-                                     out_coords.contiguous())
+    if nbr is None:
+        nbr = cuda_conv.neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size,
+                                     kernel_size, stride, padding)
+    check_map(who, nbr, K, M, features.device)
+    features, nbr = features.contiguous(), nbr.contiguous()
     out = torch.empty((M, C), dtype=torch.float32, device=features.device)
     if M == 0:
         return out, False
     stream = torch.cuda.current_stream(features.device).cuda_stream
-    err = _fn(entry)(features.data_ptr(), in_keys.data_ptr(), N, out_coords.data_ptr(), M,
-                     out.data_ptr(), C, kz, ky, kx, sz, sy, sx, pz, py, px, nz, ny, nx, stream)
+    err = _fn(entry)(features.data_ptr(), nbr.data_ptr(), M, K, out.data_ptr(), C, stream)
     if err != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
     return out, True
 
 
 def sparse_pool(features, in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
-                stride, padding):
+                stride, padding, nbr=None):
     """(M, C) float32 sparse max-pool forward (K2 max).
 
     features (N, C) float32; in_keys (N,) int32 ascending, padding
-    INT32_MAX; out_coords (M, 4) int32 (b, z, y, x), padding rows b < 0.
+    INT32_MAX; out_coords (M, 4) int32 (b, z, y, x), padding rows b < 0;
+    nbr the (K, M) neighbour map of these pairs (`cuda_conv.neighbor_map`),
+    built here when None.
     """
     if features.device.type == "cpu":
         return sparse_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_size,
-                                 stride, padding)
+                                 stride, padding, nbr)
     out, launched = _launch("sparse_pool", "sparse_maxpool_fwd", features, in_keys, out_coords,
-                            in_spatial_shape, batch_size, kernel_size, stride, padding)
+                            in_spatial_shape, batch_size, kernel_size, stride, padding, nbr)
     if launched:
         global launches
         launches += 1
@@ -134,15 +146,15 @@ def sparse_pool(features, in_keys, out_coords, in_spatial_shape, batch_size, ker
 
 
 def sparse_sum_pool(features, in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
-                    stride, padding):
+                    stride, padding, nbr=None):
     """(M, C) float32 sparse sum-pool forward (K2 sum): the unweighted sum
     of the matched rows; inputs as `sparse_pool`."""
     if features.device.type == "cpu":
         return sparse_sum_pool_plain(features, in_keys, out_coords, in_spatial_shape,
-                                     kernel_size, stride, padding)
+                                     kernel_size, stride, padding, nbr)
     out, launched = _launch("sparse_sum_pool", "sparse_sumpool_fwd", features, in_keys,
                             out_coords, in_spatial_shape, batch_size, kernel_size, stride,
-                            padding)
+                            padding, nbr)
     if launched:
         global sum_launches
         sum_launches += 1

@@ -9,9 +9,9 @@ runs through `cuda_conv.sparse_conv` (kernel K1 on CUDA tensors, the
 rulebook + batched-matmul plain version on CPU tensors) over a neighbour
 map built once per forward for each (input table, output sites,
 geometry) (`neighbor_map_cached`), with its
-backward through K1 (df) and K3 (dW), the max-pool and the fixed-weight
-sum-pool through `cuda_pool.sparse_pool` / `sparse_sum_pool` (kernel K2,
-forward only).
+backward through K1 (df) and K3 (dW, over the forward's map), the max-pool
+and the fixed-weight sum-pool through `cuda_pool.sparse_pool` /
+`sparse_sum_pool` (kernel K2, forward only, over the same cached maps).
 
 `indice_key` semantics follow spconv: layers sharing a key reuse the
 cached output-site set, and a layer whose kernel equals that of the conv
@@ -307,9 +307,12 @@ def neighbor_map_cached(cache: dict, in_st: SparseTensor, out_keys, out_coords, 
     """The (K, M) neighbour map (`cuda_conv.neighbor_map`) pairing the rows
     of `in_st` with the output sites (`out_keys`, `out_coords`) under
     (kernel, stride, padding), built once per forward `cache` and shared by
-    every conv that pairs the same input key table with the same sites the
-    same way: the subm convs of one indice_key, and the strided convs that
-    read one table onto one cached site set (conv3 and down2[0]). The entry
+    every conv or pool that pairs the same input key table with the same
+    sites the same way: the subm convs of one indice_key, the strided convs
+    that read one table onto one cached site set (conv3 and down2[0]), and
+    the occ-code pools, whose table shares its keys with the trunk's (a k=3
+    pool reads the map of the strided conv that made its sites; `avgpool`'s
+    k=2 builds its own). The entry
     is keyed by the identity of both key tables and by the geometry, so a
     map never crosses tables or geometries (the JAX package shares pair
     sets per (indice_key, kernel size) instead, ROADMAP Queue 3)."""
@@ -335,14 +338,17 @@ class _SparsePool(nn.Module):
                                                        triple(padding))
         self.indice_key = indice_key
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
         raise NotImplementedError
 
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
         keys, coords, nnz, out_shape, stride, padding = shared_sites(
             cache, self.indice_key, self.kernel_size, self.stride, self.padding)
+        # the map of the strided conv that made the sites, where it read the
+        # same table with the same geometry; a map of its own otherwise
+        nbr = neighbor_map_cached(cache, st, keys, coords, self.kernel_size, stride, padding)
         out = self._pool(st.features.float(), st.keys, coords, st.spatial_shape, st.batch_size,
-                         stride, padding)
+                         stride, padding, nbr)
         return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
                             tuple(int(v) for v in out_shape), st.batch_size)
 
@@ -353,9 +359,9 @@ class SparseMaxPool3d(_SparsePool):
     (`cuda_pool.sparse_pool`). The flagship's occ_conv2 pools onto conv2's
     sites."""
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
         return cuda_pool.sparse_pool(features, in_keys, out_coords, in_shape, batch_size,
-                                     self.kernel_size, stride, padding)
+                                     self.kernel_size, stride, padding, nbr=nbr)
 
 
 class FixedSparseConv3d(_SparsePool):
@@ -370,6 +376,7 @@ class FixedSparseConv3d(_SparsePool):
         super().__init__(kernel_size, stride, padding, indice_key)
         self.default_value = float(default_value)
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding):
+    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
         return cuda_pool.sparse_sum_pool(features, in_keys, out_coords, in_shape, batch_size,
-                                         self.kernel_size, stride, padding) * self.default_value
+                                         self.kernel_size, stride, padding,
+                                         nbr=nbr) * self.default_value

@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero, printing no result):
   4. kernel phase: each kernel against its plain PyTorch version on the
      captured inputs (K1's neighbour map bit for bit, its bf16 gather-GEMM
      to 1e-2 of the plain output's max and bit for bit on a repeat, K4 in
-     bf16 within one bf16 ulp, K2 max bit for bit), with kernel (event and
+     bf16 within one bf16 ulp, K2 max over the forward's map bit for bit),
+     with kernel (event and
      profiler kernel-alone) / plain / library times and the card's bound;
      a table of all 18 K1 launches of the eval forward over the maps it
      built (shape, matches, kernel-alone ms, bound) and their sum; the
@@ -24,12 +25,13 @@ Phases (any failure raises and exits non-zero, printing no result):
      sites, geometry) pairs;
   5. main path: launch counts reset, the full forward + post-processing
      run once and every kernel (K1 map and GEMM, K2, K4) must have
-     launched, the maps EVAL_MAPS times; occ points
+     launched as often as EVAL_LAUNCHES says; occ points
      and merged det voxels per frame, nnz per level, detections, median
      forward ms over 5 runs after 2 warm-ups, peak memory, ms per stage,
      and one profiled step (device idle share, top kernels), the occ
      subnet identical from run to run and its stage ms with the occ
-     backbone's scoped deterministic cuDNN and without it, the proposal
+     backbone's scoped deterministic cuDNN and without it, the fused
+     merge's det voxel features identical over 5 runs, the proposal
      NMS's chunked pass against the full-matrix greedy (same kept boxes,
      both timed); then the det-only flagship as the second path: counts
      reset, one run, its launches (K1 map and GEMM and K4), and its
@@ -38,7 +40,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      `fix` and `avgpool` forwards captured and K2 sum held bit for bit
      against its plain version on their calls (the three levels of `fix`,
      the k=2 call of `avgpool`), then for each variant counts reset, one
-     run with its launches asserted, its outputs checked and nnz per
+     run with its launches asserted (the maps too: 9, 12 in `avgpool`),
+     its outputs checked and nnz per
      level, and for `fix` its median and ms per stage;
   6. small-input checks: small full and det-only configs in float32 on
      the card against the plain path on the CPU, same weights and batch
@@ -49,12 +52,15 @@ Phases (any failure raises and exits non-zero, printing no result):
      `big_combine`;
   7. train phase: the full flagship in `net.train()` at B=2 with the
      train caps. One captured step records its kernel calls; K3 (the
-     weight gradient) is held against its plain version on five of them
-     (bf16, to 1e-2 of the plain output's max, and bit for bit on a
-     repeat), and at the step's own inputs K1's forward (conv1), its
-     transpose-query df (a strided conv) and subm df, K2 and K4; then counts
-     reset, one step where every kernel (K1 forward and df, K2, K3, K4)
-     must launch, with its loss terms, per-partition gradient norms and
+     weight gradient, over the forward's map) is held against its plain
+     version on five of them (bf16, rtol 1e-3 / atol 1e-4 of the plain
+     output's max, and bit for bit on a repeat) with its per-tap
+     compaction bit for bit against its plain version, all 18 K3 launches
+     of the step are timed, and at the step's own inputs K1's forward
+     (conv1), its transpose-query df (a strided conv) and subm df, K2 and
+     K4; then counts reset, one step whose launches of every kernel (K1
+     map, forward and df, K3 and its compaction, K2, K4) must equal
+     TRAIN_LAUNCHES, with its loss terms, per-partition gradient norms and
      moved parameters and BN statistics; 10 steps timed; and one step
      in float32 on the card against the CPU (loss terms
      to 1e-3, gradients to 1e-3 of each tensor's max) on the micro config;
@@ -115,9 +121,20 @@ EVAL_KERNELS = ("neighbor_map", "sparse_conv", "sparse_pool", "trilinear_pool")
 # neighbour maps a flagship-layout eval forward builds, one per distinct
 # (input key table, output sites, geometry): subm1-4, spconv2, spconv3
 # (conv3 and down2[0]), spconv4 (conv4, down2[1] and down3 all read the
-# spconv3 table), spconv_down2, subm_down2; the occ-code variants add
-# none (their convs pair like the trunk's)
+# spconv3 table), spconv_down2, subm_down2; the occ-code pools and convs
+# at k=3 pair like the trunk's strided convs and read their maps, the
+# `avgpool` variant's k=2 pools build one map per level
 EVAL_MAPS = 9
+AVGPOOL_MAPS = 12
+# kernel launches of one flagship eval forward + post-processing
+EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df": 0, "tap_pairs": 0,
+                 "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0, "trilinear_pool": 1}
+# kernel launches of one flagship train step: the 9 forward maps and the 8
+# transpose-query maps of the strided convs' dfs, 18 convs (17 of them
+# with a df), 18 weight gradients, each on its own compaction of the map
+TRAIN_LAUNCHES = {"neighbor_map": 17, "sparse_conv": 18, "sparse_conv_df": 17, "tap_pairs": 18,
+                  "sparse_conv_dw": 18, "sparse_pool": 1, "sparse_sum_pool": 0,
+                  "trilinear_pool": 1}
 
 
 def kernel_modules():
@@ -125,7 +142,7 @@ def kernel_modules():
     from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 
     return {"neighbor_map": (cuda_conv, "nbr_launches"), "sparse_conv": (cuda_conv, "launches"),
-            "sparse_conv_df": (cuda_conv, "df_launches"),
+            "sparse_conv_df": (cuda_conv, "df_launches"), "tap_pairs": (cuda_conv, "pair_launches"),
             "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
             "sparse_sum_pool": (cuda_pool, "sum_launches"),
             "trilinear_pool": (cuda_interp, "launches")}
@@ -164,26 +181,33 @@ def capture_kernel_inputs(run):
     return calls
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
+def device_ms(fn, kernel, reps: int = 20, sessions: int = 3) -> float:
     """Mean device time of the kernels whose name holds `kernel` over
     `reps` calls of fn(), from torch.profiler: the kernel's own time, where
     `cuda_ms` of back-to-back calls also counts the gaps a slower host
-    leaves between short launches. The profiler may miss a few of a
-    session's launches; the mean is over those it saw, at least half."""
+    leaves between short launches. The profiler may miss some of a
+    session's launches (now and then all of them); the mean is over those
+    it saw, at least half, in the first of up to `sessions` sessions that
+    saw that many. `kernel` may be a tuple of names, each launched once a
+    call: the sum of their means."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    assert 2 * len(times) >= reps, f"the profiler saw {len(times)} {kernel} kernels of {reps}"
-    return sum(times) / len(times) / 1e3
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {name: [e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and name in e.name] for name in names}
+        if all(2 * len(t) >= reps for t in times.values()):
+            return sum(sum(t) / len(t) for t in times.values()) / 1e3
+    raise AssertionError(f"the profiler saw {[len(t) for t in times.values()]} {names} kernels "
+                         f"of {reps} in each of {sessions} sessions")
 
 
 def k1_bound(feats, w, nbr):
@@ -321,46 +345,50 @@ def k1_eval_table(conv_calls, map_calls):
     torch.cuda.synchronize()
 
 
-def k2_case(args, label: str = "", mode: str = "max"):
-    """Compare (bit for bit) / time K2 on a captured occ-code pool: max mode
+def k2_case(call, label: str = "", mode: str = "max"):
+    """Compare (bit for bit) / time K2 on a captured occ-code pool (args,
+    kwargs), over the neighbour map the forward gave it: max mode
     (`sparse_pool`) or sum mode (`sparse_sum_pool`, FixedSparseConv3d).
-    `label` names a call of another path than the eval forward."""
+    The map-driven plain version must also equal the search-driven one
+    (rulebook) bit for bit. `label` names a call of another path than the
+    eval forward."""
     import torch
 
-    from btcdet_tpu_torch.ops import cuda_conv, cuda_pool
+    from btcdet_tpu_torch.ops import cuda_pool
 
     kern_fn, plain_fn = ((cuda_pool.sparse_pool, cuda_pool.sparse_pool_plain) if mode == "max"
                          else (cuda_pool.sparse_sum_pool, cuda_pool.sparse_sum_pool_plain))
-    feats, keys, coords, shape, bsz, ksize, stride, pad = args
+    (feats, keys, coords, shape, bsz, ksize, stride, pad), kw = call
+    nbr = kw["nbr"]
     feats = feats.detach()
     args = (feats, keys, coords, shape, bsz, ksize, stride, pad)
-    out = kern_fn(*args)
-    ref = plain_fn(feats, keys, coords, shape, ksize, stride, pad)
+    out = kern_fn(*args, nbr=nbr)
+    ref = plain_fn(feats, keys, coords, shape, ksize, stride, pad, nbr)
+    searched = plain_fn(feats, keys, coords, shape, ksize, stride, pad)
     torch.cuda.synchronize()
     assert torch.equal(out, ref), f"K2 {mode} {label}: kernel and plain version differ"
+    assert torch.equal(ref, searched), f"K2 {mode} {label}: the forward's map pairs otherwise"
     err = float((out - ref).abs().max())
-    # bound: the input rows some tap matched, the live keys the search runs
-    # over, out_coords and the f32 output at capacity; one comparison per
-    # match and channel
-    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad)
+    # bound: the input rows some tap matched and the (K, M) map, read once,
+    # the f32 output written once; one comparison per match and channel
+    found = nbr >= 0
     matches = int(found.sum())
-    rows_read = int(idx[found].unique().numel())
-    live_keys = int((keys != cuda_conv.INT32_MAX).sum())
+    rows_read = int(nbr[found].unique().numel())
     N, C = feats.shape
-    M = coords.shape[0]
-    nbytes = rows_read * C * 4 + live_keys * 4 + M * 16 + M * C * 4
+    K, M = nbr.shape
+    nbytes = rows_read * C * 4 + K * M * 4 + M * C * 4
     flops = float(matches * C)
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    ms = cuda_ms(lambda: kern_fn(*args), reps=20)
-    kernel_ms = device_ms(lambda: kern_fn(*args), "sparse_pool_kernel")
-    plain_ms = cuda_ms(lambda: plain_fn(feats, keys, coords, shape, ksize, stride, pad), reps=5,
-                       warmup=1)
+    ms = cuda_ms(lambda: kern_fn(*args, nbr=nbr), reps=20)
+    kernel_ms = device_ms(lambda: kern_fn(*args, nbr=nbr), "sparse_pool_kernel")
+    plain_ms = cuda_ms(lambda: plain_fn(feats, keys, coords, shape, ksize, stride, pad, nbr),
+                       reps=5, warmup=1)
     log(f"K2 {kern_fn.__name__} ({mode}){' ' + label if label else ''}: N={N} M={M} C={C} "
         f"kernel={ksize} stride={stride} padding={pad} "
-        f"matches={matches} rows_read={rows_read} live_keys={live_keys} "
+        f"matches={matches} rows_read={rows_read} "
         f"rows_with_a_match={int(found.any(0).sum())} bytes={nbytes} max_abs_err={err} "
-        f"(bitwise equal) ms={ms:.4f} (kernel alone, profiler: {kernel_ms:.4f}) "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
+        f"(bitwise equal, map-driven plain = search-driven plain) ms={ms:.4f} (kernel alone, "
+        f"profiler: {kernel_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
     name = "sparse_pool" if mode == "max" else "sparse_pool_sum"
     return {"name": name + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_pool.cu",
@@ -516,6 +544,22 @@ def occ_determinism(net, batch, post_cfg):
         + " all " + json.dumps({k: [round(t, 3) for t in v] for k, v in ms.items()}))
 
 
+def merge_repeat(net, batch, runs: int = 5):
+    """The fused PassOccVox merge (`ops/voxelizer.py`) gives the same merged
+    det voxel features bit for bit from run to run (its per-voxel sums are
+    float `index_add_`s, which add in atomic order on the card)."""
+    import torch
+
+    outs = [net.occ_modules(batch) for _ in range(runs)]
+    feats = [o["det_voxel_features"] for o in outs]
+    for o in outs[1:]:
+        assert torch.equal(o["det_voxel_coords"], outs[0]["det_voxel_coords"])
+    moved = max(int((f != feats[0]).sum()) for f in feats)
+    log(f"merged det voxel features, full flagship (B=2): {runs} runs, {moved} of "
+        f"{feats[0].numel()} elements differ from the first run")
+    assert moved == 0, f"merged det voxel features move between runs ({moved} elements)"
+
+
 def check_eval_outputs(net, batch, out, post):
     """Finite eval outputs of the expected shapes and finite detections;
     returns the detections per frame."""
@@ -562,18 +606,18 @@ def occ_variant_paths():
         if down in ("fix", "avgpool"):
             calls = capture_kernel_inputs(lambda: net(batch))["sparse_sum_pool"]
             assert len(calls) == 3, (down, len(calls))
-            for level, (args, _) in enumerate(calls[:3 if down == "fix" else 1], start=1):
-                cases.append(k2_case(args, f"{down}_l{level}", mode="sum"))
+            for level, call in enumerate(calls[:3 if down == "fix" else 1], start=1):
+                cases.append(k2_case(call, f"{down}_l{level}", mode="sum"))
             del calls
         reset_launches()
         out = net(batch)
         post = post_processing(out, cfg.MODEL.POST_PROCESSING, 1)
         torch.cuda.synchronize()
         launches = read_launches()
-        want = {"neighbor_map": EVAL_MAPS, "sparse_conv": 23 if down == "weight" else 20,
-                "sparse_conv_df": 0,
-                "sparse_conv_dw": 0, "sparse_pool": 3 if down == "maxpool" else 0,
-                "sparse_sum_pool": 3 if down in ("fix", "avgpool") else 0, "trilinear_pool": 1}
+        want = dict(EVAL_LAUNCHES, neighbor_map=AVGPOOL_MAPS if down == "avgpool" else EVAL_MAPS,
+                    sparse_conv=23 if down == "weight" else 20,
+                    sparse_pool=3 if down == "maxpool" else 0,
+                    sparse_sum_pool=3 if down in ("fix", "avgpool") else 0)
         log(f"occ variant {down!r} path launches: {json.dumps(launches)}")
         assert launches == want, (down, launches, want)
         for e in cases:
@@ -903,54 +947,136 @@ def backbone_module_check():
         "rtol=atol=1e-3): max abs diff " + json.dumps(worst))
 
 
-def k3_case(name, args):
-    """Compare / time K3 (the sparse-conv weight gradient) on one captured
-    call of a train step's backward; a second run must equal the first
-    bit for bit."""
+# K3's per-tap compaction of the map: two kernels a call
+K3_PAIR_KERNELS = ("pair_count_kernel", "pair_scatter_kernel")
+
+
+def k3_kernels(feats, g, nbr) -> tuple:
+    """The kernels of one K3 contraction: the bf16 tensor-core body or the
+    f32 one, then the ordered reduction of the partials when the pair
+    lists are cut into more than one chunk."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv
 
+    K, M = nbr.shape
+    body = "dw_mma_kernel" if feats.dtype == torch.bfloat16 else "dw_f32_kernel"
+    n_chunks, _ = cuda_conv.dw_chunks(M, K, feats.shape[1], g.shape[1])
+    return (body, "dw_reduce_kernel") if n_chunks > 1 else (body,)
+
+
+def k3_bound(feats, g, nbr):
+    """(bytes, flops, bound seconds, bound_by) of K3 over the map `nbr`:
+    what this run's data needs. The input rows some tap matched, the rows
+    of g with a match, the map, each read once, and dW written once; 2 *
+    Cin * Cout flops per match at the bf16 tensor-core rate, the rate of
+    the TPU kernel it replaces (bf16 x bf16 products of the rows and of g,
+    f32 accumulation), as K1's bound."""
+    found = nbr >= 0
+    matches = int(found.sum())
+    rows_read = int(nbr[found].unique().numel())
+    g_rows = int(found.any(dim=0).sum())
+    cin, cout = feats.shape[1], g.shape[1]
+    K, M = nbr.shape
+    nbytes = (rows_read * cin * feats.element_size() + g_rows * cout * 4 + K * M * 4
+              + K * cin * cout * 4)
+    flops = 2.0 * cin * cout * matches
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    return nbytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k3_case(name, call):
+    """Compare / time K3 (the sparse-conv weight gradient) on one captured
+    call (args, kwargs) of a train step's backward, over the forward's map
+    it was given: against its plain version (the same bf16 rounding of the
+    rows and of g) to rtol 1e-3 / atol 1e-4 of the plain output's max, and
+    bit for bit on a repeat. The compaction (`tap_pairs`) is checked
+    against its plain version and timed apart. Returns the entries of the
+    contraction and of the compaction."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_conv
+
+    args, kw = call
+    nbr = kw["nbr"]
     feats, keys, coords, g, shape, bsz, ksize, stride, pad = args
     feats = feats.detach()
     args = (feats, keys, coords, g, shape, bsz, ksize, stride, pad)
-    out = cuda_conv.sparse_conv_dw(*args)
-    again = cuda_conv.sparse_conv_dw(*args)
-    ref = cuda_conv.sparse_conv_dw_plain(*args)
+
+    def kern():
+        return cuda_conv.sparse_conv_dw(*args, nbr=nbr)
+
+    out, again = kern(), kern()
+    ref = cuda_conv.sparse_conv_dw_plain(*args, nbr=nbr)
+    pairs, counts = cuda_conv.tap_pairs(nbr)
+    pref, cref = cuda_conv.tap_pairs_plain(nbr)
     torch.cuda.synchronize()
     assert torch.equal(out, again), f"K3 {name}: two runs differ"
+    assert torch.equal(counts, cref) and all(
+        torch.equal(pairs[k, :n], pref[k, :n]) for k, n in enumerate(cref.tolist())), (
+        f"K3 {name}: compaction and its plain version differ")
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    assert err <= TOL * max(scale, 1e-6), f"K3 {name}: max err {err} vs plain max {scale}"
-    # bound: what this run's data needs: the input rows some tap matched,
-    # the rows of g with a match, each read once, and dW written once;
-    # 2 * Cin * Cout flops per match at the bf16 tensor-core rate, the
-    # rate of the TPU kernel it replaces (bf16 x bf16 products of the rows
-    # and of g, f32 accumulation), as K1's bound
-    idx, found = cuda_conv.conv_rulebook(keys, coords, shape, ksize, stride, pad)
-    matches = int(found.sum())
-    rows_read = int(idx[found].unique().numel())
-    g_rows = int(found.any(dim=0).sum())
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4 * scale,
+                               msg=lambda m: f"K3 {name}: {m}")
+    nbytes, flops, bound_s, bound_by = k3_bound(feats, g, nbr)
+    K, M = nbr.shape
+    matches = int(counts.sum())
+    pair_bytes = K * M * 4 + matches * 8 + K * 4
+    ms = cuda_ms(kern, reps=10)
+    kernel_ms = device_ms(kern, k3_kernels(feats, g, nbr))
+    pair_ms = device_ms(lambda: cuda_conv.tap_pairs(nbr), K3_PAIR_KERNELS)
+    plain_ms = cuda_ms(lambda: cuda_conv.sparse_conv_dw_plain(*args, nbr=nbr), reps=3, warmup=1)
+    pair_plain_ms = cuda_ms(lambda: cuda_conv.tap_pairs_plain(nbr), reps=3, warmup=1)
+    n_chunks, rows = cuda_conv.dw_chunks(M, K, feats.shape[1], g.shape[1])
     N, cin = feats.shape
-    M, cout = g.shape
-    K = out.shape[0]
-    nbytes = rows_read * cin * feats.element_size() + g_rows * cout * 4 + K * cin * cout * 4
-    flops = 2.0 * cin * cout * matches
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS)
-    ms = cuda_ms(lambda: cuda_conv.sparse_conv_dw(*args), reps=10)
-    plain_ms = cuda_ms(lambda: cuda_conv.sparse_conv_dw_plain(*args), reps=3, warmup=1)
-    n_chunks, _ = cuda_conv.dw_chunks(M, K, cin, cout)
+    cout = g.shape[1]
     log(f"K3 {name}: N={N} M={M} Cin={cin} Cout={cout} kernel={ksize} stride={stride} "
-        f"{feats.dtype} matches={matches} rows_read={rows_read} g_rows={g_rows} "
-        f"chunks={n_chunks} bytes={nbytes} flops={flops:.0f} max_abs_err={err:.3e} "
-        f"(plain max {scale:.3e}, bitwise repeatable) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_s * 1e3:.4f}")
-    return {"name": f"sparse_conv_dw:{name}", "route": "cuda",
+        f"{feats.dtype} matches={matches} chunks={n_chunks}x{rows} bytes={nbytes} "
+        f"flops={flops:.0f} max_abs_err={err:.3e} (plain max {scale:.3e}, bitwise repeatable) "
+        f"ms={ms:.4f} (kernel alone, profiler: contraction {kernel_ms:.4f} + compaction "
+        f"{pair_ms:.4f}, compaction share {pair_ms / (kernel_ms + pair_ms):.3f}; "
+        f"{flops / ((kernel_ms + pair_ms) * 1e-3) / 1e12:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_s * 1e3:.4f}; compaction bitwise equal, plain_ms={pair_plain_ms:.4f} "
+        f"bound_ms={pair_bytes / HBM_BYTES_PER_S * 1e3:.4f}")
+    dw = {"name": f"sparse_conv_dw:{name}", "route": "cuda",
+          "source": "btcdet_tpu_torch/csrc/sparse_conv_dw.cu",
+          "replaces": "btcdet_tpu/ops/pallas_conv.py:392", "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+          "library_ms": None}
+    pair = {"name": f"tap_pairs:{name}", "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/sparse_conv_dw.cu",
-            "replaces": "btcdet_tpu/ops/pallas_conv.py:392", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TENSOR_FLOPS
-            else "operations", "library_ms": None}
+            "replaces": "btcdet_tpu/ops/pallas_conv.py:392", "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: cuda_conv.tap_pairs(nbr), reps=10),
+            "plain_ms": pair_plain_ms, "bound_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+    return [dw, pair]
+
+
+def k3_step_table(dw_calls):
+    """Every K3 launch of one train step, from its captured calls: the
+    contraction and the compaction kernel alone (profiler, mean of 5 runs
+    each) beside the bound, and their sums."""
+    from btcdet_tpu_torch.ops import cuda_conv
+
+    log(f"K3 train-step launches ({len(dw_calls)}; kernel alone from the profiler, mean of 5 "
+        "runs each):")
+    tot = tot_pairs = 0.0
+    for i, (a, kw) in enumerate(dw_calls):
+        feats, g, nbr = a[0].detach(), a[3], kw["nbr"]
+        K, M = nbr.shape
+        n_chunks, _ = cuda_conv.dw_chunks(M, K, feats.shape[1], g.shape[1])
+        t = device_ms(lambda: cuda_conv.sparse_conv_dw(feats, *a[1:9], nbr=nbr),
+                      k3_kernels(feats, g, nbr), reps=5)
+        tp = device_ms(lambda: cuda_conv.tap_pairs(nbr), K3_PAIR_KERNELS, reps=5)
+        _, flops, bound_s, by = k3_bound(feats, g, nbr)
+        tot, tot_pairs = tot + t, tot_pairs + tp
+        log(f"  #{i:2d} N,Cin={tuple(feats.shape)} M={M} Cout={g.shape[1]} kernel={a[6]} "
+            f"stride={a[7]} matches={int((nbr >= 0).sum())} chunks={n_chunks} ms={t:.4f} "
+            f"compaction_ms={tp:.4f} bound_ms={bound_s * 1e3:.4f} ({by}) "
+            f"TFLOP/s={flops / ((t + tp) * 1e-3) / 1e12:.1f}")
+    log(f"K3 train step: {len(dw_calls)} launches {tot + tot_pairs:.4f} ms of kernel in all "
+        f"(contraction {tot:.4f}, compaction {tot_pairs:.4f})")
 
 
 def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda"):
@@ -1003,7 +1129,7 @@ def train_phase():
         + " per step")
 
     def pick_dw(kernel, stride, cin, cout):
-        return next(a for a, _ in calls["sparse_conv_dw"]
+        return next((a, kw) for a, kw in calls["sparse_conv_dw"]
                     if a[6] == kernel and a[7] == stride and a[0].shape[1] == cin
                     and a[3].shape[1] == cout)
 
@@ -1012,7 +1138,8 @@ def train_phase():
              "conv2_combine_0(subm 34->32)": pick_dw((3, 3, 3), (1, 1, 1), 34, 32),
              "conv_out(3x1x1 s2 64->128)": pick_dw((3, 1, 1), (2, 1, 1), 64, 128),
              "down_combine_0(subm 256->128)": pick_dw((3, 3, 3), (1, 1, 1), 256, 128)}
-    entries = [k3_case(name, args) for name, args in picks.items()]
+    entries = [e for name, call in picks.items() for e in k3_case(name, call)]
+    k3_step_table(calls["sparse_conv_dw"])
     # K1 at the step's own inputs: conv1's forward over the train-cap
     # table, the transpose-query df of conv2, the subm df of down_combine_0
     fwd = next(a for a, _ in calls["sparse_conv"]
@@ -1026,7 +1153,7 @@ def train_phase():
               if not kw.get("transpose") and a[3].shape[1:] == (128, 256))
     entries += k1_case("down_combine_0 df (subm, 128->256)", df, df=True)
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
-    entries.append(k2_case(calls["sparse_pool"][0][0], "train"))
+    entries.append(k2_case(calls["sparse_pool"][0], "train"))
     entries.append(k4_case(calls["trilinear_pool"][0][0], "train"))
     calls_k4 = calls["trilinear_pool"][0][0]
     del calls, picks, df, fwd
@@ -1038,7 +1165,7 @@ def train_phase():
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"train-step launches: {json.dumps(launches)}")
-    assert launches.pop("sparse_sum_pool") == 0 and all(n > 0 for n in launches.values()), launches
+    assert launches == TRAIN_LAUNCHES, (launches, TRAIN_LAUNCHES)
     for e in entries:
         e["launches"] = launches[e["name"].split(":")[0]]
     vals = {k: float(v) for k, v in metrics.items()}
@@ -1107,6 +1234,7 @@ def variant_train_phase():
     assert launches["sparse_sum_pool"] == 3 and launches["sparse_pool"] == 0, launches
     assert all(launches[k] > 0 for k in ("sparse_conv", "sparse_conv_df", "sparse_conv_dw",
                                          "trilinear_pool")), launches
+    assert launches["tap_pairs"] == launches["sparse_conv_dw"], launches
     vals = {k: float(v) for k, v in metrics.items()}
     assert all(math.isfinite(v) for v in vals.values()), vals
     params = dict(net.named_parameters())
@@ -1310,7 +1438,7 @@ def main() -> int:
     kernels = [e for name, args in picks.items() for e in k1_case(name, args)]
     k1_eval_table(captured["sparse_conv"], captured["neighbor_map"])
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
-    kernels.append(k2_case(calls["sparse_pool"][0]))
+    kernels.append(k2_case(captured["sparse_pool"][0]))
     kernels.append(k4_case(calls["trilinear_pool"][0]))
     del calls, captured, convs, picks
 
@@ -1325,8 +1453,7 @@ def main() -> int:
     launches = read_launches()
     hook.remove()
     log(f"main-path launches: {json.dumps(launches)}")
-    assert all(launches[k] > 0 for k in EVAL_KERNELS) and launches["sparse_sum_pool"] == 0, launches
-    assert launches["neighbor_map"] == EVAL_MAPS, launches
+    assert launches == EVAL_LAUNCHES, (launches, EVAL_LAUNCHES)
     for e in kernels:
         e["launches"] = launches[e["name"].split(":")[0]]
     B = batch["points"].shape[0]
@@ -1352,6 +1479,7 @@ def main() -> int:
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     stage_profile(net, batch, cfg.MODEL.POST_PROCESSING)
     occ_determinism(net, batch, cfg.MODEL.POST_PROCESSING)
+    merge_repeat(net, batch)
     proposal_nms_check(net, batch)
     del net, batch, out, post, seen
 

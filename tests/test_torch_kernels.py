@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: K1 (`ops/cuda_conv.neighbor_map`, bit for bit, and the gather-GEMM
 `sparse_conv`, bf16 on the tensor cores and f32, and `sparse_conv_df` in
-transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw`), K2 max and sum
+transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw` and its per-tap
+compaction `tap_pairs`, over the map), K2 max and sum over the map
 (`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`) and K4
 (`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
@@ -489,3 +490,107 @@ def test_new_kernels_refuse_bad_inputs(cuda):
                                    roi_b, valid)
     with pytest.raises(ValueError):                      # C not a multiple of 8
         cuda_interp.trilinear_pool(torch.randn(1, 3, 8, 8, 12, device=cuda), zyx, roi_b, valid)
+
+
+def _map_with_empty_and_full_taps(st, coords, kernel, stride, padding):
+    """The map of these pairs with tap 0 emptied and tap 1 matching every
+    output row (padding rows too), the compaction's edge cases."""
+    nbr = cuda_conv.neighbor_map(st.keys, coords, st.spatial_shape, st.batch_size, kernel,
+                                 stride, padding)
+    nbr[0] = -1
+    nbr[1] = torch.arange(nbr.shape[1], device=nbr.device, dtype=torch.int32) % int(st.nnz)
+    return nbr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 20, 1023, 1024, 5003, 20000])
+def test_tap_pairs_kernel_matches_plain(cuda, n):
+    """K3's compaction against its plain version on maps of one output row,
+    of fewer rows than one 32-pair step, around one 1024-row count block
+    and of many blocks, with an empty tap and a full one: the same counts
+    and the same pairs in row order (the entries past a count are
+    undefined)."""
+    st = _sparse_case(cuda, 2, n=n, shape=(41, 160, 140) if n > 100 else (5, 8, 8))
+    coords = st.coords[:n]
+    nbr = _map_with_empty_and_full_taps(st, coords, 3, 1, 1)
+    n0 = cuda_conv.pair_launches
+    pairs, counts = cuda_conv.tap_pairs(nbr)
+    torch.cuda.synchronize()
+    assert cuda_conv.pair_launches == n0 + 1
+    ref_pairs, ref_counts = cuda_conv.tap_pairs_plain(nbr)
+    assert torch.equal(counts, ref_counts)
+    assert counts[0] == 0 and counts[1] == nbr.shape[1]
+    for k, c in enumerate(ref_counts.tolist()):
+        assert torch.equal(pairs[k, :c], ref_pairs[k, :c]), k
+
+
+K3_EDGE_CASES = [  # kernel, stride, padding, Cin, Cout, rows: ragged Cin / Cout, Cout 256,
+    # fewer rows than one 32-pair step
+    (3, 1, 1, 6, 16, 5003), (3, 1, 1, 34, 32, 5003), (3, 1, 1, 16, 6, 5003),
+    (3, 1, 1, 256, 256, 5003), (3, 2, 1, 34, 24, 5003), ((3, 1, 1), (2, 1, 1), 0, 6, 128, 5003),
+    (3, 1, 1, 64, 64, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout,n", K3_EDGE_CASES)
+def test_sparse_conv_dw_at_tile_edges(cuda, kernel, stride, padding, cin, cout, n, dtype):
+    """K3 over a given map at the edges of its tiles: a Cin or Cout that is
+    not a multiple of 8 (padded by the wrapper), Cout 256 (two channel
+    tiles), fewer rows than one step; against its plain version with the
+    same rounding, and bit for bit the same in a second run."""
+    st = _sparse_case(cuda, cin, n=n, shape=(41, 160, 140) if n > 100 else (5, 8, 8))
+    coords = st.coords if stride == 1 else TS.conv_output_sites(st, kernel, stride, padding,
+                                                                 st.capacity)[1]
+    nbr = cuda_conv.neighbor_map(st.keys, coords, st.spatial_shape, st.batch_size, kernel, stride,
+                                 padding)
+    g = torch.randn(coords.shape[0], cout, generator=torch.Generator().manual_seed(8)).to(cuda)
+    args = (st.features.to(dtype), st.keys, coords, g, st.spatial_shape, st.batch_size, kernel,
+            stride, padding)
+    dw = cuda_conv.sparse_conv_dw(*args, nbr=nbr)
+    again = cuda_conv.sparse_conv_dw(*args, nbr=nbr)
+    torch.cuda.synchronize()
+    ref = cuda_conv.sparse_conv_dw_plain(*args, nbr=nbr)
+    assert dw.shape == ref.shape == (nbr.shape[0], cin, cout)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(dw, ref, rtol=1e-3, atol=1e-4 * scale)
+    assert torch.equal(dw, again) and scale > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_sparse_conv_dw_with_empty_and_full_taps(cuda, dtype):
+    """K3 over a map with a tap that matches nothing (its dW is exactly 0)
+    and a tap that matches every row, padding rows included."""
+    st = _sparse_case(cuda, 16, n=5003)
+    nbr = _map_with_empty_and_full_taps(st, st.coords, 3, 1, 1)
+    g = torch.randn(st.capacity, 32, generator=torch.Generator().manual_seed(9)).to(cuda)
+    args = (st.features.to(dtype), st.keys, st.coords, g, st.spatial_shape, st.batch_size, 3, 1, 1)
+    dw = cuda_conv.sparse_conv_dw(*args, nbr=nbr)
+    ref = cuda_conv.sparse_conv_dw_plain(*args, nbr=nbr)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(dw, ref, rtol=1e-3, atol=1e-4 * scale)
+    assert torch.equal(dw[0], torch.zeros_like(dw[0])) and float(dw[1].abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["max", "sum"])
+def test_sparse_pools_over_a_given_map(cuda, mode):
+    """K2 reads the map it is given (no search): with an emptied tap and a
+    tap that matches every row, bit for bit its plain version over the same
+    map, and one launch, no map build."""
+    st = _sparse_case(cuda, 2, n=5003)
+    feats = st.features.abs()
+    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+    nbr = _map_with_empty_and_full_taps(st, coords, 3, 2, 1)
+    wrapper, plain = ((cuda_pool.sparse_pool, cuda_pool.sparse_pool_plain) if mode == "max"
+                      else (cuda_pool.sparse_sum_pool, cuda_pool.sparse_sum_pool_plain))
+    n0 = (cuda_conv.nbr_launches, cuda_pool.launches + cuda_pool.sum_launches)
+    out = wrapper(feats, st.keys, coords, st.spatial_shape, st.batch_size, 3, 2, 1, nbr=nbr)
+    torch.cuda.synchronize()
+    assert (cuda_conv.nbr_launches, cuda_pool.launches + cuda_pool.sum_launches) == (
+        n0[0], n0[1] + 1)
+    ref = plain(feats, st.keys, coords, st.spatial_shape, 3, 2, 1, nbr)
+    assert torch.equal(out, ref) and float(ref.max()) > 0
+    with pytest.raises(ValueError):
+        wrapper(feats, st.keys, coords, st.spatial_shape, st.batch_size, 3, 2, 1, nbr=nbr[:8])

@@ -266,6 +266,29 @@ def test_fused_merge_matches(seed, extra):
     np.testing.assert_array_equal(out[1][rv], ref[1][rv])          # occ code (max)
 
 
+def test_fused_merge_sums_each_voxels_points_in_point_order():
+    """The merge sums a voxel's points in point order: four raw points
+    into one det voxel whose values cancel only in that
+    order in f32 ((1e8 + 1) - 1e8 + 1 = 1, where any other order gives 0
+    or 2), then the det voxel's own point."""
+    from btcdet_tpu_torch.ops import voxelizer as TV
+
+    dvox = torch.zeros((1, 2, 5, 4))
+    dvox[0, 0, 0] = torch.tensor([1.5, 1.5, 0.5, 0.25])
+    dc = torch.tensor([[[0, 0, 1, 1], [-1, -1, -1, -1]]], dtype=torch.int32)
+    dn = torch.tensor([[1, 0]], dtype=torch.int32)
+    inten = [1e8, 1.0, -1e8, 1.0]
+    opts = torch.tensor([[[1.1 + 0.1 * i, 1.5, 0.5, v, 0.0] for i, v in enumerate(inten)]])
+    feats, _, num, _, rv = TV.merge_points_into_voxel_features(
+        dvox, dc, dn, opts, torch.ones((1, 4), dtype=torch.bool), grid_size=(4, 4, 2),
+        lo=torch.zeros(3), vs=torch.ones(3), extra=2, max_points=8, num_raw_features=4)
+    s = np.float32(0.0)
+    for v in inten:
+        s = np.float32(s + np.float32(v))
+    assert s == 1.0 and int(num[0, 0]) == 5 and bool(rv[0, 0])
+    assert float(feats[0, 0, 3]) == float(np.float32(s + np.float32(0.25)) / np.float32(5.0))
+
+
 def _sparse_table(seed, n=900, shape=(11, 40, 36), batch=2, C=2):
     from btcdet_tpu_torch.ops import sparse as TS
 
