@@ -7,6 +7,7 @@ YAML files under `tools/cfgs/` load unchanged.
 
 from __future__ import annotations
 
+import ast
 import copy
 from pathlib import Path
 
@@ -91,6 +92,44 @@ def cfg_from_yaml_file(cfg_file, config: EasyDict | None = None) -> EasyDict:
     with open(cfg_file) as f:
         new_config = yaml.safe_load(f)
     merge_new_config(config, new_config, base_dir=cfg_file.parent)
+    return config
+
+
+def cfg_from_list(cfg_list, config: EasyDict) -> EasyDict:
+    """Set config keys from a flat list of dotted-path / value pairs, e.g.
+    ['MODEL.ROI_HEAD.APPROX_QUERY', 'False'] (reference `config.py:16-48`).
+    Values are Python literals where they parse; a "k1:v1,k2:v2" string
+    updates a dict entry."""
+    if len(cfg_list) % 2:
+        raise ValueError(f"override list must be key / value pairs: {cfg_list}")
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        keys = full_key.split(".")
+        d = config
+        for subkey in keys[:-1]:
+            if subkey not in d:
+                d[subkey] = EasyDict()
+            d = d[subkey]
+        subkey = keys[-1]
+        try:
+            value = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+        old = d.get(subkey)
+        if isinstance(old, dict) and isinstance(value, str):
+            kv = {}
+            for pair in value.split(","):
+                k2, v2 = pair.split(":")
+                try:
+                    kv[k2.strip()] = ast.literal_eval(v2.strip())
+                except (ValueError, SyntaxError):
+                    kv[k2.strip()] = v2.strip()
+            old.update(kv)
+            continue
+        if isinstance(old, float) and isinstance(value, int) and not isinstance(value, bool):
+            value = float(value)
+        elif isinstance(old, list) and isinstance(value, tuple):
+            value = list(value)
+        d[subkey] = value
     return config
 
 

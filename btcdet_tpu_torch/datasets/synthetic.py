@@ -1,5 +1,6 @@
 """Synthetic KITTI-like batches (counterpart of
-`btcdet_tpu/datasets/synthetic.py`) and the numpy voxelizer they use.
+`btcdet_tpu/datasets/synthetic.py`), voxelized by the host voxelizer of
+the KITTI pipeline (`ops.voxelizer.voxelize_np`).
 
 The numpy generator reproduces the JAX package's batch bit for bit for
 the same seed and config; `make_synthetic_batch` then moves it onto the
@@ -11,57 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.voxelizer import voxelize_np
 from ..utils import coords as coords_utils
 from ..utils.common import resolve_device
 
 # best-match point slots of a frame (the JAX generator's default)
 BM_POINTS = 2048
-
-
-def compute_grid_size(point_cloud_range, voxel_size) -> tuple[int, int, int]:
-    pr = np.asarray(point_cloud_range, dtype=np.float64)
-    vs = np.asarray(voxel_size, dtype=np.float64)
-    grid = np.round((pr[3:6] - pr[0:3]) / vs).astype(np.int64)
-    return int(grid[0]), int(grid[1]), int(grid[2])  # (nx, ny, nz)
-
-
-def voxelize_np(points, point_cloud_range, voxel_size, max_points, max_voxels):
-    """Points (N, C) -> (voxels (max_voxels, max_points, C), coords
-    (max_voxels, 3) int32 zyx with -1 padding, num_points (max_voxels,)).
-    Voxels are kept in key order up to `max_voxels`; points within a
-    voxel in point order up to `max_points`."""
-    points = np.asarray(points)
-    nx, ny, nz = compute_grid_size(point_cloud_range, voxel_size)
-    lo = np.asarray(point_cloud_range[:3], dtype=points.dtype)
-    vs = np.asarray(voxel_size, dtype=points.dtype)
-    cxyz = np.floor((points[:, :3] - lo) / vs).astype(np.int64)
-    in_range = (
-        (cxyz[:, 0] >= 0) & (cxyz[:, 0] < nx)
-        & (cxyz[:, 1] >= 0) & (cxyz[:, 1] < ny)
-        & (cxyz[:, 2] >= 0) & (cxyz[:, 2] < nz)
-    )
-    pts = points[in_range]
-    cxyz = cxyz[in_range]
-    key = (cxyz[:, 2] * ny + cxyz[:, 1]) * nx + cxyz[:, 0]
-    order = np.argsort(key, kind="stable")
-    skey, spts = key[order], pts[order]
-    ukeys, inv, counts = np.unique(skey, return_inverse=True, return_counts=True)
-    n_vox = min(len(ukeys), max_voxels)
-
-    voxels = np.zeros((max_voxels, max_points, points.shape[1]), dtype=points.dtype)
-    coords = np.full((max_voxels, 3), -1, dtype=np.int32)
-    num_points = np.zeros((max_voxels,), dtype=np.int32)
-
-    seg_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    slot = np.arange(len(skey)) - seg_start[inv]
-    keep = (inv < max_voxels) & (slot < max_points)
-    voxels[inv[keep], slot[keep]] = spts[keep]
-    np.add.at(num_points, inv[keep], 1)
-    uk = ukeys[:n_vox]
-    coords[:n_vox, 0] = uk // (ny * nx)
-    coords[:n_vox, 1] = (uk % (ny * nx)) // nx
-    coords[:n_vox, 2] = uk % nx
-    return voxels, coords, num_points
 
 
 def _plant_boxes(rng, n, point_range):

@@ -27,8 +27,8 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from ...datasets.synthetic import compute_grid_size
 from ...ops import iou3d, sparse
+from ...ops.voxelizer import compute_grid_size
 from ...utils.common import activation_dtype, resolve_device
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head

@@ -28,7 +28,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...datasets.synthetic import compute_grid_size
 from ...ops import voxelizer
 from ...utils import coords, loss_utils
 from .. import backbones_3d
@@ -246,7 +245,7 @@ class OccSubnet(nn.Module):
             batch["det_voxel_coords"].reshape(B, per_frame, 4),
             batch["det_voxel_num_points"].reshape(B, per_frame).clamp(0, Pd),
             occ_pts6, valid,
-            grid_size=compute_grid_size(self.point_cloud_range, self.det_voxel_size),
+            grid_size=voxelizer.compute_grid_size(self.point_cloud_range, self.det_voxel_size),
             lo=self.det_lo, vs=self.det_vs, extra=extra, max_points=MAX_POINTS_MERGED,
             num_raw_features=self.num_point_features)
         rv = row_valid[..., None]

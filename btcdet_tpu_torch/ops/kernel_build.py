@@ -1,10 +1,13 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native code.
 
 Each `csrc/*.cu` file has a plain C interface (the `.cuh` headers beside
 them hold device code they share) and is compiled by nvcc into its own
 shared library under `build/kernels/` at the repository
 root, at first use, then loaded with ctypes. Nothing here runs when a
 module is imported: the CPU paths never need nvcc.
+
+The host C++ of the data pipeline and the KITTI metric (`csrc/host/*.cpp`,
+no CUDA) is built the same way by g++ (`load_host`); a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+HOST_SRC = CSRC / "host"
+GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -81,4 +86,28 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/host/<name>.cpp`, built by g++ into
+    `build/kernels/libhost_<name>.so` when missing or older than its source."""
+    key = "host_" + name
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        src, so = HOST_SRC / f"{name}.cpp", _lib_path(key)
+        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f"lib{key}.{os.getpid()}.tmp.so"
+            cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+            r = subprocess.run([cxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+                               capture_output=True, text=True)
+            BUILD_LOGS[key] = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"g++ failed for {src.name}:\n{BUILD_LOGS[key]}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        _LIBS[key] = lib
     return lib

@@ -1,7 +1,13 @@
-"""Fused PassOccVox merge + OccVFE (counterpart of
-`btcdet_tpu/ops/voxelizer.py::merge_points_into_voxel_features`).
+"""Voxelizers: the host one of the data pipeline, and the fused PassOccVox
+merge + OccVFE of the occ subnet (counterparts of `btcdet_tpu/ops/voxelizer.py`).
 
-The occ subnet's points are binned into the det voxel grid and merged
+Host (`compute_grid_size`, `voxelize_np`): points -> a capacity-padded
+voxel table, on the CPU, by the C++ core `csrc/host/voxelizer_core.cpp`
+(g++, built at first use; a failed build raises); `voxelize_np_plain` is
+its numpy twin, equal bit for bit.
+
+Device (`merge_points_into_voxel_features`): the occ subnet's points are
+binned into the det voxel grid and merged
 into the det voxel table, and the merged table is reduced straight to the
 OccVFE features without ever being built. The JAX package reduces with a
 segmented scan over the key-sorted points; here a stable sort fixes the
@@ -12,11 +18,100 @@ float32 reassociation only.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from . import kernel_build
 from .cuda_conv import INT32_MAX
 
 NEG = -3.0e38   # "no point" in the per-voxel max of the occ code
+
+
+# ------------------------------------------------------------------- host
+
+def compute_grid_size(point_cloud_range, voxel_size) -> tuple[int, int, int]:
+    """(nx, ny, nz): the range over the voxel size, rounded."""
+    pr = np.asarray(point_cloud_range, dtype=np.float64)
+    vs = np.asarray(voxel_size, dtype=np.float64)
+    grid = np.round((pr[3:6] - pr[0:3]) / vs).astype(np.int64)
+    return int(grid[0]), int(grid[1]), int(grid[2])
+
+
+def host_voxelizer() -> ctypes.CDLL:
+    """The C++ core, built by g++ at first use (raises if it cannot be)."""
+    lib = kernel_build.load_host("voxelizer_core")
+    if lib.voxelize.argtypes is None:
+        fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+        lib.voxelize.restype = ctypes.c_int
+        lib.voxelize.argtypes = [fp, ctypes.c_long, ctypes.c_long, fp, fp, ctypes.c_long,
+                                 ctypes.c_long, fp, ip, ip]
+    return lib
+
+
+def voxelize_np(points, point_cloud_range, voxel_size, max_points: int, max_voxels: int):
+    """Points (N, C) -> (voxels (max_voxels, max_points, C), coords
+    (max_voxels, 3) int32 zyx with -1 padding, num_points (max_voxels,)
+    int32). Voxels are kept in key order up to `max_voxels`, points within
+    a voxel in point order up to `max_points`; cells are found in the
+    points' dtype. float32 clouds (under 2**24 points, the C++ core's
+    packed sort) run the C++ core; other inputs its numpy twin, as in the
+    JAX package."""
+    points = np.asarray(points)
+    nx, ny, nz = compute_grid_size(point_cloud_range, voxel_size)
+    if not (points.dtype == np.float32 and points.ndim == 2 and points.shape[0] < (1 << 24)
+            and nx * ny * nz < (1 << 39)):
+        return voxelize_np_plain(points, point_cloud_range, voxel_size, max_points, max_voxels)
+    lib = host_voxelizer()
+    pts = np.ascontiguousarray(points)
+    pcr = np.asarray(point_cloud_range, np.float32)
+    vs = np.asarray(voxel_size, np.float32)
+    C = pts.shape[1]
+    voxels = np.empty((max_voxels, max_points, C), np.float32)
+    coords = np.empty((max_voxels, 3), np.int32)
+    num = np.zeros((max_voxels,), np.int32)
+    fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    lib.voxelize(pts.ctypes.data_as(fp), pts.shape[0], C, pcr.ctypes.data_as(fp),
+                 vs.ctypes.data_as(fp), max_points, max_voxels, voxels.ctypes.data_as(fp),
+                 coords.ctypes.data_as(ip), num.ctypes.data_as(ip))
+    return voxels, coords, num
+
+
+def voxelize_np_plain(points, point_cloud_range, voxel_size, max_points: int,
+                      max_voxels: int):
+    """`voxelize_np` in numpy: the C++ core's twin."""
+    points = np.asarray(points)
+    nx, ny, nz = compute_grid_size(point_cloud_range, voxel_size)
+    lo = np.asarray(point_cloud_range[:3], dtype=points.dtype)
+    vs = np.asarray(voxel_size, dtype=points.dtype)
+    cxyz = np.floor((points[:, :3] - lo) / vs).astype(np.int64)
+    in_range = ((cxyz[:, 0] >= 0) & (cxyz[:, 0] < nx) & (cxyz[:, 1] >= 0) & (cxyz[:, 1] < ny)
+                & (cxyz[:, 2] >= 0) & (cxyz[:, 2] < nz))
+    pts = points[in_range]
+    cxyz = cxyz[in_range]
+    key = (cxyz[:, 2] * ny + cxyz[:, 1]) * nx + cxyz[:, 0]
+    order = np.argsort(key, kind="stable")
+    skey, spts = key[order], pts[order]
+    ukeys, inv, counts = np.unique(skey, return_inverse=True, return_counts=True)
+    n_vox = min(len(ukeys), max_voxels)
+
+    voxels = np.zeros((max_voxels, max_points, points.shape[1]), dtype=points.dtype)
+    coords = np.full((max_voxels, 3), -1, dtype=np.int32)
+    num_points = np.zeros((max_voxels,), dtype=np.int32)
+    seg_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(skey)) - seg_start[inv]
+    keep = (inv < max_voxels) & (slot < max_points)
+    voxels[inv[keep], slot[keep]] = spts[keep]
+    np.add.at(num_points, inv[keep], 1)
+    uk = ukeys[:n_vox]
+    coords[:n_vox, 0] = uk // (ny * nx)
+    coords[:n_vox, 1] = (uk % (ny * nx)) // nx
+    coords[:n_vox, 2] = uk % nx
+    return voxels, coords, num_points
+
+
+# ----------------------------------------------------------------- device
 
 
 def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_size, lo, vs,

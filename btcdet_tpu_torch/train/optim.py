@@ -99,6 +99,20 @@ class AdamOneCycle:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """{count, mu, nu}, the moments keyed by parameter name."""
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        if sorted(state["mu"]) != sorted(self.names):
+            raise KeyError("optimizer state names differ from the partition's parameters")
+        for i, n in enumerate(self.names):
+            self.mu[i].copy_(state["mu"][n])
+            self.nu[i].copy_(state["nu"][n])
+        self.count = int(state["count"])
+
 
 class DualOptimizer:
     """The occ / det split: {partition: AdamOneCycle or None (frozen)}."""
@@ -116,3 +130,15 @@ class DualOptimizer:
         {"grad_norm_<part>": norm before clipping}."""
         return {f"grad_norm_{part}": opt.step() for part, opt in self.parts.items()
                 if opt is not None}
+
+    def state_dict(self) -> dict:
+        """{partition: its state, or None when frozen}."""
+        return {part: None if opt is None else opt.state_dict()
+                for part, opt in self.parts.items()}
+
+    def load_state_dict(self, state: dict):
+        for part, opt in self.parts.items():
+            if (opt is None) != (state.get(part) is None):
+                raise ValueError(f"partition {part!r}: frozen in one state and not the other")
+            if opt is not None:
+                opt.load_state_dict(state[part])

@@ -75,3 +75,97 @@ def points_in_boxes_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Ten
     half = boxes[..., None, :, 3:6] / 2
     return ((local_x.abs() <= half[..., 0]) & (local_y.abs() <= half[..., 1])
             & (shift[..., 2].abs() <= half[..., 2]))
+
+
+# ------------------------------------------------------ numpy host helpers
+# The host data pipeline's twins of the functions above, and the KITTI
+# camera <-> lidar conversions; numpy in the input's dtype, the JAX
+# package's host arithmetic.
+
+def boxes_to_corners_3d_np(boxes3d: np.ndarray) -> np.ndarray:
+    """(N, 7) -> (N, 8, 3) corners, numpy."""
+    corners = boxes3d[:, None, 3:6] * _CORNER_TEMPLATE[None, :, :]
+    corners = common.rotate_points_along_z_np(corners, boxes3d[:, 6])
+    return corners + boxes3d[:, None, 0:3]
+
+
+def points_in_boxes_mask_np(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """points (N, 3), boxes (M, 7) -> bool (N, M), numpy
+    (`points_in_boxes_mask`'s test)."""
+    shift = points[:, None, :3] - boxes[None, :, 0:3]
+    c, s = np.cos(-boxes[:, 6]), np.sin(-boxes[:, 6])
+    local_x = shift[..., 0] * c[None, :] - shift[..., 1] * s[None, :]
+    local_y = shift[..., 0] * s[None, :] + shift[..., 1] * c[None, :]
+    local_z = shift[..., 2]
+    return ((np.abs(local_x) <= boxes[None, :, 3] / 2)
+            & (np.abs(local_y) <= boxes[None, :, 4] / 2)
+            & (np.abs(local_z) <= boxes[None, :, 5] / 2))
+
+
+def mask_boxes_outside_range(boxes: np.ndarray, limit_range, min_num_corners: int = 1):
+    """Keep boxes with >= min_num_corners corners inside the BEV range
+    (reference `box_utils.mask_boxes_outside_range_numpy`)."""
+    corners = boxes_to_corners_3d_np(boxes)
+    lr = np.asarray(limit_range)
+    inside = np.all((corners[:, :, 0:2] >= lr[None, None, 0:2])
+                    & (corners[:, :, 0:2] <= lr[None, None, 3:5]), axis=2)
+    return inside.sum(axis=1) >= min_num_corners
+
+
+def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib) -> np.ndarray:
+    """(N, 7) lidar [x, y, z, dx, dy, dz, heading] -> camera [x, y, z, l, h,
+    w, ry]: the camera box's origin is its bottom center, ry = -heading -
+    pi / 2 (reference `box_utils.boxes3d_lidar_to_kitti_camera`)."""
+    boxes3d_lidar = np.asarray(boxes3d_lidar).copy()
+    xyz_lidar = boxes3d_lidar[:, 0:3].copy()
+    dx, dy, dz = boxes3d_lidar[:, 3:4], boxes3d_lidar[:, 4:5], boxes3d_lidar[:, 5:6]
+    heading = boxes3d_lidar[:, 6:7]
+    xyz_lidar[:, 2] -= dz.reshape(-1) / 2
+    xyz_cam = calib.lidar_to_rect(xyz_lidar)
+    ry = -heading - np.pi / 2
+    return np.concatenate([xyz_cam, dx, dz, dy, ry], axis=1)
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib) -> np.ndarray:
+    """(N, 7) camera [x, y, z, l, h, w, ry] -> lidar [x, y, z, dx, dy, dz,
+    heading]."""
+    boxes3d_camera = np.asarray(boxes3d_camera).copy()
+    xyz_camera = boxes3d_camera[:, 0:3]
+    l, h, w = boxes3d_camera[:, 3:4], boxes3d_camera[:, 4:5], boxes3d_camera[:, 5:6]
+    r = boxes3d_camera[:, 6:7]
+    xyz_lidar = calib.rect_to_lidar(xyz_camera)
+    xyz_lidar[:, 2] += h.reshape(-1) / 2
+    heading = -(r + np.pi / 2)
+    return np.concatenate([xyz_lidar, l, w, h, heading], axis=1)
+
+
+def boxes3d_kitti_camera_to_imageboxes(boxes3d, calib, image_shape=None) -> np.ndarray:
+    """Camera boxes -> 2D image boxes [x1, y1, x2, y2] spanning the 8
+    projected corners, clipped to `image_shape` (H, W) when given
+    (reference `box_utils.boxes3d_kitti_camera_to_imageboxes`)."""
+    boxes3d = np.asarray(boxes3d)
+    pts_img, _ = calib.rect_to_img(_camera_box_corners(boxes3d).reshape(-1, 3))
+    corners_img = pts_img.reshape(-1, 8, 2)
+    boxes2d = np.concatenate([corners_img.min(axis=1), corners_img.max(axis=1)], axis=1)
+    if image_shape is not None:
+        boxes2d[:, 0] = np.clip(boxes2d[:, 0], 0, image_shape[1] - 1)
+        boxes2d[:, 1] = np.clip(boxes2d[:, 1], 0, image_shape[0] - 1)
+        boxes2d[:, 2] = np.clip(boxes2d[:, 2], 0, image_shape[1] - 1)
+        boxes2d[:, 3] = np.clip(boxes2d[:, 3], 0, image_shape[0] - 1)
+    return boxes2d
+
+
+def _camera_box_corners(boxes3d: np.ndarray) -> np.ndarray:
+    """KITTI camera-frame boxes (x, y, z, l, h, w, ry), origin at the bottom
+    center -> (N, 8, 3) corners."""
+    l, h, w = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    x_c = np.array([1, 1, -1, -1, 1, 1, -1, -1], dtype=np.float32)
+    y_c = np.array([0, 0, 0, 0, -1, -1, -1, -1], dtype=np.float32)
+    z_c = np.array([1, -1, -1, 1, 1, -1, -1, 1], dtype=np.float32)
+    corners = np.stack([l[:, None] / 2 * x_c[None], h[:, None] * y_c[None],
+                        w[:, None] / 2 * z_c[None]], axis=-1)
+    ry = boxes3d[:, 6]
+    c, s = np.cos(ry), np.sin(ry)
+    zero, one = np.zeros_like(c), np.ones_like(c)
+    rot = np.stack([c, zero, s, zero, one, zero, -s, zero, c], axis=-1).reshape(-1, 3, 3)
+    return np.matmul(corners, rot.transpose(0, 2, 1)) + boxes3d[:, None, 0:3]

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -85,3 +86,44 @@ def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.T
     for lin, w in trilinear_corners(zyx, (D, H, W)):
         out = out + flat[lin].float() * w[:, None]
     return out
+
+
+# ------------------------------------------------------ numpy host helpers
+
+def rotation_matrix_z_np(angle: np.ndarray) -> np.ndarray:
+    """`rotation_matrix_z` in numpy, in the input's dtype."""
+    c, s = np.cos(angle), np.sin(angle)
+    one, zero = np.ones_like(c), np.zeros_like(c)
+    rot = np.stack([c, s, zero, -s, c, zero, zero, zero, one], axis=-1)
+    return rot.reshape(angle.shape + (3, 3))
+
+
+def rotate_points_along_z_np(points, angle) -> np.ndarray:
+    """`rotate_points_along_z` in numpy (the host data pipeline's): points
+    (B, N, 3 + C) rotated by angle (B,), p' = p @ R."""
+    points, angle = np.asarray(points), np.asarray(angle)
+    xyz = np.matmul(points[..., :3], rotation_matrix_z_np(angle))
+    if points.shape[-1] > 3:
+        return np.concatenate([xyz, points[..., 3:]], axis=-1)
+    return xyz
+
+
+def create_logger(log_file=None, log_level=logging.INFO) -> logging.Logger:
+    """The package's logger: to the console, and to `log_file` (in place of
+    an earlier call's file) when given."""
+    logger = logging.getLogger("btcdet_tpu_torch")
+    logger.setLevel(log_level)
+    formatter = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
+    for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+        logger.removeHandler(h)
+        h.close()
+    if not logger.handlers:
+        console = logging.StreamHandler()
+        console.setFormatter(formatter)
+        logger.addHandler(console)
+    if log_file is not None:
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
+    logger.propagate = False
+    return logger

@@ -2,8 +2,10 @@
 """GPU smoke run of the PyTorch port (`btcdet_tpu_torch`): the full
 flagship BtcNet eval forward (occupancy subnet included) on one CUDA
 card, its det-only variant as a second path, the det backbone's four
-occ-code variants (`config.flagship_occ_variant`) as a third, and the
-flagship training step (and the `fix` variant's) as a fourth.
+occ-code variants (`config.flagship_occ_variant`) as a third, the
+evaluation entry point `tools/test_torch.py` on a synthetic KITTI tree as
+a fourth, and the flagship training step (and the `fix` variant's) as a
+fifth.
 
     python3 chip_smoke.py
 
@@ -18,7 +20,9 @@ Phases (any failure raises and exits non-zero, printing no result):
      to 1e-2 of the plain output's max and bit for bit on a repeat, K4 in
      bf16 within one bf16 ulp, K2 max over the forward's map bit for bit),
      with kernel (event and
-     profiler kernel-alone) / plain / library times and the card's bound;
+     profiler kernel-alone; CUDA events where every profiler session
+     missed the kernel, logged) / plain / library times and the card's
+     bound;
      a table of all 18 K1 launches of the eval forward over the maps it
      built (shape, matches, kernel-alone ms, bound) and their sum; the
      maps built per forward asserted equal to the distinct (input table,
@@ -42,7 +46,16 @@ Phases (any failure raises and exits non-zero, printing no result):
      the k=2 call of `avgpool`), then for each variant counts reset, one
      run with its launches asserted (the maps too: 9, 12 in `avgpool`),
      its outputs checked and nnz per
-     level, and for `fix` its median and ms per stage;
+     level, and for `fix` its median and ms per stage; then the
+     evaluation entry point as the fourth: a synthetic KITTI tree (16
+     frames, 8 in val, about 20 000 background points a frame), infos by
+     the port, synthetic weights as a reference-format `.pth`, and
+     `tools/test_torch.py` in process on the flagship yaml (B=2, 2 loader
+     workers): counts reset, every val frame evaluated with finite AP
+     keys, the launches per forward equal to EVAL_LAUNCHES, the first
+     batch's detections equal to a forward + post-processing of the same
+     batch bit for bit; the host pipeline's ms a frame, the loop's frames
+     per second and, over a profiled second run, the device's idle share;
   6. small-input checks: small full and det-only configs in float32 on
      the card against the plain path on the CPU, same weights and batch
      (full config: the occ subnets compared, run to run on the card as
@@ -61,7 +74,9 @@ Phases (any failure raises and exits non-zero, printing no result):
      K4; then counts reset, one step whose launches of every kernel (K1
      map, forward and df, K3 and its compaction, K2, K4) must equal
      TRAIN_LAUNCHES, with its loss terms, per-partition gradient norms and
-     moved parameters and BN statistics; 10 steps timed; and one step
+     moved parameters and BN statistics; one forward + backward twice from
+     the same state, batch and generator, with the count of gradient
+     elements that differ per tensor group (a measurement); 10 steps timed; and one step
      in float32 on the card against the CPU (loss terms
      to 1e-3, gradients to 1e-3 of each tensor's max) on the micro config;
      then the `fix` variant's train step: one counted step in which K1
@@ -186,10 +201,12 @@ def device_ms(fn, kernel, reps: int = 20, sessions: int = 3) -> float:
     `reps` calls of fn(), from torch.profiler: the kernel's own time, where
     `cuda_ms` of back-to-back calls also counts the gaps a slower host
     leaves between short launches. The profiler may miss some of a
-    session's launches (now and then all of them); the mean is over those
-    it saw, at least half, in the first of up to `sessions` sessions that
-    saw that many. `kernel` may be a tuple of names, each launched once a
-    call: the sum of their means."""
+    session's launches (now and then all of them, in several sessions in
+    a row); the mean is over those it saw, at least half, in the first of
+    up to `sessions` sessions that saw that many. Where none did, the time
+    is `cuda_ms` of `reps` back-to-back calls (host gaps included), and the
+    miss is logged and counted in PROFILER_MISSES. `kernel` may be a tuple
+    of names, each launched once a call: the sum of their means."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -202,12 +219,29 @@ def device_ms(fn, kernel, reps: int = 20, sessions: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = {name: [e.time_range.elapsed_us() for e in prof.events()
-                        if e.device_type == DeviceType.CUDA and name in e.name] for name in names}
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        times = {name: [e.time_range.elapsed_us() for e in events if name in e.name]
+                 for name in names}
         if all(2 * len(t) >= reps for t in times.values()):
             return sum(sum(t) / len(t) for t in times.values()) / 1e3
-    raise AssertionError(f"the profiler saw {[len(t) for t in times.values()]} {names} kernels "
-                         f"of {reps} in each of {sessions} sessions")
+    PROFILER_MISSES.append(names)
+    ms = cuda_ms(fn, reps=reps)
+    log(f"  (the profiler saw {[len(t) for t in times.values()]} {names} kernels of {reps} and "
+        f"{len(events)} device events in all, in each of {sessions} sessions: {ms:.4f} ms from "
+        "CUDA events of back-to-back calls, host gaps included)")
+    return ms
+
+
+# device_ms calls whose profiler sessions all missed the kernel
+PROFILER_MISSES = []
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> str:
+    """The device's idle share over a profiled run, or why there is none:
+    a session that saw no kernel measured nothing."""
+    if busy_ms <= 0:
+        return "not measured (the profiler saw no kernel)"
+    return f"{1 - busy_ms / wall_ms:.3f}"
 
 
 def k1_bound(feats, w, nbr):
@@ -638,12 +672,24 @@ def occ_variant_paths():
     return entries
 
 
+def kernel_times(prof, ranges=()) -> dict:
+    """{kernel name: (launches, ms)} of a finished profiler session; names
+    in `ranges` are profiler ranges, not kernels."""
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
+            n, t = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    return kernels
+
+
 def profile_step(fn, ranges=(), label: str = "step"):
     """One call of fn() under torch.profiler: wall ms, kernel time, the
     device's idle share and the top kernels (names in `ranges` are the
     profiler ranges of the stages, not kernels)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -651,14 +697,10 @@ def profile_step(fn, ranges=(), label: str = "step"):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in ranges:
-            n, t = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    kernels = kernel_times(prof, ranges)
     busy = sum(t for _, t in kernels.values())
     log(f"profiled {label}: wall {wall:.2f} ms (profiler on), kernel time {busy:.2f} ms, "
-        f"device idle share {1 - busy / wall:.3f}")
+        f"device idle share {idle_share(busy, wall)}")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:9.3f} ms  x{n:<5d} {name[:100]}")
 
@@ -1181,6 +1223,7 @@ def train_phase():
         f"{bn_moved} of {len(stats)}")
     assert len(still) < 0.1 * len(params) and bn_moved > 0.9 * len(stats), (still, bn_moved)
     del params, stats
+    gradient_repeat(net, batch)
 
     # K4's backward: plain PyTorch (the 8-corner index_add_) on the step's inputs
     vol, zyx, roi_b, valid = calls_k4
@@ -1211,6 +1254,188 @@ def train_phase():
     net.stage_ms = None
     profile_step(lambda: trainer.train_step(net, opt, batch, gen), STAGES, "train step")
     return entries
+
+
+# tensor groups of the gradient-repeat count, by state-dict prefix
+GRAD_GROUPS = ("occ_modules.", "det_modules.backbone_3d.", "det_modules.backbone_2d.",
+               "det_modules.dense_head.", "det_modules.roi_head.")
+
+
+def gradient_repeat(net, batch):
+    """One train forward + backward twice from the same parameters, batch
+    and generator seed (train-mode BN reads the batch's statistics, so the
+    running statistics the first pass moves do not enter the second):
+    prints, per tensor group, how many gradient elements differ between
+    the two and by how much. A measurement, not a gate: float atomics
+    (K4's plain backward, `index_add_`) may add in another order."""
+    import torch
+
+    def grads():
+        for p in net.parameters():
+            p.grad = None
+        out = net(batch, generator=torch.Generator(device="cuda").manual_seed(7))
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in net.named_parameters()
+                if p.grad is not None}
+
+    g1, g2 = grads(), grads()
+    for p in net.parameters():
+        p.grad = None
+    rows = {}
+    for group in GRAD_GROUPS:
+        names = [n for n in g1 if n.startswith(group)]
+        diff = [int((g1[n] != g2[n]).sum()) for n in names]
+        worst = max((float((g1[n] - g2[n]).abs().max()) for n in names), default=0.0)
+        rows[group.rstrip(".")] = {"tensors": len(names),
+                                   "elements": sum(g1[n].numel() for n in names),
+                                   "differ": sum(diff), "tensors_differ": sum(d > 0 for d in diff),
+                                   "max_abs_diff": worst}
+    log("train gradient repeat (same state, batch and generator, twice): " + json.dumps(rows))
+
+
+def eval_cli_phase(card: str):
+    """The evaluation entry point end to end: a synthetic KITTI tree (16
+    frames, 8 in val, about 20 000 background points a frame, so a
+    front-view frame holds about a KITTI FOV cloud), infos by the port's
+    `kitti_infos`, synthetic weights saved as a reference-format `.pth`,
+    then `tools/test_torch.py` in process on the flagship yaml at full
+    widths and test caps (B=2, 2 loader workers). Asserts every val frame
+    evaluated with finite AP keys, the kernels' launches per forward as on
+    the main path, and the first loader batch's detections equal to a
+    forward + post-processing of the same batch, bit for bit; prints the
+    loop's frames per second and wall ms by part (with 2 loader workers and
+    with none), the host pipeline's ms a frame and the device's idle share
+    over a profiled run of the loop."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets.kitti import kitti_infos
+    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset, to_device
+    from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
+    from btcdet_tpu_torch.train import eval_utils
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cli", os.path.join(REPO, "tools", "test_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti"
+        frames = make_raw_kitti(root, n_frames=16, n_train=8, seed=0, n_background=20000)
+        val_ids = frames[8:]
+        kitti_infos.create_kitti_infos(root, workers=4)
+        cfg = config.flagship()
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+        net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
+        pth = tmp / "reference.pth"
+        torch.save({"model_state": weights.synth_state_dict(net), "epoch": 0, "it": 0}, pth)
+        del net
+
+        # the host pipeline alone: __getitem__, then collate, per frame
+        ds = KittiDataset(cfg.DATA_CONFIG, ["Car"], training=False)
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        t_get = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for i in range(0, len(items), 2):
+            ds.collate_batch(items[i:i + 2])
+        t_col = (time.perf_counter() - t0) * 1e3
+        n_pts = [len(d["points"]) for d in items]
+        log(f"[{card}] eval CLI host pipeline: {(t_get + t_col) / len(items):.2f} ms a frame "
+            f"(__getitem__ {t_get / len(items):.2f}, collate {t_col / len(items):.2f}; points a "
+            f"frame after FOV and range {min(n_pts)}-{max(n_pts)}, collate cap {ds.max_points})")
+        del ds, items
+
+        seen, first = {}, {}
+        build_eval = cli.build_eval
+
+        def keep_net(*a, **kw):
+            built = build_eval(*a, **kw)
+            seen["net"] = built[0]
+            return built
+
+        arrivals = []
+
+        def keep_first(batch_idx, batch, outputs):
+            arrivals.append(time.perf_counter())
+            if batch_idx == 0:
+                first.update(batch=batch, outputs=outputs)
+
+        cli.build_eval = keep_net
+        def argv(workers: int = 2):
+            return ["--cfg_file", str(config.FLAGSHIP_CFG), "--ckpt", str(pth), "--batch_size",
+                    "2", "--workers", str(workers), "--output_dir", str(tmp / "out"),
+                    "--set", "MODEL.ROI_HEAD.APPROX_QUERY", "False", "DATA_CONFIG.DATA_PATH",
+                    str(root)]
+
+        reset_launches()
+        t0 = time.perf_counter()
+        (run,) = cli.main(argv(), on_batch=keep_first)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"[{card}] eval CLI batches done at ms (from main()'s start): "
+            f"{[round((t - t0) * 1e3, 2) for t in arrivals]}")
+        _, _, result, annos = run
+        forwards = len(val_ids) // 2
+        log(f"[{card}] eval CLI launches over {forwards} forwards: {json.dumps(launches)}")
+        assert launches == {k: v * forwards for k, v in EVAL_LAUNCHES.items()}, launches
+        assert [a["frame_id"] for a in annos] == val_ids, [a["frame_id"] for a in annos]
+        ap = {k: float(v) for k, v in result.items() if k.startswith("Car_")}
+        assert len(ap) >= 18 and all(math.isfinite(v) for v in ap.values()), ap
+        log(f"[{card}] eval CLI: {len(annos)} frames, detections a frame "
+            f"{[len(a['name']) for a in annos]}, loop {result['frames_per_sec']:.3f} frames/s "
+            f"(B=2, 2 loader workers, profiler off), Car_3d/moderate_R40 "
+            f"{ap['Car_3d/moderate_R40']:.4f}, occ_precision@0.5 "
+            f"{result.get('occ_precision@0.5', float('nan')):.4f}; loop wall ms by part "
+            + json.dumps({k: round(v, 2) for k, v in result["time_ms"].items()}))
+
+        # the first loader batch again, straight through the same net
+        net = seen["net"]
+        out = net(to_device(first["batch"], "cuda"))
+        again = eval_utils.to_host(post_processing(out, cfg.MODEL.POST_PROCESSING, 1))
+        for k in ("pred_boxes", "pred_scores", "pred_labels", "pred_valid"):
+            assert np.array_equal(again[k], first["outputs"][k]), k
+        log(f"[{card}] eval CLI first batch: detections of net(to_device(batch)) + "
+            f"post_processing equal the loop's bit for bit "
+            f"({int(again['pred_valid'].sum())} boxes)")
+        del net, out, seen["net"]
+
+        # the same loop with the loader in the main process (no worker fork)
+        (run0,) = cli.main(argv(workers=0))
+        log(f"[{card}] eval CLI with 0 loader workers: loop {run0[2]['frames_per_sec']:.3f} "
+            f"frames/s; loop wall ms by part "
+            + json.dumps({k: round(v, 2) for k, v in run0[2]["time_ms"].items()}))
+
+        # a second run of the loop under the profiler: the device's idle share
+        eval_ckpt = cli.eval_ckpt
+        prof_box = {}
+
+        def profiled(*a, **kw):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = eval_ckpt(*a, **kw)
+                torch.cuda.synchronize()
+                prof_box["wall"] = (time.perf_counter() - t0) * 1e3
+            prof_box["prof"] = prof
+            return res
+
+        cli.eval_ckpt = profiled
+        cli.main(argv())
+        busy = sum(t for _, t in kernel_times(prof_box["prof"], STAGES).values())
+        wall = prof_box["wall"]
+        log(f"[{card}] eval CLI loop under the profiler: wall {wall:.2f} ms for {len(val_ids)} "
+            f"frames, kernel time {busy:.2f} ms, device idle share {idle_share(busy, wall)}")
+    log(f"[{card}] eval CLI phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def variant_train_phase():
@@ -1505,6 +1730,9 @@ def main() -> int:
     # 5c. third path: the det backbone's occ-code variants
     kernels += occ_variant_paths()
 
+    # 5d. fourth path: the evaluation entry point on a KITTI tree
+    eval_cli_phase(card)
+
     # 6. small-input checks
     small_input_check(small_config(full=True), "full config", spread=True)
     small_input_check(small_config(full=False), "det-only config")
@@ -1518,6 +1746,8 @@ def main() -> int:
     variant_train_phase()
 
     # 8. results
+    log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "
+        f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,7 @@
-"""The port stands alone: importing `btcdet_tpu_torch` (every submodule) or
-`chip_smoke.py` loads neither JAX, flax nor the JAX package; the smoke
-script refuses to run without a card or outside the repository."""
+"""The port stands alone: importing `btcdet_tpu_torch` (every submodule),
+`chip_smoke.py` or `tools/test_torch.py` loads neither JAX, flax, orbax
+nor the JAX package; the smoke script refuses to run without a card or
+outside the repository."""
 
 import os
 import shutil
@@ -18,8 +19,11 @@ names = [m.name for m in pkgutil.walk_packages(btcdet_tpu_torch.__path__, "btcde
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location("test_torch_cli", {repo!r} + "/tools/test_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "btcdet_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "btcdet_tpu"))
 print(len(names), "modules")
 print(" ".join(names))
 assert not bad, bad
@@ -37,10 +41,13 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, env=_env(), cwd=str(REPO), timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     lines = r.stdout.splitlines()
-    assert int(lines[0].split()[0]) >= 38
+    assert int(lines[0].split()[0]) >= 50
     for m in ("utils.coords", "models.occ.occ_targets", "models.occ.occ_subnet",
               "ops.voxelizer", "ops.cuda_pool", "utils.loss_utils", "train.optim",
-              "train.trainer", "datasets.mini_config"):
+              "train.trainer", "datasets.mini_config", "datasets.kitti.kitti_dataset",
+              "datasets.kitti.kitti_infos", "datasets.processor", "datasets.loader",
+              "datasets.synthetic_kitti", "eval.kitti_eval", "train.checkpoint",
+              "train.eval_utils"):
         assert f"btcdet_tpu_torch.{m}" in lines[1].split(), m
 
 
