@@ -7,8 +7,9 @@ capacities (points to MAX_POINTS_PER_FRAME, gt boxes to MAX_GT_BOXES,
 best-match points to MAX_BM_POINTS) and concatenates the voxel tables
 with a batch-index column, the JAX package's batch bit for bit;
 `to_device` moves a collated batch onto the run's device as torch tensors.
-The data augmentor of the train split is not ported yet: a training
-dataset with DATA_AUGMENTOR refuses to build.
+A training dataset runs the yaml's DATA_AUGMENTOR (`datasets/augmentor.py`:
+gt sampling, best-match points, world flip / scaling / rotation) before
+the processors, every draw from the frame's (epoch, index) RandomState.
 
 Offline tools (`create_kitti_infos`, `create_groundtruth_database`) are in
 `kitti_infos.py`.
@@ -24,14 +25,13 @@ import numpy as np
 import torch
 
 from ...utils import box_utils
+from .. import augmentor as augmentor_mod
 from .. import processor as processor_mod
 from . import calibration, object3d
 
 
 class KittiDataset:
     def __init__(self, dataset_cfg, class_names, training=True, root_path=None, logger=None):
-        if training and dataset_cfg.get("DATA_AUGMENTOR", None):
-            raise NotImplementedError("the data augmentor")
         self.dataset_cfg = dataset_cfg
         self.class_names = list(class_names)
         self.training = training
@@ -48,6 +48,10 @@ class KittiDataset:
         self.point_cloud_range = np.asarray(dataset_cfg.POINT_CLOUD_RANGE, np.float32)
         self.point_feature_encoder = processor_mod.PointFeatureEncoder(
             dataset_cfg.POINT_FEATURE_ENCODING, self.point_cloud_range)
+        self.data_augmentor = (
+            augmentor_mod.DataAugmentor(self.root_path, dataset_cfg.DATA_AUGMENTOR,
+                                        self.class_names, logger)
+            if training and dataset_cfg.get("DATA_AUGMENTOR", None) else None)
         self.data_processor = processor_mod.DataProcessor(
             dataset_cfg.DATA_PROCESSOR, self.point_cloud_range, training,
             occ_config=dataset_cfg.get("OCC", None))
@@ -128,13 +132,17 @@ class KittiDataset:
         return self.prepare_data(input_dict, index)
 
     def prepare_data(self, data_dict, index=0):
-        """Reference `dataset.py:100`; the frame's random draws come from a
-        RandomState seeded by (epoch, index)."""
+        """Reference `dataset.py:100`; the frame's random draws (augmentor,
+        processors, the redraw of a frame left with no box of the classes)
+        come from a RandomState seeded by (epoch, index)."""
         rng = np.random.RandomState((self._epoch * 131071 + index * 8191) % (2**31))
         if self.training:
-            assert "gt_boxes" in data_dict
+            if "gt_boxes" not in data_dict:
+                raise ValueError(f"training frame {data_dict.get('frame_id')} has no labels")
             data_dict["gt_boxes_mask"] = np.array(
                 [n in self.class_names for n in data_dict["gt_names"]], dtype=bool)
+            if self.data_augmentor is not None:
+                data_dict = self.data_augmentor.forward(data_dict, rng=rng)
             if len(data_dict["gt_boxes"]) == 0 or not np.any(
                     np.isin(data_dict["gt_names"], self.class_names)):
                 return self[rng.randint(len(self))]  # re-draw empty frames

@@ -8,8 +8,14 @@
   create_groundtruth_database
                           per-object point .bin files + the dbinfos pkl
                           the gt-sampling augmentor reads
+  create_kitti_infos_with_coverage
+                          kitti_cvrg_infos_{train,val}.pkl: the infos with
+                          each gt's best-match coverage rate (needs the
+                          best-match database, `datasets/bestmatch.py`)
 
 Run:  python -m btcdet_tpu_torch.datasets.kitti.kitti_infos <data_path>
+      python -m btcdet_tpu_torch.datasets.bestmatch <data_path>
+      python -m btcdet_tpu_torch.datasets.kitti.kitti_infos <data_path> --coverage
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ...utils import box_utils
+from ...utils import box_utils, common, coords
 from . import calibration, object3d
 
 
@@ -193,7 +199,104 @@ def create_kitti_infos(data_path, save_path=None, workers=4):
         )
 
 
+_SPHERE_RES = np.asarray([[0.32, 0.5184, 0.4203125]])
+
+
+def _unique_sphere_occupancy(points, nx=None, ny=None, nz=None, coords_min=None):
+    """Count occupied coarse sphere-grid voxels of a cloud (reference
+    `kitti_dataset.py:208-225` get_coords). With nx/ny/nz None the grid is
+    sized to the cloud (+10 cell margin); otherwise points outside the
+    given grid are dropped before counting."""
+    if len(points) == 0:
+        return np.zeros(3), 0, 0, 0, 0
+    sph = np.asarray(coords.absxyz_to_sphere(points[:, :3]))
+    if coords_min is None:
+        coords_min = np.minimum(sph.min(axis=0), np.zeros(3)).reshape(1, 3)
+    c = np.floor_divide(sph - coords_min, _SPHERE_RES).astype(np.int32)
+    if nx is None:
+        nx, ny, nz = (int(v) + 11 for v in c.max(axis=0))
+    else:
+        keep = np.all(c >= 0, axis=-1) & np.all(
+            c < np.array([[nx, ny, nz]]), axis=-1)
+        c = c[keep]
+    return coords_min, nx, ny, nz, len(np.unique(c, axis=0))
+
+
+def compute_coverage_rates(infos, mlt_bm_root, gt_db_root, workers=4):
+    """Per-gt shape coverage = (object's occupied sphere voxels) /
+    (best-match shape's occupied sphere voxels), written into
+    `info['annos']['coverage_rates']` (reference
+    `create_info_file_with_coverage` `kitti_dataset.py:204-266`). Feeds
+    the coverage-bucket difficulty axis of the eval
+    (`kitti_eval.get_official_eval_result(coverage_rates=...)`)."""
+    mlt_bm_root = {k: Path(v) for k, v in mlt_bm_root.items()}
+    gt_db_root = Path(gt_db_root)
+
+    def one(info):
+        image_idx = info["point_cloud"]["lidar_idx"]
+        annos = info["annos"]
+        rates = []
+        for i, name in enumerate(annos["name"]):
+            if name not in mlt_bm_root:
+                rates.append(0.0)
+                continue
+            gt_box = annos["gt_boxes_lidar"][i]
+            bm_path = mlt_bm_root[name] / f"{int(image_idx)}_{i}.pkl"
+            db_path = gt_db_root / f"{image_idx}_{name}_{i}.bin"
+            with open(bm_path, "rb") as f:
+                bm = pickle.load(f)
+            bm = np.asarray(bm).reshape(-1, 3)[:, :3].astype(np.float32)
+            obj = np.fromfile(str(db_path), dtype=np.float32).reshape(-1, 4)[:, :3]
+            obj = obj + gt_box[:3].reshape(1, 3)
+            bm = common.rotate_points_along_z_np(bm[None], np.asarray([gt_box[6]]))[0]
+            bm = bm + gt_box[:3].reshape(1, 3)
+            cmin, nx, ny, nz, n_bm = _unique_sphere_occupancy(bm)
+            _, _, _, _, n_obj = _unique_sphere_occupancy(
+                obj, nx=nx, ny=ny, nz=nz, coords_min=cmin)
+            rates.append(n_obj / max(1, n_bm))
+        if len(rates) == 0:
+            annos["coverage_rates"] = np.zeros([0, 1], dtype=np.float32)
+        elif len(rates) == 1:
+            annos["coverage_rates"] = np.asarray(rates[0]).reshape(-1, 1)
+        else:
+            annos["coverage_rates"] = np.stack(rates, axis=0)
+        return info
+
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(one, infos))
+
+
+def create_kitti_infos_with_coverage(data_path, save_path=None, workers=4,
+                                     mlt_bm_root=None):
+    """reference `kitti_dataset.py:505-533`: re-emit train/val infos with
+    per-gt best-match coverage rates as kitti_cvrg_infos_{split}.pkl."""
+    data_path = Path(data_path)
+    save_path = Path(save_path or data_path)
+    if mlt_bm_root is None:
+        mlt_bm_root = {
+            "Car": save_path / "bm_50maxdist_2num_car",
+            "Cyclist": save_path / "bm_5maxdist_1num_Cyclist",
+            "Pedestrian": save_path / "bm_5maxdist_1num_Pedestrian",
+        }
+    for split, db in (("train", "gt_database"), ("val", "gt_database_val")):
+        info_path = data_path / f"kitti_infos_{split}.pkl"
+        if not info_path.exists():
+            continue
+        with open(info_path, "rb") as f:
+            infos = pickle.load(f)
+        covered = compute_coverage_rates(
+            infos, mlt_bm_root, data_path / db, workers=workers)
+        out = save_path / f"kitti_cvrg_infos_{split}.pkl"
+        with open(out, "wb") as f:
+            pickle.dump(covered, f)
+        print(f"kitti coverage infos {split}: {len(covered)} -> {out}")
+
+
 if __name__ == "__main__":
     import sys
 
-    create_kitti_infos(sys.argv[1], workers=int(sys.argv[2]) if len(sys.argv) > 2 else 4)
+    args = [a for a in sys.argv[1:] if not a.startswith("-")]
+    if "--coverage" in sys.argv:
+        create_kitti_infos_with_coverage(args[0])
+    else:
+        create_kitti_infos(args[0], workers=int(args[1]) if len(args) > 1 else 4)

@@ -36,6 +36,14 @@ from ..occ import occ_subnet
 from ..roi_heads import conv_head, roi_head_utils
 
 
+# the occ subnet's dense masks a train forward returns, for the
+# OCC_PNT_UPDATE.VIS debug views (`utils.vis_utils.collect_occ_vis_clouds`)
+VIS_MASK_KEYS = (
+    "general_cls_loss_mask", "fore_voxelwise_mask", "mirr_voxelwise_mask",
+    "bm_voxelwise_mask", "pos_mask", "neg_mask", "occ_voxelwise_mask",
+    "vcc_mask", "voxel_drop_mask", "forebox_label", "res_mtrx",
+)
+
 # stages of one eval forward + post-processing, in order
 STAGES = ("occ_subnet", "backbone_3d", "bev", "dense_head", "proposal_nms", "roi_head",
           "post_processing")
@@ -201,7 +209,7 @@ class BtcNet(nn.Module):
         gt_boxes, box_mirr_flag, rot_z, use_occ_prob and bm_points(_mask).
         Eval mode returns the JAX package's eval keys and layouts, without
         a gradient. Train mode returns `loss`, `loss_dict` and the train
-        intermediates; `generator` draws its random numbers. Each stage
+        intermediates (with MODEL.OCC the occ masks of VIS_MASK_KEYS); `generator` draws its random numbers. Each stage
         runs in `stage(name)` (STAGES)."""
         if self.training:
             if self.train_refusals:
@@ -229,6 +237,7 @@ class BtcNet(nn.Module):
             out["occ_points"], out["occ_points_mask"] = occ_pts, occ_mask
             if train:
                 out["occ_loss"] = occ_out["loss"]
+                out.update({k: occ_out[k] for k in VIS_MASK_KEYS if occ_out.get(k) is not None})
             else:
                 out["occ_pos_mask"] = occ_out["pos_mask"]
                 out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]

@@ -181,20 +181,30 @@ def scatter_mask(coords_bzyx, valid, batch_size: int, grid):
     return out[:-1].reshape(batch_size, nz, ny, nx)
 
 
+# fixed-point scale of `scatter_mean_res`'s sums: 2^-32 m steps, exact in
+# int64 for coordinates and sums below 2^31 m
+_MEAN_SCALE = 2.0 ** 32
+
+
 def scatter_mean_res(points_xyz, coords_bzyx, valid, centers_xyz, batch_size: int, grid):
     """Per-voxel mean of the contributing points minus the voxel centre
     (reference `get_mean_res`): (B, nz, ny, nx, 3), 0 where no point
-    falls. centers_xyz (B, nz, ny, nx, 3)."""
+    falls. centers_xyz (B, nz, ny, nx, 3). The points are summed in int64
+    fixed point (steps of 2^-32 m), exactly and so in any order: a float
+    `index_add_` on the card adds in atomic order, and a voxel of three or
+    more points would round differently from run to run."""
     nx, ny, nz = grid
     ncell = nz * ny * nx
     c = coords_bzyx.long()
     lin = (c[:, 1] * ny + c[:, 2]) * nx + c[:, 3]
     idx = torch.where(valid, c[:, 0] * ncell + lin, torch.full_like(lin, batch_size * ncell))
-    acc = torch.zeros((batch_size * ncell + 1, 3), device=points_xyz.device)
-    acc.index_add_(0, idx, torch.where(valid[:, None], points_xyz, torch.zeros((), device=acc.device)))
-    cnt = torch.zeros((batch_size * ncell + 1,), device=points_xyz.device)
-    cnt.index_add_(0, idx, valid.float())
-    mean = (acc[:-1] / cnt[:-1, None].clamp(min=1.0)).reshape(batch_size, nz, ny, nx, 3)
+    fixed = torch.round(points_xyz.double() * _MEAN_SCALE).long()
+    acc = torch.zeros((batch_size * ncell + 1, 3), dtype=torch.long, device=points_xyz.device)
+    acc.index_add_(0, idx, torch.where(valid[:, None], fixed, torch.zeros_like(fixed)))
+    cnt = torch.zeros((batch_size * ncell + 1,), dtype=torch.long, device=points_xyz.device)
+    cnt.index_add_(0, idx, valid.long())
+    mean = (acc[:-1].double() / _MEAN_SCALE / cnt[:-1, None].clamp(min=1)).float()
+    mean = mean.reshape(batch_size, nz, ny, nx, 3)
     has = (cnt[:-1] > 0).reshape(batch_size, nz, ny, nx)
     return torch.where(has[..., None], mean - centers_xyz, torch.zeros((), device=acc.device))
 

@@ -13,9 +13,12 @@ kernel reads it in place). The result is (R, S, C) in the volume's dtype:
 `trilinear_pool` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. `TrilinearPoolFunction` adds the
 gradient with respect to the volume (points and rois are constants, as
-the JAX package's `pallas_interp.trilinear_pool_ad`): a scatter-add of the
-output gradient over the 8 corner weights, in plain PyTorch on both
-devices, as the JAX package runs it in XLA.
+the JAX package's `pallas_interp.trilinear_pool_ad`): the scatter-add of
+the output gradient over the 8 corner weights that the JAX package runs
+as an XLA VJP. `trilinear_pool_grad` computes it with the CUDA kernel
+`trilinear_pool_bwd` (an ordered gather by cell, the same bits on every
+call) on CUDA tensors and with its plain version
+`trilinear_pool_volume_grad` (float `index_add_`) on the CPU.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ import torch
 from ..utils.common import trilinear_corners, trilinear_interpolate_dense
 from . import kernel_build
 
-# kernel launches made by the wrapper below (CPU calls take the plain
-# version and are not counted)
+# kernel launches made by the wrappers below (CPU calls take the plain
+# versions and are not counted): the forward, the volume gradient
 launches = 0
+bwd_launches = 0
 
 
 def trilinear_pool_plain(volume, zyx, roi_b, valid):
@@ -51,11 +55,20 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5 + [ctypes.c_lo
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 
 
+_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
+                 + [ctypes.c_void_p] * 2)
+
+
 def _lib():
     lib = kernel_build.load("trilinear_pool")
     if lib.trilinear_pool_fwd.argtypes is None:
         lib.trilinear_pool_fwd.argtypes = _ARGTYPES
         lib.trilinear_pool_fwd.restype = ctypes.c_int
+        lib.trilinear_pool_bwd.argtypes = _BWD_ARGTYPES
+        lib.trilinear_pool_bwd.restype = ctypes.c_int
+        lib.trilinear_pool_bwd_workspace.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        lib.trilinear_pool_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -103,23 +116,72 @@ def trilinear_pool(volume, zyx, roi_b, valid):
     return out
 
 
-def trilinear_pool_volume_grad(g, volume_shape, zyx, roi_b, valid):
-    """(B, D, H, W, C) float32 gradient of `trilinear_pool` with respect to
-    the volume: each valid sample adds g * w to its in-volume corners."""
+def trilinear_pool_volume_grad(g, volume_shape, zyx, roi_b, valid, dtype=torch.float32):
+    """(B, D, H, W, C) gradient of `trilinear_pool` with respect to the
+    volume: each valid sample adds g * w to its in-volume corners. The
+    weights follow the forward's f32 arithmetic; the products and sums are
+    in `dtype` (float32, or float64 for a reference of the sum)."""
     B, D, H, W, C = volume_shape
     ok = valid & (roi_b >= 0)[:, None] & (roi_b < B)[:, None]
     base = roi_b.long()[:, None].expand(valid.shape) * (D * H * W)
-    grad = torch.zeros((B * D * H * W, C), dtype=torch.float32, device=g.device)
-    gf = g.float().reshape(-1, C)
+    grad = torch.zeros((B * D * H * W, C), dtype=dtype, device=g.device)
+    gf = g.to(dtype).reshape(-1, C)
     for lin, w in trilinear_corners(zyx, (D, H, W)):
-        w = torch.where(ok, w, torch.zeros_like(w)).reshape(-1)
+        w = torch.where(ok, w, torch.zeros_like(w)).reshape(-1).to(dtype)
         grad.index_add_(0, (base + lin).reshape(-1), gf * w[:, None])
     return grad.reshape(B, D, H, W, C)
 
 
+def trilinear_pool_grad(g, volume_shape, volume_dtype, zyx, roi_b, valid):
+    """(B, D, H, W, C) gradient of `trilinear_pool` with respect to the
+    volume, in `volume_dtype`: the plain `trilinear_pool_volume_grad`
+    (f32, rounded once) for CPU tensors, the kernel `trilinear_pool_bwd`
+    for CUDA tensors (g (R, S, C) in the volume's dtype; zyx, roi_b, valid
+    as for `trilinear_pool`)."""
+    if g.device.type == "cpu":
+        return trilinear_pool_volume_grad(g, volume_shape, zyx, roi_b, valid).to(volume_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"trilinear_pool_grad: unsupported device {g.device}")
+    B, D, H, W, C = volume_shape
+    R, S, three = zyx.shape
+    if volume_dtype not in (torch.float32, torch.bfloat16) or zyx.dtype != torch.float32:
+        raise TypeError(f"trilinear_pool_grad: volume {volume_dtype} / points {zyx.dtype}")
+    if three != 3 or g.shape != (R, S, C) or valid.shape != (R, S) or roi_b.shape != (R,):
+        raise ValueError(f"trilinear_pool_grad: bad shapes g {tuple(g.shape)} points "
+                         f"{tuple(zyx.shape)} valid {tuple(valid.shape)} rois "
+                         f"{tuple(roi_b.shape)} for volume {tuple(volume_shape)}")
+    if C % 8 or C > 2048 or B * D * H * W >= 2**31 - 1 or 8 * R * S >= 2**31 - 1:
+        raise ValueError(f"trilinear_pool_grad: volume {tuple(volume_shape)} with {R}x{S} "
+                         "samples: the kernel takes C a multiple of 8 up to 2048 and fewer "
+                         "than 2^31 - 1 cells and corner entries")
+    for t in (zyx, roi_b, valid):
+        if t.device != g.device:
+            raise ValueError("trilinear_pool_grad: tensors on different devices")
+    g = g.to(volume_dtype).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    zyx = zyx.contiguous()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    roi_b32 = roi_b.to(torch.int32).contiguous()
+    out = torch.empty(tuple(volume_shape), dtype=volume_dtype, device=g.device)
+    lib = _lib()
+    ws_bytes = lib.trilinear_pool_bwd_workspace(R * S, B * D * H * W)
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.trilinear_pool_bwd(
+        g.data_ptr(), int(volume_dtype == torch.bfloat16), B, D, H, W, C, zyx.data_ptr(),
+        valid_u8.data_ptr(), roi_b32.data_ptr(), R, S, ws.data_ptr(), ws_bytes, out.data_ptr(),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"trilinear_pool_bwd kernel launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return out
+
+
 class TrilinearPoolFunction(torch.autograd.Function):
     """`trilinear_pool` (kernel K4 on CUDA tensors) with the gradient of
-    the volume; apply(volume, zyx, roi_b, valid)."""
+    the volume (`trilinear_pool_grad`); apply(volume, zyx, roi_b, valid)."""
 
     @staticmethod
     def forward(ctx, volume, zyx, roi_b, valid):
@@ -132,6 +194,5 @@ class TrilinearPoolFunction(torch.autograd.Function):
         zyx, roi_b, valid = ctx.saved_tensors
         grad = None
         if ctx.needs_input_grad[0]:
-            grad = trilinear_pool_volume_grad(g, ctx.volume_shape, zyx, roi_b, valid)
-            grad = grad.to(ctx.volume_dtype)
+            grad = trilinear_pool_grad(g, ctx.volume_shape, ctx.volume_dtype, zyx, roi_b, valid)
         return grad, None, None, None

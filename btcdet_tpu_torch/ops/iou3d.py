@@ -4,6 +4,9 @@
 The intersection of two rotated rectangles is computed by vectorized
 Sutherland-Hodgman clipping with a slot-doubling vertex ring, the same
 arithmetic as the JAX package, so the NMS keeps the same boxes.
+`boxes_bev_iou_cpu` is the same clipping in numpy, for the host data
+pipeline (the gt sampler's collision test): the JAX package's numpy path,
+so the augmentor draws the same boxes, and no torch op in loader workers.
 """
 
 from __future__ import annotations
@@ -151,3 +154,64 @@ def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
             out_idx[:len(kept)] = top_idx.cpu()[kept_t]
             out_valid[:len(kept)] = True
     return out_idx.to(boxes.device), out_valid.to(boxes.device)
+
+
+# ------------------------------------------------------------------ numpy
+
+def _ring_forward_fill_np(verts, valid):
+    P, S, _ = verts.shape
+    v = np.concatenate([verts, verts], axis=1)
+    m = np.concatenate([valid, valid], axis=1)
+    step = 1
+    while step < 2 * S:
+        v_shift = np.roll(v, step, axis=1)
+        m_shift = np.roll(m, step, axis=1)
+        v = np.where(m[..., None], v, v_shift)
+        m = m | m_shift
+        step *= 2
+    return v[:, S:], m[:, S:]
+
+
+def _pairwise_intersection_area_np(corners_a, corners_b):
+    """`_pairwise_intersection_area` in numpy, in the input's dtype."""
+    N, M = corners_a.shape[0], corners_b.shape[0]
+    P = N * M
+    b = np.broadcast_to(corners_b[None], (N, M, 4, 2)).reshape(P, 4, 2)
+    b_next = np.roll(b, -1, axis=1)
+    winding = np.sign(
+        (b_next[..., 0] - b[..., 0]) * (b_next[..., 1] + b[..., 1])).sum(axis=1, keepdims=True)
+    winding = np.where(winding == 0, 1.0, np.sign(winding))
+    verts = np.broadcast_to(corners_a[:, None], (N, M, 4, 2)).reshape(P, 4, 2)
+    alive = np.ones((P,), dtype=bool)
+    for e in range(4):
+        e0 = b[:, e]
+        ed = b_next[:, e] - e0
+        d = (ed[:, None, 0] * (verts[..., 1] - e0[:, None, 1])
+             - ed[:, None, 1] * (verts[..., 0] - e0[:, None, 0])) * (-winding)
+        nxt = np.roll(verts, -1, axis=1)
+        d_nxt = np.roll(d, -1, axis=1)
+        in_cur = d >= 0
+        in_nxt = d_nxt >= 0
+        denom = d - d_nxt
+        t = d / np.where(np.abs(denom) < 1e-12, 1.0, denom)
+        pint = verts + t[..., None] * (nxt - verts)
+        S = verts.shape[1]
+        out = np.stack([verts, pint], axis=2).reshape(P, 2 * S, 2)
+        oval = np.stack([in_cur, in_cur != in_nxt], axis=2).reshape(P, 2 * S)
+        alive = alive & np.any(oval, axis=1)
+        verts, _ = _ring_forward_fill_np(out, oval & alive[:, None])
+    nxt = np.roll(verts, -1, axis=1)
+    contrib = verts[..., 0] * nxt[..., 1] - nxt[..., 0] * verts[..., 1]
+    area = 0.5 * np.abs(contrib.sum(axis=1))
+    return np.where(alive, area, 0.0).reshape(N, M)
+
+
+def boxes_bev_iou_cpu(boxes_a, boxes_b) -> np.ndarray:
+    """Rotated BEV IoU of numpy boxes (N, 7) x (M, 7) -> (N, M), numpy in
+    the inputs' dtype."""
+    boxes_a, boxes_b = np.asarray(boxes_a), np.asarray(boxes_b)
+    inter = _pairwise_intersection_area_np(box_utils.boxes_to_corners_bev_np(boxes_a),
+                                           box_utils.boxes_to_corners_bev_np(boxes_b))
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return inter / np.clip(area_a + area_b - inter, 1e-6, None)

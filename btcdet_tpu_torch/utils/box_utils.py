@@ -102,6 +102,24 @@ def points_in_boxes_mask_np(points: np.ndarray, boxes: np.ndarray) -> np.ndarray
             & (np.abs(local_z) <= boxes[None, :, 5] / 2))
 
 
+def boxes_to_corners_bev_np(boxes: np.ndarray) -> np.ndarray:
+    """`boxes_to_corners_bev` in numpy, in the input's dtype."""
+    half_dx = boxes[:, 3] / 2.0
+    half_dy = boxes[:, 4] / 2.0
+    lx = np.stack([half_dx, half_dx, -half_dx, -half_dx], axis=1)
+    ly = np.stack([half_dy, -half_dy, -half_dy, half_dy], axis=1)
+    c, s = np.cos(boxes[:, 6])[:, None], np.sin(boxes[:, 6])[:, None]
+    gx = lx * c - ly * s + boxes[:, 0:1]
+    gy = lx * s + ly * c + boxes[:, 1:2]
+    return np.stack([gx, gy], axis=-1)
+
+
+def enlarge_box3d_np(boxes3d: np.ndarray, extra_width=(0, 0, 0)) -> np.ndarray:
+    """Boxes with their dims grown by extra_width (dx, dy, dz)."""
+    out_dims = boxes3d[:, 3:6] + np.asarray(extra_width, dtype=boxes3d.dtype)[None, :]
+    return np.concatenate([boxes3d[:, 0:3], out_dims, boxes3d[:, 6:]], axis=1)
+
+
 def mask_boxes_outside_range(boxes: np.ndarray, limit_range, min_num_corners: int = 1):
     """Keep boxes with >= min_num_corners corners inside the BEV range
     (reference `box_utils.mask_boxes_outside_range_numpy`)."""

@@ -90,6 +90,11 @@ def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.T
 
 # ------------------------------------------------------ numpy host helpers
 
+def limit_period_np(val, offset: float = 0.5, period: float = np.pi):
+    """`limit_period` in numpy."""
+    return val - np.floor(val / period + offset) * period
+
+
 def rotation_matrix_z_np(angle: np.ndarray) -> np.ndarray:
     """`rotation_matrix_z` in numpy, in the input's dtype."""
     c, s = np.cos(angle), np.sin(angle)

@@ -4,8 +4,9 @@ flagship BtcNet eval forward (occupancy subnet included) on one CUDA
 card, its det-only variant as a second path, the det backbone's four
 occ-code variants (`config.flagship_occ_variant`) as a third, the
 evaluation entry point `tools/test_torch.py` on a synthetic KITTI tree as
-a fourth, and the flagship training step (and the `fix` variant's) as a
-fifth.
+a fourth, the flagship training step (and the `fix` variant's) as a
+fifth, and the training entry point `tools/train_torch.py` on a synthetic
+KITTI tree as a sixth.
 
     python3 chip_smoke.py
 
@@ -70,19 +71,37 @@ Phases (any failure raises and exits non-zero, printing no result):
      output's max, and bit for bit on a repeat) with its per-tap
      compaction bit for bit against its plain version, all 18 K3 launches
      of the step are timed, and at the step's own inputs K1's forward
-     (conv1), its transpose-query df (a strided conv) and subm df, K2 and
-     K4; then counts reset, one step whose launches of every kernel (K1
-     map, forward and df, K3 and its compaction, K2, K4) must equal
+     (conv1), its transpose-query df (a strided conv) and subm df, K2, K4
+     and K4's volume gradient (against its plain `index_add_` version: f32
+     within 1e-5 of the plain output's max and no further from a float64
+     sum, bf16 one rounding of the f32 sum, bit for bit on a repeat); then
+     counts reset, one step whose launches of every kernel (K1 map, forward
+     and df, K3 and its compaction, K2, K4 and its gradient) must equal
      TRAIN_LAUNCHES, with its loss terms, per-partition gradient norms and
      moved parameters and BN statistics; one forward + backward twice from
-     the same state, batch and generator, with the count of gradient
-     elements that differ per tensor group (a measurement); 10 steps timed; and one step
+     the same state, batch and generator, every gradient equal bit for bit
+     (counted per tensor group); 10 steps timed; and one step
      in float32 on the card against the CPU (loss terms
      to 1e-3, gradients to 1e-3 of each tensor's max) on the micro config;
      then the `fix` variant's train step: one counted step in which K1
      forward and df, K3, K2 sum and K4 launch and the attention blocks and
      conv1_combine get gradients, then 3 timed steps;
-  8. a JSON line of per-kernel numbers, then the contract line
+  8. the training entry point: a synthetic KITTI tree (12 frames, 8 in
+     train, about 20 000 background points a frame, road planes), its
+     infos, gt database and best-match database by the port, and
+     `tools/train_torch.py` in process on the flagship yaml (B=2, 2 loader
+     workers, the yaml's augmentor chain): the host pipeline's ms a train
+     frame (augmentor, processors, collate); the gradient repeat (every
+     group bit for bit) on a training batch of the tree; one epoch of 4 steps cut after
+     its checkpoint, then a second call that auto-resumes for 4 more and
+     evaluates the newest checkpoint on val; every step's launches equal
+     to TRAIN_LAUNCHES with finite losses, pasted gt boxes and best-match
+     points in the batches, the resume step, the eval's launches and
+     finite AP keys; then the same 8 steps straight in one call (steps
+     5-8 under the profiler): the loop's steps per second and wall ms by
+     part, the device idle share, and how far the resumed run's weights
+     and optimizer state are from the straight run's;
+  9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
 
@@ -143,13 +162,15 @@ EVAL_MAPS = 9
 AVGPOOL_MAPS = 12
 # kernel launches of one flagship eval forward + post-processing
 EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df": 0, "tap_pairs": 0,
-                 "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0, "trilinear_pool": 1}
+                 "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0, "trilinear_pool": 1,
+                 "trilinear_pool_grad": 0}
 # kernel launches of one flagship train step: the 9 forward maps and the 8
 # transpose-query maps of the strided convs' dfs, 18 convs (17 of them
-# with a df), 18 weight gradients, each on its own compaction of the map
+# with a df), 18 weight gradients, each on its own compaction of the map,
+# the sampler and its volume gradient
 TRAIN_LAUNCHES = {"neighbor_map": 17, "sparse_conv": 18, "sparse_conv_df": 17, "tap_pairs": 18,
                   "sparse_conv_dw": 18, "sparse_pool": 1, "sparse_sum_pool": 0,
-                  "trilinear_pool": 1}
+                  "trilinear_pool": 1, "trilinear_pool_grad": 1}
 
 
 def kernel_modules():
@@ -160,7 +181,8 @@ def kernel_modules():
             "sparse_conv_df": (cuda_conv, "df_launches"), "tap_pairs": (cuda_conv, "pair_launches"),
             "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
             "sparse_sum_pool": (cuda_pool, "sum_launches"),
-            "trilinear_pool": (cuda_interp, "launches")}
+            "trilinear_pool": (cuda_interp, "launches"),
+            "trilinear_pool_grad": (cuda_interp, "bwd_launches")}
 
 
 def reset_launches():
@@ -206,12 +228,14 @@ def device_ms(fn, kernel, reps: int = 20, sessions: int = 3) -> float:
     up to `sessions` sessions that saw that many. Where none did, the time
     is `cuda_ms` of `reps` back-to-back calls (host gaps included), and the
     miss is logged and counted in PROFILER_MISSES. `kernel` may be a tuple
-    of names, each launched once a call: the sum of their means."""
+    of names, each launched once a call, or a dict {name: launches a call}:
+    the sum of each one's mean times its launches a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = (kernel,) if isinstance(kernel, str) else kernel
+    per_call = ({kernel: 1} if isinstance(kernel, str) else
+                dict(kernel) if isinstance(kernel, dict) else dict.fromkeys(kernel, 1))
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -221,14 +245,15 @@ def device_ms(fn, kernel, reps: int = 20, sessions: int = 3) -> float:
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         times = {name: [e.time_range.elapsed_us() for e in events if name in e.name]
-                 for name in names}
-        if all(2 * len(t) >= reps for t in times.values()):
-            return sum(sum(t) / len(t) for t in times.values()) / 1e3
-    PROFILER_MISSES.append(names)
+                 for name in per_call}
+        if all(2 * len(times[n]) >= reps * k for n, k in per_call.items()):
+            return sum(sum(t) / len(t) * per_call[n] for n, t in times.items()) / 1e3
+    PROFILER_MISSES.append(tuple(per_call))
     ms = cuda_ms(fn, reps=reps)
-    log(f"  (the profiler saw {[len(t) for t in times.values()]} {names} kernels of {reps} and "
-        f"{len(events)} device events in all, in each of {sessions} sessions: {ms:.4f} ms from "
-        "CUDA events of back-to-back calls, host gaps included)")
+    log(f"  (the profiler saw {[len(t) for t in times.values()]} {tuple(per_call)} kernels of "
+        f"{[k * reps for k in per_call.values()]} and {len(events)} device events in all, in "
+        f"each of {sessions} sessions: {ms:.4f} ms from CUDA events of back-to-back calls, host "
+        "gaps included)")
     return ms
 
 
@@ -432,25 +457,32 @@ def k2_case(call, label: str = "", mode: str = "max"):
             else "operations", "library_ms": None}
 
 
-def k4_reads(vol, zyx, roi_b, valid):
-    """(distinct volume cells, corner reads) that the valid samples of this
-    run need: in-volume corners only, since the others weigh 0 and are not
-    read."""
+def k4_corners(shape, zyx, roi_b, valid):
+    """(the linear cell of every in-volume corner of a valid sample, the
+    number of valid samples with at least one) in a (B, D, H, W, ...)
+    volume: the other corners weigh 0 and are not read."""
     import torch
 
-    B, D, H, W, _ = vol.shape
+    B, D, H, W = shape[:4]
     ok = valid & ((roi_b >= 0) & (roi_b < B))[:, None]
     pts = zyx[ok]                                             # (n, 3)
     b = roi_b[:, None].expand(valid.shape)[ok].long()
     base = torch.floor(pts).long()
-    cells = []
+    cells, any_in = [], torch.zeros_like(b, dtype=torch.bool)
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
                 z, y, x = base[:, 0] + dz, base[:, 1] + dy, base[:, 2] + dx
                 inb = (z >= 0) & (z < D) & (y >= 0) & (y < H) & (x >= 0) & (x < W)
                 cells.append((((b * D + z) * H + y) * W + x)[inb])
-    cells = torch.cat(cells)
+                any_in |= inb
+    return torch.cat(cells), int(any_in.sum())
+
+
+def k4_reads(shape, zyx, roi_b, valid):
+    """(distinct volume cells, corner reads) that the valid samples of this
+    run need (`k4_corners`)."""
+    cells, _ = k4_corners(shape, zyx, roi_b, valid)
     return int(cells.unique().numel()), int(cells.numel())
 
 
@@ -484,7 +516,7 @@ def k4_case(args, label: str = ""):
     # bound: the volume cells this run's samples touch, every point, flag
     # and roi index (the kernel reads them all), and the whole output in
     # its dtype
-    n_cells, n_reads = k4_reads(vol, zyx, roi_b, valid)
+    n_cells, n_reads = k4_reads(vol.shape, zyx, roi_b, valid)
     nbytes = (n_cells * C * vol.element_size() + R * S * 12 + R * S + R * 4
               + R * S * C * out.element_size())
     flops = 2.0 * C * n_reads
@@ -522,6 +554,118 @@ def k4_case(args, label: str = ""):
     return {"name": "trilinear_pool" + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/trilinear_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_interp.py:150", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+            else "operations", "library_ms": lib_ms}
+
+
+# the kernels of one `trilinear_pool_bwd` call; launches a call of each:
+# the entries, the exclusive scan of the cells' counts (three kernels),
+# the scatter to the segments, the sort of the long segments and the
+# per-cell sort and sum
+K4_GRAD_SEG_CAP = 1024   # SEG_CAP of csrc/trilinear_pool.cu
+K4_GRAD_LAUNCHES = {"corner_entries_kernel": 1, "scan_reduce_kernel": 1,
+                    "scan_partials_kernel": 1, "scan_apply_kernel": 1,
+                    "entry_scatter_kernel": 1, "long_segment_sort_kernel": 1,
+                    "cell_sum_kernel": 1}
+
+
+def k4_grad_case(args, label: str = "train"):
+    """K4's volume gradient (`trilinear_pool_bwd`) on the captured call of
+    a train step against its plain version (8 `index_add_` calls with
+    float atomics): the f32 kernel within 1e-5 of the plain output's max
+    and no further from a float64 sum than the plain version; the bf16
+    kernel (the step's) equal to the f32 kernel's sum rounded once, and
+    within one bf16 ulp of the plain version's cast wherever the f32 sums
+    round alike (the others counted); bit for bit on a repeat; timed, by
+    kernel too, beside `grid_sampler_3d_backward` as the library yardstick."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_interp
+
+    g, shape, dtype, zyx, roi_b, valid = args
+    B, D, H, W, C = shape
+    R, S, _ = zyx.shape
+
+    def kernel(dt=dtype, gg=g):
+        return cuda_interp.trilinear_pool_grad(gg, shape, dt, zyx, roi_b, valid)
+
+    out = kernel()
+    again = kernel()
+    out32 = kernel(torch.float32, g.float())
+    ref32 = cuda_interp.trilinear_pool_volume_grad(g, shape, zyx, roi_b, valid)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, again), "K4 grad: not bit for bit on a repeat"
+    assert torch.equal(out, out32.to(dtype)), "K4 grad: bf16 output is not the f32 sum rounded once"
+    scale = float(ref32.abs().max())
+    err32 = float((out32 - ref32).abs().max())
+    assert err32 <= 1e-5 * scale, f"K4 grad: f32 {err32} from plain, max {scale}"
+    exact = cuda_interp.trilinear_pool_volume_grad(g, shape, zyx, roi_b, valid, torch.float64)
+    err_k = float((out32.double() - exact).abs().max())
+    err_p = float((ref32.double() - exact).abs().max())
+    assert err_k <= err_p, f"K4 grad: {err_k} from a float64 sum, plain {err_p}"
+    del exact
+    diff = (out.float() - ref32.to(dtype).float()).abs()
+    mag = torch.maximum(out.float().abs(), ref32.to(dtype).float().abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    beyond = int((diff > ulp).sum())
+    assert bool((diff <= ulp + 1e-5 * scale).all()), "K4 grad: bf16 beyond one ulp + f32 tolerance"
+    err = float(diff.max())
+    del diff, mag, ulp, out32, again
+    ms = cuda_ms(kernel, reps=10)
+    kernel_ms = device_ms(kernel, K4_GRAD_LAUNCHES, reps=10)
+    parts = {name: round(device_ms(kernel, name, reps=5), 4) for name in K4_GRAD_LAUNCHES}
+    plain_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_volume_grad(
+        g, shape, zyx, roi_b, valid).to(dtype), reps=5, warmup=1)
+    # library yardstick: the input gradient of 5-D grid_sample (the mapping
+    # of k4_case, f32) on the same gradient, invalid samples zeroed
+    lib_ms, lib_kernel_ms, lib_err = None, None, None
+    if R % B == 0 and bool((roi_b == torch.arange(B, device=roi_b.device)
+                            .repeat_interleave(R // B)).all()):
+        size = torch.tensor([W, H, D], dtype=torch.float32, device=zyx.device)
+        grid = (2.0 * zyx.flip(-1) / (size - 1) - 1.0).reshape(B, (R // B) * S, 1, 1, 3)
+        inp = torch.zeros((B, C, D, H, W), dtype=torch.float32, device=g.device)
+        gout = (torch.where(valid[..., None], g.float(), 0.0).reshape(B, (R // B) * S, C)
+                .permute(0, 2, 1).reshape(B, C, (R // B) * S, 1, 1).contiguous())
+
+        def lib():
+            return torch.ops.aten.grid_sampler_3d_backward(gout, inp, grid, 0, 0, True,
+                                                           [True, False])[0]
+        lib_err = float((lib().permute(0, 2, 3, 4, 1) - ref32).abs().max())
+        lib_ms = cuda_ms(lib, reps=10)
+        lib_kernel_ms = device_ms(lib, "grid_sampler_3d_backward", reps=10)
+        del inp, gout
+    # bound: the rows of g that a valid sample with an in-volume corner
+    # needs, in g's dtype, the points, flags and roi indices read once, and
+    # the whole output volume written once; operations: a multiply and an
+    # add per channel of each in-volume corner of a valid sample, at the f32
+    # rate. The entries' index arrays are the kernel's own traffic, not the
+    # function's: logged beside it, not bound
+    n_entries = 8 * R * S
+    cells, n_rows = k4_corners(shape, zyx, roi_b, valid)
+    n_in = int(cells.numel())
+    seg = torch.bincount(cells, minlength=B * D * H * W)
+    seg_max, n_long = int(seg.max()), int((seg > K4_GRAD_SEG_CAP).sum())
+    del cells, seg
+    elt = out.element_size()
+    nbytes = (n_rows * C * elt + R * S * 12 + R * S + R * 4 + B * D * H * W * C * elt)
+    index_bytes = 2 * (12 * n_entries + 4 * n_in) + 4 * 4 * (B * D * H * W + 2)
+    flops = 2.0 * C * n_in
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    log(f"K4 volume gradient {label}: volume {tuple(shape)} {dtype} R={R} S={S} corner entries "
+        f"{n_entries} (in the volume, of valid samples: {n_in}; longest segment {seg_max}, "
+        f"{n_long} longer than {K4_GRAD_SEG_CAP}) max_abs_err={err:.3e} (bf16 against the plain "
+        f"version's cast; {beyond} of {out.numel()} elements beyond one bf16 ulp, all within it "
+        f"plus 1e-5 of the plain max {scale:.3e}; f32 {err32:.3e}; from a float64 sum: kernel "
+        f"{err_k:.3e}, plain {err_p:.3e}) ms={ms:.4f} (kernel alone, profiler: "
+        f"{kernel_ms:.4f}; by kernel {json.dumps(parts)}) plain_ms={plain_ms:.4f} "
+        f"grid_sampler_3d_backward_ms={lib_ms} "
+        f"(kernel alone {lib_kernel_ms}; max diff to the plain f32 {lib_err}) bytes={nbytes} "
+        f"(g rows {n_rows}) bound_ms={bound_s * 1e3:.4f}; the kernel's index arrays, not in "
+        f"the bound: about {index_bytes} bytes")
+    return {"name": "trilinear_pool_grad" + (f":{label}" if label else ""), "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/trilinear_pool.cu",
+            "replaces": "btcdet_tpu/ops/pallas_interp.py:284", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
             else "operations", "library_ms": lib_ms}
@@ -1159,7 +1303,6 @@ def train_phase():
 
     from btcdet_tpu_torch import config
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES
-    from btcdet_tpu_torch.ops import cuda_interp
     from btcdet_tpu_torch.train import trainer
 
     cfg = config.flagship()
@@ -1197,7 +1340,8 @@ def train_phase():
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
     entries.append(k2_case(calls["sparse_pool"][0], "train"))
     entries.append(k4_case(calls["trilinear_pool"][0][0], "train"))
-    calls_k4 = calls["trilinear_pool"][0][0]
+    assert len(calls["trilinear_pool_grad"]) == 1, len(calls["trilinear_pool_grad"])
+    entries.append(k4_grad_case(calls["trilinear_pool_grad"][0][0], "train"))
     del calls, picks, df, fwd
 
     params = {n: p.detach().clone() for n, p in net.named_parameters()}
@@ -1224,15 +1368,6 @@ def train_phase():
     assert len(still) < 0.1 * len(params) and bn_moved > 0.9 * len(stats), (still, bn_moved)
     del params, stats
     gradient_repeat(net, batch)
-
-    # K4's backward: plain PyTorch (the 8-corner index_add_) on the step's inputs
-    vol, zyx, roi_b, valid = calls_k4
-    g = torch.randn(zyx.shape[0], zyx.shape[1], vol.shape[-1], device=vol.device)
-    bwd_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_volume_grad(
-        g, tuple(vol.shape), zyx, roi_b, valid), reps=5)
-    log(f"K4 backward (plain index_add_, volume {tuple(vol.shape)} R={zyx.shape[0]} "
-        f"S={zyx.shape[1]}): ms={bwd_ms:.4f}")
-    del calls_k4, g
 
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
@@ -1261,20 +1396,20 @@ GRAD_GROUPS = ("occ_modules.", "det_modules.backbone_3d.", "det_modules.backbone
                "det_modules.dense_head.", "det_modules.roi_head.")
 
 
-def gradient_repeat(net, batch):
-    """One train forward + backward twice from the same parameters, batch
-    and generator seed (train-mode BN reads the batch's statistics, so the
+def gradient_repeat(net, batch, label: str = "synthetic batch"):
+    """One train forward + backward (`trainer.forward_backward`, the train
+    step's) twice from the same parameters, batch and generator seed
+    (train-mode BN reads the batch's statistics, so the
     running statistics the first pass moves do not enter the second):
     prints, per tensor group, how many gradient elements differ between
-    the two and by how much. A measurement, not a gate: float atomics
-    (K4's plain backward, `index_add_`) may add in another order."""
+    the two and by how much, and fails unless none does (no kernel or op of
+    the step adds floats in a varying order)."""
     import torch
 
+    from btcdet_tpu_torch.train import trainer
+
     def grads():
-        for p in net.parameters():
-            p.grad = None
-        out = net(batch, generator=torch.Generator(device="cuda").manual_seed(7))
-        out["loss"].backward()
+        trainer.forward_backward(net, batch, torch.Generator(device="cuda").manual_seed(7))
         torch.cuda.synchronize()
         return {n: p.grad.detach().clone() for n, p in net.named_parameters()
                 if p.grad is not None}
@@ -1291,7 +1426,9 @@ def gradient_repeat(net, batch):
                                    "elements": sum(g1[n].numel() for n in names),
                                    "differ": sum(diff), "tensors_differ": sum(d > 0 for d in diff),
                                    "max_abs_diff": worst}
-    log("train gradient repeat (same state, batch and generator, twice): " + json.dumps(rows))
+    log(f"train gradient repeat ({label}; same state, batch and generator, twice): "
+        + json.dumps(rows))
+    assert all(r["differ"] == 0 for r in rows.values()), rows
 
 
 def eval_cli_phase(card: str):
@@ -1458,7 +1595,7 @@ def variant_train_phase():
     log(f"occ variant 'fix' train-step launches: {json.dumps(launches)}")
     assert launches["sparse_sum_pool"] == 3 and launches["sparse_pool"] == 0, launches
     assert all(launches[k] > 0 for k in ("sparse_conv", "sparse_conv_df", "sparse_conv_dw",
-                                         "trilinear_pool")), launches
+                                         "trilinear_pool", "trilinear_pool_grad")), launches
     assert launches["tap_pairs"] == launches["sparse_conv_dw"], launches
     vals = {k: float(v) for k, v in metrics.items()}
     assert all(math.isfinite(v) for v in vals.values()), vals
@@ -1477,6 +1614,166 @@ def variant_train_phase():
         times.append((time.perf_counter() - t0) * 1e3)
     log(f"train step ms, flagship occ variant 'fix' (B=2, train caps, 3 steps after the counted "
         f"one): median {statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+
+
+def train_cli_phase(card: str):
+    """The training entry point end to end (see the module docstring, 8.)."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import bestmatch
+    from btcdet_tpu_torch.datasets.kitti import kitti_infos
+    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset, to_device
+    from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
+    from btcdet_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "train_torch_cli", os.path.join(REPO, "tools", "train_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti"
+        cars = 2
+        make_raw_kitti(root, n_frames=12, n_train=8, seed=0, cars_per_frame=cars,
+                       n_background=20000)
+        t0 = time.perf_counter()
+        kitti_infos.create_kitti_infos(root, workers=4)
+        bestmatch.create_best_match_db(root, class_names=("Car",), splits=("train",))
+        log(f"[{card}] train CLI databases (infos, gt database, best-match database): "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = config.flagship()
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+
+        # the host pipeline of a train frame, by part, in this process
+        ds = KittiDataset(cfg.DATA_CONFIG, ["Car"], training=True)
+        part_ms = dict.fromkeys(("augmentor", "processor"), 0.0)
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                part_ms[name] += (time.perf_counter() - t) * 1e3
+                return r
+            return run
+
+        ds.data_augmentor.forward = timed("augmentor", ds.data_augmentor.forward)
+        ds.data_processor.forward = timed("processor", ds.data_processor.forward)
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        t_get = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for i in range(0, len(items), 2):
+            ds.collate_batch(items[i:i + 2])
+        t_col = (time.perf_counter() - t0) * 1e3
+        n = len(items)
+        pasted = [int((np.abs(d["gt_boxes"][:, 3:6]).sum(1) > 0).sum()) - cars for d in items]
+        log(f"[{card}] train host pipeline: {(t_get + t_col) / n:.2f} ms a frame (__getitem__ "
+            f"{t_get / n:.2f}: augmentor {part_ms['augmentor'] / n:.2f}, processors "
+            f"{part_ms['processor'] / n:.2f}; collate {t_col / n:.2f}); points a frame "
+            f"{[len(d['points']) for d in items]}, gt boxes pasted a frame {pasted}, best-match "
+            f"points a frame {[len(d['bm_points']) for d in items]}")
+        # the gradient repeat on a training batch of the tree (pasted boxes,
+        # dense best-match points: several points a voxel in the occ targets)
+        net, _, _ = train_setup(cfg, 16384, 10, 0)
+        gradient_repeat(net, to_device(ds.collate_batch(items[:2]), "cuda"),
+                        "a training batch of the KITTI tree")
+        del ds, items, net
+
+        step_log = []
+
+        def on_step(gstep, batch, metrics):
+            launches = read_launches()
+            reset_launches()
+            vals = {k: float(v) for k, v in metrics.items()}
+            gt = (np.abs(batch["gt_boxes"][..., 3:6]).sum(-1) > 0).sum(1)
+            step_log.append((gstep, launches, vals["loss"], gt.tolist(),
+                             batch["bm_points_mask"].sum(1).tolist()))
+            assert launches == TRAIN_LAUNCHES, (gstep, launches)
+            assert all(math.isfinite(v) for v in vals.values()), (gstep, vals)
+            assert batch["bm_points_mask"].any(1).all(), gstep
+
+        def argv(out, *extra):
+            return ["--cfg_file", str(config.FLAGSHIP_CFG), "--batch_size", "2", "--workers",
+                    "2", "--epochs", "2", "--steps", "4", "--output_dir", str(out), *extra,
+                    "--set", "MODEL.ROI_HEAD.APPROX_QUERY", "False", "DATA_CONFIG.DATA_PATH",
+                    str(root)]
+
+        out = tmp / "resumed"
+        reset_launches()
+        cut = cli.main(argv(out, "--num_epochs_to_eval", "0"), on_step=on_step,
+                       on_epoch_end=lambda epoch, step: True)
+        assert cut["stopped"] and cut["steps_run"] == 4, cut
+        assert checkpoint.CheckpointManager(out / "ckpt").all_steps() == [4]
+        reset_launches()
+        res = cli.main(argv(out, "--num_epochs_to_eval", "1"), on_step=on_step)
+        torch.cuda.synchronize()
+        eval_launches = read_launches()
+        assert res["start_step"] == 4 and res["steps_run"] == 4, res["start_step"]
+        assert [s for s, *_ in step_log] == list(range(8)), [s for s, *_ in step_log]
+        assert max(max(g) for _, _, _, g, _ in step_log) > cars, "no gt box pasted"
+        log(f"[{card}] train CLI steps (global step, loss, gt boxes a frame, best-match points "
+            f"a frame): " + json.dumps([(s, round(l, 5), g, b) for s, _, l, g, b in step_log]))
+        log(f"[{card}] train CLI: every step launched TRAIN_LAUNCHES; cut after step 4, "
+            f"auto-resumed at step {res['start_step']}")
+        (eval_step, result), = res["eval"]
+        val_forwards = 2
+        assert eval_step == 8 and eval_launches == {
+            k: v * val_forwards for k, v in EVAL_LAUNCHES.items()}, (eval_step, eval_launches)
+        ap = {k: float(v) for k, v in result.items() if k.startswith("Car_")}
+        assert len(ap) >= 18 and all(math.isfinite(v) for v in ap.values()), ap
+        log(f"[{card}] train CLI trailing eval of step {eval_step}: {len(ap)} finite AP keys, "
+            f"Car_3d/moderate_R40 {ap['Car_3d/moderate_R40']:.4f}, launches over "
+            f"{val_forwards} forwards {json.dumps(eval_launches)}")
+
+        # the same 8 steps in one call, steps 5-8 under the profiler
+        step_log.clear()
+        reset_launches()
+        straight = cli.main(argv(tmp / "straight", "--num_epochs_to_eval", "0",
+                                 "--profile_steps", "4-8"), on_step=on_step)
+        for name, r in (("resumed (second call)", res), ("cut (first call)", cut),
+                        ("straight", straight)):
+            wall = sum(r["time_ms"].values())
+            log(f"[{card}] train CLI loop, {name}: {r['steps_run']} steps, "
+                f"{r['steps_run'] / wall * 1e3:.3f} steps/s, wall ms by part "
+                + json.dumps({k: round(v, 2) for k, v in r["time_ms"].items()}))
+        prof, wall = straight["profile"]
+        busy = sum(t for _, t in kernel_times(prof).values())
+        log(f"[{card}] train CLI steps 5-8 under the profiler: wall {wall:.2f} ms, kernel time "
+            f"{busy:.2f} ms, device idle share {idle_share(busy, wall)}")
+        a = checkpoint.load_file(checkpoint.CheckpointManager(out / "ckpt").path(8))
+        b = checkpoint.load_file(checkpoint.CheckpointManager(tmp / "straight" / "ckpt").path(8))
+        diffs = {}
+        for part in ("model_state", "optimizer_state"):
+            flat_a, flat_b = flatten_tensors(a[part]), flatten_tensors(b[part])
+            assert flat_a.keys() == flat_b.keys(), part
+            n_diff = sum(int((flat_a[k] != flat_b[k]).sum()) for k in flat_a)
+            worst = max(float((flat_a[k].double() - flat_b[k].double()).abs().max())
+                        for k in flat_a if flat_a[k].numel())
+            diffs[part] = {"tensors": len(flat_a), "elements_differ": n_diff,
+                           "max_abs_diff": worst}
+        log(f"[{card}] train CLI resumed (4 + 4 steps) against straight (8 steps), step-8 "
+            f"checkpoints: " + json.dumps(diffs))
+    log(f"[{card}] train CLI phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def flatten_tensors(tree, prefix="") -> dict:
+    """{path: tensor} of a nested dict's tensors."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tensors(v, f"{prefix}.{k}"))
+    return out
 
 
 def micro_train_config():
@@ -1745,7 +2042,10 @@ def main() -> int:
     small_train_check()
     variant_train_phase()
 
-    # 8. results
+    # 8. sixth path: the training entry point on a KITTI tree
+    train_cli_phase(card)
+
+    # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "
         f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

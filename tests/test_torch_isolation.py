@@ -1,5 +1,6 @@
 """The port stands alone: importing `btcdet_tpu_torch` (every submodule),
-`chip_smoke.py` or `tools/test_torch.py` loads neither JAX, flax, orbax
+`chip_smoke.py`, `tools/test_torch.py` or `tools/train_torch.py` loads
+neither JAX, flax, orbax
 nor the JAX package; the smoke script refuses to run without a card or
 outside the repository."""
 
@@ -20,8 +21,9 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 import importlib.util
-spec = importlib.util.spec_from_file_location("test_torch_cli", {repo!r} + "/tools/test_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for cli in ("test_torch", "train_torch"):
+    spec = importlib.util.spec_from_file_location(cli + "_cli", {repo!r} + "/tools/" + cli + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "btcdet_tpu"))
 print(len(names), "modules")
@@ -47,7 +49,8 @@ def test_port_imports_no_jax():
               "train.trainer", "datasets.mini_config", "datasets.kitti.kitti_dataset",
               "datasets.kitti.kitti_infos", "datasets.processor", "datasets.loader",
               "datasets.synthetic_kitti", "eval.kitti_eval", "train.checkpoint",
-              "train.eval_utils"):
+              "train.eval_utils", "datasets.augmentor", "datasets.bestmatch",
+              "utils.vis_utils"):
         assert f"btcdet_tpu_torch.{m}" in lines[1].split(), m
 
 

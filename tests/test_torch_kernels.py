@@ -3,8 +3,9 @@ card: K1 (`ops/cuda_conv.neighbor_map`, bit for bit, and the gather-GEMM
 `sparse_conv`, bf16 on the tensor cores and f32, and `sparse_conv_df` in
 transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw` and its per-tap
 compaction `tap_pairs`, over the map), K2 max and sum over the map
-(`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`) and K4
-(`ops/cuda_interp.trilinear_pool`). Tests marked `cuda` skip where no
+(`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`), K4
+(`ops/cuda_interp.trilinear_pool`) and K4's volume gradient
+(`ops/cuda_interp.trilinear_pool_grad`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
 `python -m pytest tests/test_torch_kernels.py -m cuda`."""
 
@@ -109,6 +110,83 @@ def assert_within_one_bf16_ulp(out, ref):
     diff = (out.float() - ref.float()).abs()
     ulp = torch.maximum(bf16_ulp(out), bf16_ulp(ref))
     assert bool((diff <= ulp).all()), float((diff / ulp).max())
+
+
+def _k4_grad_case(device, C, R=40, S=2592, seed=5, shape=(2, 5, 200, 176), spread=30.0,
+                  one_center=False):
+    """ConvHead-like samples (clustered per roi within `spread` cells, all
+    rois around one point if `one_center`, some corners outside the
+    volume, some samples invalid) and an output gradient; K4's volume
+    gradient inputs."""
+    g = torch.Generator().manual_seed(seed)
+    B, D, H, W = shape
+    centers = torch.rand(R, 2, generator=g) * torch.tensor([H - 20.0, W - 20.0]) + 10
+    if one_center:
+        centers = centers[:1].expand(R, 2)
+    zyx = torch.cat([torch.rand(R, S, 1, generator=g) * (D + 2) - 1,
+                     centers[:, None] + (torch.rand(R, S, 2, generator=g) - 0.5) * spread], -1)
+    zyx[0, :7] = torch.tensor([0.0, 3.0, 4.0])      # on grid points: zero-weight corners
+    roi_b = torch.randint(0, B, (R,), generator=g)
+    valid = torch.rand(R, S, generator=g) < 0.9
+    grad_out = torch.randn(R, S, C, generator=g)
+    return [t.to(device) for t in (grad_out, zyx, roi_b, valid)], (B, D, H, W, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,R,hot", [(128, 40, False), (8, 12, False), (24, 12, False),
+                                     (264, 12, False), (32, 12, True), (8, 40, True)])
+def test_trilinear_pool_grad_kernel_matches_plain(cuda, C, R, hot):
+    """K4's volume gradient (`trilinear_pool_bwd`) against the plain
+    `index_add_` version on the same bf16-valued gradient: in f32 within
+    1e-5 of the plain output's max (the same f32 products summed in
+    another order) and no further from a float64 sum than the plain
+    version is; in bf16 the f32 result rounded once (equal to the f32
+    kernel's output cast to bf16, so within one bf16 ulp of the plain
+    version's cast wherever the two f32 sums round alike); the same bits
+    on a repeat. The `hot` cases pile all rois' samples into a few cells,
+    thousands of entries a cell: segments longer than a warp sorts in
+    shared memory (12 rois: up to 2 678 entries, sorted by a block in
+    shared memory; 40 rois: up to 9 154, past that too)."""
+    (gout, zyx, roi_b, valid), shape = _k4_grad_case(cuda, C, R=R, spread=2.0 if hot else 30.0,
+                                                     one_center=hot)
+    g16 = gout.to(torch.bfloat16)
+    n0 = cuda_interp.bwd_launches
+    out32 = cuda_interp.trilinear_pool_grad(g16.float(), shape, torch.float32, zyx, roi_b, valid)
+    out16 = cuda_interp.trilinear_pool_grad(g16, shape, torch.bfloat16, zyx, roi_b, valid)
+    again = cuda_interp.trilinear_pool_grad(g16, shape, torch.bfloat16, zyx, roi_b, valid)
+    torch.cuda.synchronize()
+    assert cuda_interp.bwd_launches == n0 + 3
+    assert out16.dtype == torch.bfloat16 and out16.shape == shape and out16.is_contiguous()
+    assert torch.equal(out16, again)
+    assert torch.equal(out16, out32.to(torch.bfloat16))
+    ref32 = cuda_interp.trilinear_pool_volume_grad(g16, shape, zyx, roi_b, valid)
+    scale = float(ref32.abs().max())
+    assert scale > 0.5
+    assert float((out32 - ref32).abs().max()) <= 1e-5 * scale
+    exact = cuda_interp.trilinear_pool_volume_grad(g16, shape, zyx, roi_b, valid,
+                                                   torch.float64)
+    assert float((out32.double() - exact).abs().max()) <= float((ref32.double() - exact)
+                                                                .abs().max())
+    untouched = exact.abs().sum(-1) == 0
+    assert bool(untouched.any()) and bool((out16[untouched] == 0).all())
+
+
+@pytest.mark.cuda
+def test_trilinear_pool_grad_kernel_on_an_empty_call(cuda):
+    """No valid sample: the kernel writes an all-zero volume."""
+    (gout, zyx, roi_b, valid), shape = _k4_grad_case(cuda, 16, R=3, S=50, shape=(1, 3, 8, 8))
+    out = cuda_interp.trilinear_pool_grad(gout.to(torch.bfloat16), shape, torch.bfloat16, zyx,
+                                          roi_b, torch.zeros_like(valid))
+    assert out.shape == shape and bool((out == 0).all())
+
+
+def test_cpu_tensors_take_the_plain_volume_gradient():
+    (gout, zyx, roi_b, valid), shape = _k4_grad_case("cpu", 16, R=3, S=50, shape=(1, 3, 8, 8))
+    n0 = cuda_interp.bwd_launches
+    out = cuda_interp.trilinear_pool_grad(gout, shape, torch.bfloat16, zyx, roi_b, valid)
+    assert cuda_interp.bwd_launches == n0 and out.dtype == torch.bfloat16
+    ref = cuda_interp.trilinear_pool_volume_grad(gout, shape, zyx, roi_b, valid)
+    assert torch.equal(out, ref.to(torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -136,9 +136,16 @@ def test_to_device_matches_the_synthetic_batch(roots):
 
 
 def test_training_with_the_augmentor_is_refused(roots):
+    """A training dataset builds the yaml's augmentor queue
+    (`datasets/augmentor.py`, held to the JAX package in
+    tests/test_torch_train_pipeline.py); an augmentor neither package has
+    is refused."""
     port_root, _ = roots
     _, pcfg = _cfgs(port_root, True, False)
-    with pytest.raises(NotImplementedError, match="the data augmentor"):
+    ds = KittiDataset(pcfg, ["Car"], training=True, root_path=port_root)
+    assert [n for n, _ in ds.data_augmentor.queue][:2] == ["gt_sampling", "add_multi_best_match"]
+    pcfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(tcfg.EasyDict({"NAME": "random_world_shear"}))
+    with pytest.raises(NotImplementedError, match="random_world_shear"):
         KittiDataset(pcfg, ["Car"], training=True, root_path=port_root)
 
 

@@ -497,11 +497,12 @@ OCC_TARGET_KEYS = ("voxelwise_mask", "vcc_mask", "occ_voxelwise_mask", "fore_vox
 ROI_KEY = jax.random.PRNGKey(7)
 
 
-def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_steps: int = 50):
+def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_steps: int = 50,
+                    batch_np=None):
     """One JAX train step (`trainer.make_train_step`, XLA engine) and one
     port step (`trainer.train_step`) from the same weights (JAX init, BN
     moved off identity, occupancy bias 0 so occ points exist) on the same
-    `mode="train"` batch (seed 0, B=2). Roi sampling uses PRNGKey(7) in
+    `mode="train"` batch (seed 0, B=2; or `batch_np`, numpy arrays). Roi sampling uses PRNGKey(7) in
     both: the JAX `assign_targets` is given that key, the port
     `draw_roi_sampling_uniforms` returns its draws. The JAX occ targets and
     sampled rois come back through debug callbacks. All arrays numpy."""
@@ -530,8 +531,9 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
         return out
 
     with f32_mode():
-        batch_np = jax_batch(data_cfg, batch_size=2, num_points=num_points, num_gt=num_gt,
-                             seed=0, mode="train")
+        if batch_np is None:
+            batch_np = jax_batch(data_cfg, batch_size=2, num_points=num_points, num_gt=num_gt,
+                                 seed=0, mode="train")
         net = jax_build(model_cfg, data_cfg, ["Car"])
         variables = perturb_variables(init_jax(net, batch_np))
         cls = variables["params"]["occ_subnet"]["conv_cls"]
