@@ -267,11 +267,12 @@ class KittiDataset:
             anno["frame_id"] = frame_id
             annos.append(anno)
             if output_path is not None:
-                self._write_kitti_txt(anno, frame_id, output_path)
+                self.write_kitti_txt(anno, frame_id, output_path)
         return annos
 
     @staticmethod
-    def _write_kitti_txt(anno, frame_id, output_path):
+    def write_kitti_txt(anno, frame_id, output_path):
+        """Write `anno` as `<output_path>/<frame_id>.txt` in the KITTI label format."""
         with open(Path(output_path) / f"{frame_id}.txt", "w") as f:
             for k in range(len(anno["name"])):
                 d = anno["dimensions"][k]

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..parallel import all_reduce_sum
 from ..utils.common import activation_dtype
 
 
@@ -16,14 +17,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose train mode moves the running variance towards the
     BIASED batch variance, as flax's `nn.BatchNorm` (the JAX package's
     `backbones_2d._BN`) does; torch's own BatchNorm2d uses the unbiased one.
-    Eval mode is torch's."""
+    The statistics are the global batch's: the count and the sums, then
+    the squared deviations, summed over the ranks of a data-parallel run
+    through the differentiable all-reduce, in float64 and rounded to
+    float32 once (the same bits however the frames are split, as
+    `ops.sparse.MaskedBatchNorm`). Eval mode is torch's."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+        stats = all_reduce_sum(torch.cat([xf.double().sum(dim=(0, 2, 3)),
+                                          torch.full((1,), n, dtype=torch.float64,
+                                                     device=x.device)]), differentiable=True)
+        cnt = stats[-1].detach()
+        mean = (stats[:-1] / cnt).float()
+        var = (all_reduce_sum(((xf - mean[:, None, None]) ** 2).double().sum(dim=(0, 2, 3)),
+                              differentiable=True) / cnt).float()
         with torch.no_grad():
             mom = self.momentum
             self.running_mean.mul_(1 - mom).add_(mom * mean.detach())

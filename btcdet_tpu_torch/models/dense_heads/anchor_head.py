@@ -10,6 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import global_rows
 from ...utils import box_utils, common, loss_utils
 from ...utils.box_coder import ResidualCoder
 
@@ -181,10 +182,11 @@ class AnchorHeadSingle(nn.Module):
         """Reference `anchor_head_template.get_cls_layer_loss` /
         `get_box_reg_layer_loss`; `out` holds the forward's predictions and
         `assign_targets`'. Returns (total, {rpn_loss_cls, rpn_loss_loc,
-        rpn_loss_dir, rpn_loss})."""
+        rpn_loss_dir, rpn_loss}); the terms are per frame of the global
+        batch (all ranks' frames in a data-parallel run)."""
         cls_preds, box_preds = out["cls_preds"], out["box_preds"]
         labels, reg_targets = out["box_cls_labels"], out["box_reg_targets"]
-        B = cls_preds.shape[0]
+        B = global_rows(cls_preds.shape[0])[0]
         positives, negatives = labels > 0, labels == 0
         pos_norm = positives.sum(dim=1, keepdim=True).float().clamp(min=1.0)
         cls_weights = (negatives.float() + positives.float()) / pos_norm

@@ -29,6 +29,7 @@ from torch.profiler import record_function
 
 from ...ops import iou3d, sparse
 from ...ops.voxelizer import compute_grid_size
+from ...parallel import global_rows
 from ...utils.common import activation_dtype, resolve_device
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head
@@ -227,7 +228,8 @@ class BtcNet(nn.Module):
         nx, ny, nz = self.det_grid_size
         occ_pts = occ_mask = occ_code = None
         if self.use_occ and train and "use_occ_prob" not in batch:
-            batch = dict(batch, use_occ_prob=(draw_use_occ_prob(generator, B).to(
+            rows, lo = global_rows(B)   # this rank's frames of the global draw
+            batch = dict(batch, use_occ_prob=(draw_use_occ_prob(generator, rows)[lo:lo + B].to(
                 batch["points"].device) <= self.useocc_percentage))
         if self.use_occ:
             with stage("occ_subnet", self.stage_ms):

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import voxelizer
+from ...parallel import all_reduce_sum
 from ...utils import coords, loss_utils
 from .. import backbones_3d
 from . import occ_targets as T
@@ -175,20 +176,22 @@ class OccSubnet(nn.Module):
     def _get_loss(self, logits, res_pred, t):
         """Occupancy loss (JAX `OccSubnet._get_loss`): softmax focal (the
         only CLS_LOSS_TYPE the port trains) over the general cls mask weighted
-        by the cls weight map, plus the residual smooth-L1 over the reg mask."""
+        by the cls weight map, plus the residual smooth-L1 over the reg mask.
+        Each normaliser is summed over the ranks of a data-parallel run."""
         w = self.loss_weights
         mask = t["general_cls_loss_mask"].float()
         wf = t["general_cls_loss_mask_float"]
         pos = t["pos_mask"].to(logits.dtype)
         el = loss_utils.softmax_focal_loss(logits, torch.stack([1.0 - pos, pos], dim=-1),
                                            alpha=1.0, gamma=2.0)
-        loss = (el * wf * mask).sum() / (wf * mask).sum().clamp(min=1.0)
+        loss = (el * wf * mask).sum() / all_reduce_sum((wf * mask).sum().detach()).clamp(min=1.0)
         loss = loss * w.get("occ_fore_cls_weight", 1.0)
         if res_pred is not None:
             rm = t["general_reg_loss_mask"].float()
             rf = t["general_reg_loss_mask_float"]
             rl = loss_utils.smooth_l1_loss(res_pred - t["res_mtrx"], beta=w.get("res_beta", 0.025))
-            rl = (rl.sum(-1) * rf * rm).sum() / (rf * rm).sum().clamp(min=1.0)
+            rl = (rl.sum(-1) * rf * rm).sum() / all_reduce_sum(
+                (rf * rm).sum().detach()).clamp(min=1.0)
             loss = loss + rl * w.get("occ_fore_res_weight", 0.1)
         return loss
 

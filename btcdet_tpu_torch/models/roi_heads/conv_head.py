@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ...ops import cuda_interp, group_ops
 from ...ops.sparse import MaskedBatchNorm, SparseTensor
+from ...parallel import all_reduce_sum, global_rows
 from ...utils import common, loss_utils
 from ...utils.box_coder import ResidualCoder
 
@@ -103,7 +104,8 @@ def draw_dropout_keep(generator: torch.Generator, shape, keep_prob: float) -> to
 def _run_trunk(module: nn.Module, x, mask, dtype, generator=None):
     """x (R, C) through a `_fc_trunk` module: hidden layers in `dtype`
     (BN in f32, masked by roi validity), the final projection in f32;
-    dropout in train mode only, its masks drawn from `generator`."""
+    dropout in train mode only, its masks drawn from `generator` for the
+    rows of the global batch (this rank's rows kept in a data-parallel run)."""
     children = list(module.children())
     for i, m in enumerate(children):
         if isinstance(m, nn.Conv1d):
@@ -118,7 +120,9 @@ def _run_trunk(module: nn.Module, x, mask, dtype, generator=None):
         elif isinstance(m, nn.Dropout) and m.training:
             if generator is None:
                 raise ValueError("ConvHead dropout at train needs a torch.Generator")
-            keep = draw_dropout_keep(generator, x.shape, 1.0 - m.p).to(x.device)
+            rows, lo = global_rows(x.shape[0])
+            keep = draw_dropout_keep(generator, (rows,) + tuple(x.shape[1:]), 1.0 - m.p)
+            keep = keep[lo:lo + x.shape[0]].to(x.device)
             x = torch.where(keep, x / (1.0 - m.p), torch.zeros((), dtype=x.dtype,
                                                                device=x.device))
     return x
@@ -291,20 +295,22 @@ class ConvHead(nn.Module):
     def get_loss(self, rcnn_cls, rcnn_reg, targets):
         """rcnn_cls (B*R, 1), rcnn_reg (B*R, 7); targets of
         `roi_head_utils.assign_targets`. Returns (total, {rcnn_loss_cls,
-        rcnn_loss_reg, rcnn_loss_corner, rcnn_loss})."""
+        rcnn_loss_reg, rcnn_loss_corner, rcnn_loss}); the valid and the
+        foreground counts are summed over the ranks of a data-parallel run."""
         w_cls, w_reg, w_corner = self.loss_weights
         valid = targets["roi_valid"].reshape(-1).float()
+        reg_mask = targets["reg_valid_mask"].reshape(-1).float()
+        valid_norm, fg_norm = all_reduce_sum(torch.stack([valid.sum(), reg_mask.sum()])
+                                             ).clamp(min=1.0)
         bce = loss_utils.binary_cross_entropy_with_logits(
             rcnn_cls.reshape(-1), targets["rcnn_cls_labels"].reshape(-1))
-        cls_loss = (bce * valid).sum() / valid.sum().clamp(min=1.0) * w_cls
+        cls_loss = (bce * valid).sum() / valid_norm * w_cls
         rois = targets["rois"].reshape(-1, 7)
-        reg_mask = targets["reg_valid_mask"].reshape(-1).float()
         zeros = torch.zeros_like(rois[:, :1])
         local_anchor = torch.cat([zeros, zeros, zeros, rois[:, 3:6], zeros], dim=-1)
         reg_targets = self.box_coder.encode(targets["gt_of_rois"].reshape(-1, 7), local_anchor)
         reg_el = loss_utils.weighted_smooth_l1_loss(rcnn_reg[None], reg_targets[None],
                                                     code_weights=self.code_weights)[0]
-        fg_norm = reg_mask.sum().clamp(min=1.0)
         reg_loss = (reg_el.sum(-1) * reg_mask).sum() / fg_norm * w_reg
         corner = loss_utils.get_corner_loss_lidar(
             self._to_global(rois, rcnn_reg), targets["gt_of_rois_src"].reshape(-1, 7))

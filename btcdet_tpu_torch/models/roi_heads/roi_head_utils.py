@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...ops import iou3d
+from ...parallel import global_rows
 from ...utils import common
 
 
@@ -138,10 +139,12 @@ def assign_targets(generator, proposals: Proposals, gt_boxes, *, roi_per_image: 
     """Batch roi sampling and targets. gt_boxes (B, G, 8) (7 + class id).
     Returns rois (B, R, 7), roi_labels, roi_ious, rcnn_cls_labels (IoU
     interpolated), reg_valid_mask, gt_of_rois (canonical), gt_of_rois_src
-    (global frame), roi_valid."""
+    (global frame), roi_valid. The uniforms are drawn for the global
+    batch; a rank of a data-parallel run keeps its frames' rows."""
     B, N, _ = proposals.rois.shape
-    draws = [d.to(gt_boxes.device)
-             for d in draw_roi_sampling_uniforms(generator, B, N, roi_per_image)]
+    rows, lo = global_rows(B)
+    draws = [d[lo:lo + B].to(gt_boxes.device)
+             for d in draw_roi_sampling_uniforms(generator, rows, N, roi_per_image)]
     keys = ("rois", "roi_labels", "roi_ious", "rcnn_cls_labels", "reg_valid_mask",
             "gt_of_rois", "gt_of_rois_src", "roi_valid")
     out = {k: [] for k in keys}

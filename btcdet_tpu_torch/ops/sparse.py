@@ -26,6 +26,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from ..parallel import all_reduce_sum
 from ..utils.common import activation_dtype
 from . import cuda_conv, cuda_pool
 from .cuda_conv import INT32_MAX, triple
@@ -194,7 +195,13 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     mean and the biased variance of the active rows, and moves the running
     statistics by `momentum` towards them -- the biased variance, as the
     JAX package and flax do (torch's own BatchNorm moves them towards the
-    unbiased one)."""
+    unbiased one). In a data-parallel run the active rows are those of
+    every rank: the count and the sum, then the squared deviations, are
+    summed over the ranks (the JAX package's `axis_name` path,
+    `btcdet_tpu/ops/sparse.py:1445-1456`), through the differentiable
+    all-reduce. The sums are taken in float64 and the statistics rounded
+    to float32 once, so they come out the same bits however the rows are
+    split over ranks: a data-parallel forward is the one-process forward."""
 
     def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -203,9 +210,12 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         xf = x.float()
         if self.training:
             m = mask.float()[:, None]
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(0) / cnt
-            var = ((xf - mean) ** 2 * m).sum(0) / cnt
+            stats = all_reduce_sum(torch.cat([(xf * m).double().sum(0),
+                                              m.double().sum().reshape(1)]), differentiable=True)
+            cnt = stats[-1].detach().clamp(min=1.0)
+            mean = (stats[:-1] / cnt).float()
+            var = (all_reduce_sum(((xf - mean) ** 2 * m).double().sum(0), differentiable=True)
+                   / cnt).float()
             with torch.no_grad():
                 mom = self.momentum
                 self.running_mean.mul_(1 - mom).add_(mom * mean.detach())

@@ -8,6 +8,10 @@ reference BtcDet names, and the dual optimizer's per-partition state.
 `load_partial` copies only the occ (or the det) partition, for staged
 training (reference `--pre_occ` / `--pre_det`); `load_reference_pth`
 reads a checkpoint of the reference BtcDet, {model_state, epoch, it}.
+
+In a data-parallel run rank 0 writes and every rank waits for it; every
+rank restores. The file is the one-process format, so a checkpoint moves
+between runs of any number of ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel import barrier, broadcast_object, get_dist_info
 from .optim import OCC_PREFIX
 
 _NAME = re.compile(r"checkpoint_step_(\d+)\.pth$")
@@ -45,23 +50,27 @@ class CheckpointManager:
 
     def save(self, step: int, net: torch.nn.Module, opt=None) -> Path:
         """Write the step's checkpoint (atomically), then drop the oldest
-        beyond `max_to_keep`."""
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        state = {"model_state": {k: v.detach().cpu() for k, v in net.state_dict().items()},
-                 "optimizer_state": None if opt is None else _to_cpu(opt.state_dict()),
-                 "step": int(step)}
+        beyond `max_to_keep`; in a data-parallel run rank 0 writes, and
+        every rank returns once it has."""
         out = self.path(step)
-        tmp = out.with_suffix(".tmp")
-        torch.save(state, tmp)
-        tmp.replace(out)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            self.path(old).unlink()
+        if get_dist_info()[0] == 0:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+            state = {"model_state": {k: v.detach().cpu() for k, v in net.state_dict().items()},
+                     "optimizer_state": None if opt is None else _to_cpu(opt.state_dict()),
+                     "step": int(step)}
+            tmp = out.with_suffix(".tmp")
+            torch.save(state, tmp)
+            tmp.replace(out)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                self.path(old).unlink()
+        barrier()
         return out
 
     def restore(self, net: torch.nn.Module, opt=None, step=None):
         """Load a step's checkpoint (the latest by default) into `net` (and
-        `opt`), strictly by name; returns the step, or None without one."""
-        step = self.latest_step() if step is None else step
+        `opt`), strictly by name; returns the step, or None without one.
+        In a data-parallel run the latest step is rank 0's reading."""
+        step = broadcast_object(self.latest_step()) if step is None else step
         if step is None:
             return None
         state = load_file(self.path(step))

@@ -9,6 +9,12 @@ Each collated batch goes to the net's device (`to_device`), through the
 eval forward and post-processing (`infer`), and its outputs come back to
 the host in one copy (`to_host`); the KITTI-format predictions, recall
 records and occupancy statistics are then numpy on the host.
+
+In a data-parallel run each rank evaluates its `datasets.ShardSampler`
+shard; the per-frame results (annos, recall records, coverage counts, and
+each batch's occupancy statistics with its first frame) are merged in
+dataset order without the shard padding (`parallel.merge_results_dist`),
+the AP is computed on rank 0 and broadcast.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..datasets.kitti.kitti_dataset import to_device
 from ..models.detectors.btcnet import post_processing
+from ..parallel import broadcast_object, get_dist_info, merge_results_dist
 from ..ops import iou3d
 from ..utils import box_utils
 
@@ -143,16 +150,23 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
     `infer` on the net's device; returns (result string, result dict,
     det_annos). The result dict holds the official AP keys, recall,
     sec_per_example / frames_per_sec, the occupancy precision / recall /
-    F1, the occ box coverage, and `time_ms`, the loop's wall ms in its
-    parts. With `result_dir` the KITTI txt files and pc_rc.pkl are written there; with `cloud_dir` and `vis_stride > 0`
-    every vis_stride-th batch is dumped for tools/visual_utils/visualize_pc.py.
+    F1 (means over batches), the occ box coverage, and `time_ms`, the
+    loop's wall ms in its parts. With `result_dir` the KITTI txt files and
+    pc_rc.pkl are written there; with `cloud_dir` and `vis_stride > 0`
+    every vis_stride-th batch is dumped for tools/visual_utils/visualize_pc.py
+    (by rank 0 in a data-parallel run, whose loop covers this rank's
+    shard and returns the merged results on every rank).
     `on_batch(batch_idx, batch, host_outputs)` is called after each batch."""
     dev = next(net.parameters()).device
     num_class = len(class_names)
-    det_annos = []
-    recall_dict = {}
-    occ_stats_acc = {}
-    cov_acc = {}
+    rank, world = get_dist_info()
+    sampler = getattr(dataloader, "sampler", None)
+    order = list(sampler) if sampler is not None else list(range(len(dataset)))
+    # the shard's padding (`ShardSampler`) follows its real frames
+    n_real = getattr(sampler, "num_real", len(order))
+    # (dataset index, the frame's results); a batch's occupancy statistics,
+    # over its real frames, ride on its first frame
+    records = []
     n_frames = 0
     # wall ms of the loop's parts: waiting on the loader; `infer` with the
     # copies to and from the device (the copy back synchronises); the host's
@@ -168,48 +182,70 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
         time_ms["infer"] += (t_dev - t_got) * 1e3
         if on_batch is not None:
             on_batch(batch_idx, batch, post)
-        if cloud_dir is not None and vis_stride > 0 and batch_idx % vis_stride == 0:
+        if cloud_dir is not None and vis_stride > 0 and batch_idx % vis_stride == 0 and rank == 0:
             _dump_cloud(Path(cloud_dir), batch_idx, batch, post)
-        if "occ_probs" in post:
-            stats = occ_match_stats(post["occ_probs"], {
-                "pos_mask": post["occ_pos_mask"], "general_cls_loss_mask": post["occ_cls_mask"]})
-            for k, v in stats.items():
-                occ_stats_acc.setdefault(k, []).append(v)
         B = post["pred_boxes"].shape[0]
-        n_frames += B
+        real = min(B, n_real - n_frames)
+        occ = None
+        if "occ_probs" in post and real > 0:
+            occ = occ_match_stats(post["occ_probs"][:real], {
+                "pos_mask": post["occ_pos_mask"][:real],
+                "general_cls_loss_mask": post["occ_cls_mask"][:real]})
         pred_dicts = [{k: post[k][b] for k in ("pred_boxes", "pred_scores", "pred_labels",
                                                 "pred_valid")} for b in range(B)]
-        det_annos += dataset.generate_prediction_dicts(
-            {"frame_id": batch["frame_id"]}, pred_dicts, class_names, output_path=result_dir)
-        for b in range(B) if "gt_boxes" in batch else ():
-            gt = batch["gt_boxes"][b]
-            if "occ_points" in post:
-                cov = occ_box_coverage(post["occ_points"][b], post["occ_points_mask"][b], gt)
-                cov_acc["box_num_sum"] = cov_acc.get("box_num_sum", 0) + cov["box_num_sum"]
-                prev = cov_acc.get("occ_box_num", [0] * len(cov["occ_box_num"]))
-                cov_acc["occ_box_num"] = [a + c for a, c in zip(prev, cov["occ_box_num"])]
-            rec = recall_record(post["pred_boxes"][b], post["pred_valid"][b], post["rois"][b],
-                                post["roi_valid"][b], gt, recall_thresh_list)
-            for k, v in rec.items():
-                recall_dict[k] = recall_dict.get(k, 0) + v
+        annos = dataset.generate_prediction_dicts({"frame_id": batch["frame_id"]}, pred_dicts,
+                                                  class_names)
+        for b in range(B):
+            rec = {"anno": annos[b], "occ": occ if b == 0 else None, "cov": None, "recall": None}
+            if "gt_boxes" in batch:
+                gt = batch["gt_boxes"][b]
+                if "occ_points" in post:
+                    rec["cov"] = occ_box_coverage(post["occ_points"][b],
+                                                  post["occ_points_mask"][b], gt)
+                rec["recall"] = recall_record(post["pred_boxes"][b], post["pred_valid"][b],
+                                              post["rois"][b], post["roi_valid"][b], gt,
+                                              recall_thresh_list)
+            records.append((order[n_frames + b], rec))
+        n_frames += B
         t_mark = time.perf_counter()
         time_ms["host"] += (t_mark - t_dev) * 1e3
 
     sec_per_example = (time.time() - t_start) / max(n_frames, 1)
+    frames = ([r for _, r in records] if world == 1
+              else merge_results_dist(records, len(dataset)))
+    det_annos = [r["anno"] for r in frames]
+    recall_dict, cov_acc, occ_stats_acc = {}, {}, {}
+    for r in frames:
+        for k, v in (r["recall"] or {}).items():
+            recall_dict[k] = recall_dict.get(k, 0) + v
+        if r["cov"] is not None:
+            cov = r["cov"]
+            cov_acc["box_num_sum"] = cov_acc.get("box_num_sum", 0) + cov["box_num_sum"]
+            prev = cov_acc.get("occ_box_num", [0] * len(cov["occ_box_num"]))
+            cov_acc["occ_box_num"] = [a + c for a, c in zip(prev, cov["occ_box_num"])]
+        for k, v in (r["occ"] or {}).items():
+            occ_stats_acc.setdefault(k, []).append(v)
     if logger:
-        logger.info(f"eval: {n_frames} frames, {sec_per_example:.4f} s/frame")
+        logger.info(f"eval: {len(det_annos)} frames over {world} rank(s), "
+                    f"{sec_per_example:.4f} s/frame")
         gt_cnt = max(recall_dict.get("gt", 1), 1)
         for t in recall_thresh_list:
             logger.info(f"recall_roi_{t}: {recall_dict.get(f'roi_{t}', 0) / gt_cnt:.4f}  "
                         f"recall_rcnn_{t}: {recall_dict.get(f'rcnn_{t}', 0) / gt_cnt:.4f}")
-    # coverage-bucket difficulty axis (reference eval_utils.py:179 CVRG_RATES)
-    t_ap = time.perf_counter()
-    result_str, result_dict, pr_rc_details = dataset.evaluation(
-        det_annos, class_names, coverage_rates=post_cfg.get("CVRG_RATES", None))
-    time_ms["ap"] = (time.perf_counter() - t_ap) * 1e3
-    if result_dir is not None and pr_rc_details:
-        with open(Path(result_dir) / "pc_rc.pkl", "wb") as f:
-            pickle.dump(pr_rc_details, f)
+    result_str, result_dict = "", {}
+    if rank == 0:
+        if result_dir is not None:
+            for anno in det_annos:
+                dataset.write_kitti_txt(anno, anno["frame_id"], result_dir)
+        # coverage-bucket difficulty axis (reference eval_utils.py:179 CVRG_RATES)
+        t_ap = time.perf_counter()
+        result_str, result_dict, pr_rc_details = dataset.evaluation(
+            det_annos, class_names, coverage_rates=post_cfg.get("CVRG_RATES", None))
+        time_ms["ap"] = (time.perf_counter() - t_ap) * 1e3
+        if result_dir is not None and pr_rc_details:
+            with open(Path(result_dir) / "pc_rc.pkl", "wb") as f:
+                pickle.dump(pr_rc_details, f)
+    result_str, result_dict = broadcast_object((result_str, result_dict))
     result_dict["sec_per_example"] = sec_per_example
     result_dict["frames_per_sec"] = 1.0 / max(sec_per_example, 1e-9)
     result_dict["recall"] = dict(recall_dict)

@@ -5,13 +5,26 @@ moved by the train forward; and what a training loop needs around it.
     opt = create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, total_steps)
     metrics = train_step(net, opt, batch, step_generator(seed, gstep, "cuda"))
     print(read_metrics(metrics))
+
+In a data-parallel run (`parallel.init_dist`) every rank calls the same
+functions on its frames of the global batch (`split_batch` cuts a
+collated batch the way `datasets.ShardSampler` and collate would): the
+step then computes what one process computes on the global batch, and
+the ranks leave it with the same parameters, bit for bit (see
+`parallel.dist`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import parallel
 from . import optim
+
+# batch keys laid out per frame in row blocks of a fixed capacity, with
+# the frame's index in the batch as the first column of the coords
+_VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points")
 
 
 def frozen_partitions(det_cfg, occ_cfg) -> tuple:
@@ -36,15 +49,46 @@ def create_train_state(net, det_cfg, occ_cfg, total_steps: int) -> optim.DualOpt
     return optim.DualOptimizer(net.named_parameters(), det_cfg, occ_cfg, total_steps)
 
 
+def split_batch(batch: dict, rank: int, world: int) -> dict:
+    """Rank `rank`'s share of a collated batch of B frames (numpy or
+    torch) split over `world` ranks: frames [rank*b, (rank+1)*b), b =
+    B / world, exactly what collating those frames alone gives. Keys with
+    a leading frame axis are sliced; the voxel tables, B blocks of a
+    fixed row capacity, keep their frames' blocks with the frame column
+    renumbered from 0 (padding rows keep -1); `frame_id` is sliced."""
+    B = len(batch["points"])
+    if B % world:
+        raise ValueError(f"a batch of {B} frames does not split over {world} ranks")
+    b = B // world
+    lo = rank * b
+    out = {}
+    for k, v in batch.items():
+        if not k.endswith(_VOXEL_KEYS):
+            out[k] = v[lo:lo + b]
+            continue
+        per = len(v) // B
+        part = v[lo * per:(lo + b) * per]
+        if k.endswith("voxel_coords"):
+            where = torch.where if torch.is_tensor(part) else np.where
+            part = part.clone() if torch.is_tensor(part) else part.copy()
+            part[:, 0] = where(part[:, 0] >= 0, part[:, 0] - lo, part[:, 0])
+        out[k] = part
+    return out
+
+
 def forward_backward(net, batch: dict, generator: torch.Generator) -> dict:
     """The train forward of `net` (put in train mode) on `batch` and the
     backward of its loss into the parameters' `.grad` (cleared first);
-    returns the forward's outputs."""
+    returns the forward's outputs. In a data-parallel run the loss is the
+    rank's share of the global loss and the gradients are then summed
+    over the ranks (`parallel.all_reduce_grads`): the global batch's
+    gradients, the same on every rank."""
     net.train()
     for p in net.parameters():
         p.grad = None
     out = net(batch, generator=generator)
     out["loss"].backward()
+    parallel.all_reduce_grads(net)
     return out
 
 
@@ -52,13 +96,17 @@ def train_step(net, opt: optim.DualOptimizer, batch: dict, generator: torch.Gene
                keep: dict | None = None) -> dict:
     """One training step of `net` (put in train mode) on `batch`, its
     random draws from `generator`. Returns the loss, every term of
-    `loss_dict` and the per-partition gradient norms, as tensors on the
-    run's device (reading them synchronises). `keep`, a dict of output
+    `loss_dict` (in a data-parallel run summed over the ranks: the
+    global batch's) and the per-partition gradient norms, as tensors on
+    the run's device (reading them synchronises). `keep`, a dict of output
     names, gets the train forward's outputs under those names, detached
     (None where the forward has none)."""
     out = forward_backward(net, batch, generator)
-    metrics = {"loss": out["loss"].detach()}
-    metrics.update({k: v.detach() for k, v in out["loss_dict"].items()})
+    names = ["loss", *out["loss_dict"]]
+    terms = torch.stack([out["loss"].detach()] + [v.detach().reshape(())
+                                                   for v in out["loss_dict"].values()])
+    # the global batch's loss terms: the sum of the ranks' shares
+    metrics = dict(zip(names, parallel.all_reduce_sum(terms).unbind()))
     metrics.update(opt.step())
     if keep is not None:
         keep.update({k: None if out.get(k) is None else out[k].detach() for k in keep})

@@ -10,15 +10,20 @@ import numpy as np
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, local_rank: int | None = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
     another. Raises when CUDA is asked for (explicitly or by default) and
-    no card is present -- there is no silent CPU fallback."""
+    no card is present -- there is no silent CPU fallback. A rank of a
+    data-parallel run (`local_rank`) asking for "cuda" gets
+    cuda:{local_rank}, modulo the visible devices (ranks that share a
+    device do so over gloo; `parallel.init_dist` refuses it for NCCL)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None and local_rank is not None:
+        dev = torch.device("cuda", int(local_rank) % torch.cuda.device_count())
     return dev
 
 
@@ -113,11 +118,14 @@ def rotate_points_along_z_np(points, angle) -> np.ndarray:
     return xyz
 
 
-def create_logger(log_file=None, log_level=logging.INFO) -> logging.Logger:
+def create_logger(log_file=None, log_level=logging.INFO, rank: int = 0) -> logging.Logger:
     """The package's logger: to the console, and to `log_file` (in place of
-    an earlier call's file) when given."""
+    an earlier call's file) when given. A rank other than 0 of a
+    data-parallel run logs errors only, to the console."""
     logger = logging.getLogger("btcdet_tpu_torch")
-    logger.setLevel(log_level)
+    logger.setLevel(log_level if rank == 0 else logging.ERROR)
+    if rank != 0:
+        log_file = None
     formatter = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
     for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
         logger.removeHandler(h)

@@ -5,8 +5,9 @@ card, its det-only variant as a second path, the det backbone's four
 occ-code variants (`config.flagship_occ_variant`) as a third, the
 evaluation entry point `tools/test_torch.py` on a synthetic KITTI tree as
 a fourth, the flagship training step (and the `fix` variant's) as a
-fifth, and the training entry point `tools/train_torch.py` on a synthetic
-KITTI tree as a sixth.
+fifth, the training entry point `tools/train_torch.py` on a synthetic
+KITTI tree as a sixth, and data parallelism (`btcdet_tpu_torch.parallel`:
+2 ranks sharing the card over gloo, one rank over NCCL) as a seventh.
 
     python3 chip_smoke.py
 
@@ -101,6 +102,22 @@ Phases (any failure raises and exits non-zero, printing no result):
      5-8 under the profiler): the loop's steps per second and wall ms by
      part, the device idle share, and how far the resumed run's weights
      and optimizer state are from the straight run's;
+  8b. the seventh path, 2 ranks over gloo on cuda:0 (the script starts
+     them as `chip_smoke.py --dp-worker ...`, each run with its own time
+     limit, every process killed when it expires): the flagship train
+     step at full width, 2 frames a rank of a B=4 batch (all-reduced
+     gradients and the parameters after the step equal on both ranks bit
+     for bit, a repeat the same bits, each rank's launches TRAIN_LAUNCHES,
+     the step and all-reduce ms, the distance from the one-process B=4
+     step); the f32 step of `small_config(full=True)`, 1 frame a rank,
+     against one process at B=2 (same sampled rois, gradients within 1e-3
+     of each tensor's max, BN statistics within 1e-5). Run inside the
+     fourth and sixth paths' trees: `tools/test_torch.py --launcher
+     pytorch` under torchrun (merged det_annos equal the one-process
+     run's bit for bit, same AP) and `tools/train_torch.py --launcher
+     pytorch` under torchrun (a cut run and a resumed one with a
+     distributed trailing eval against the straight run: 0 elements
+     differ; each checkpoint written once), then one rank over NCCL;
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -1265,9 +1282,10 @@ def k3_step_table(dw_calls):
         f"(contraction {tot:.4f}, compaction {tot_pairs:.4f})")
 
 
-def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda"):
+def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
+                batch_size: int = 2):
     """A flagship-layout net in train mode with synthetic weights, its dual
-    optimizer and a `mode="train"` synthetic batch."""
+    optimizer and a `mode="train"` synthetic batch of `batch_size` frames."""
     import torch
 
     from btcdet_tpu_torch import weights
@@ -1291,7 +1309,7 @@ def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda"):
     net.load_state_dict(sd)
     net.train()
     opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 1000)
-    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
+    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=batch_size, num_points=num_points,
                                  num_gt=num_gt, seed=seed, mode="train", device=device)
     return net, opt, batch
 
@@ -1572,6 +1590,8 @@ def eval_cli_phase(card: str):
         wall = prof_box["wall"]
         log(f"[{card}] eval CLI loop under the profiler: wall {wall:.2f} ms for {len(val_ids)} "
             f"frames, kernel time {busy:.2f} ms, device idle share {idle_share(busy, wall)}")
+        # the seventh path's eval CLI under torchrun, on this tree
+        dp_eval_cli(card, root, pth, tmp, annos, result)
     log(f"[{card}] eval CLI phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1760,6 +1780,8 @@ def train_cli_phase(card: str):
                            "max_abs_diff": worst}
         log(f"[{card}] train CLI resumed (4 + 4 steps) against straight (8 steps), step-8 "
             f"checkpoints: " + json.dumps(diffs))
+        # the seventh path's train CLI under torchrun, on this tree
+        dp_train_cli(card, root, tmp)
     log(f"[{card}] train CLI phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1889,9 +1911,572 @@ def timed_median(step, runs: int = 5, warmup: int = 2):
     return statistics.median(times), times
 
 
+# ------------------------------------------ seventh path: data parallelism
+#
+# The card machine has one card. NCCL refuses two ranks on one device, so
+# the data-parallel ranks run over gloo, both on cuda:0 (gloo stages the
+# CUDA tensors through the host); NCCL runs one rank. Their times show the
+# path running, not scaling.
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 300           # the limit of each spawned run, seconds
+# how this script is started as a rank (`--dp-worker <task> <io dir> ...`)
+SELF = [sys.executable, os.path.abspath(__file__)]
+DP_DEVICE = "cuda"           # the one-process references' device
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's variables for rank `rank` of `world` on this host."""
+    env = dict(os.environ)
+    env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               OMP_NUM_THREADS="2")
+    return env
+
+
+def torchrun_argv(nproc: int, *script_and_args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+            "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+            *map(str, script_and_args)]
+
+
+def run_group(cmds, label: str, timeout: float = DP_TIMEOUT_S) -> list:
+    """Start every (argv, env) of `cmds` together, each in a process group
+    of its own, and wait for all within `timeout` seconds; every group
+    still running then is killed. Raises unless every exit code is 0
+    (printing the outputs' ends); returns the outputs."""
+    import signal
+    import tempfile
+
+    procs = []
+    for argv, env in cmds:
+        f = tempfile.TemporaryFile(mode="w+")
+        procs.append((subprocess.Popen(argv, env=env, cwd=REPO, stdout=f,
+                                       stderr=subprocess.STDOUT, start_new_session=True), f))
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = []
+    for p, f in procs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    rcs = [p.returncode for p, _ in procs]
+    if rcs != [0] * len(procs):
+        for o in outs:
+            log(o[-8000:])
+        raise RuntimeError(f"{label}: exit codes {rcs} (negative: killed at the {timeout} s "
+                           "limit or by a signal)")
+    return outs
+
+
+def record_picks():
+    """Wrap `roi_head_utils.subsample_rois` to record each frame's sampled
+    roi indices and foreground flags; returns (list, undo)."""
+    from btcdet_tpu_torch.models.roi_heads import roi_head_utils as RH
+
+    picked, orig = [], RH.subsample_rois
+
+    def subsample(*a, **k):
+        out = orig(*a, **k)
+        picked.append(tuple(t.cpu() for t in out))
+        return out
+
+    RH.subsample_rois = subsample
+
+    def undo():
+        RH.subsample_rois = orig
+    return picked, undo
+
+
+def host_state(net) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+
+def host_grads(net) -> dict:
+    return {n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()
+            if p.grad is not None}
+
+
+def dp_step_worker(io: str):
+    """A rank of the data-parallel train step (see `dp_step_phase`)."""
+    import copy
+
+    import torch
+
+    from btcdet_tpu_torch import config, parallel
+    from btcdet_tpu_torch.train import trainer
+    from btcdet_tpu_torch.utils.common import resolve_device
+
+    local = parallel.init_dist("pytorch", "gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        dev = resolve_device("cuda", local)
+        torch.cuda.set_device(dev)
+        rank, world = parallel.get_dist_info()
+        out = {}
+        # 1. the flagship at full width: the global batch of 2 * world frames
+        net, opt, batch = train_setup(config.flagship(), 16384, 10, 0, device=dev,
+                                      batch_size=2 * world)
+        batch = trainer.split_batch(batch, rank, world)
+        parallel.broadcast_state(net)
+        if rank == 0:
+            torch.save(host_state(net), os.path.join(io, "init_full.pt"))
+        snap, opt_snap = copy.deepcopy(net.state_dict()), copy.deepcopy(opt.state_dict())
+
+        def step():
+            m = trainer.train_step(net, opt, batch, trainer.step_generator(0, 0, dev))
+            torch.cuda.synchronize()
+            return m
+
+        reset_launches()
+        metrics = {k: float(v) for k, v in step().items()}
+        launches = read_launches()
+        grads, state = host_grads(net), host_state(net)
+        net.load_state_dict(snap)
+        opt.load_state_dict(opt_snap)
+        step()
+        g2, s2 = host_grads(net), host_state(net)
+        repeat = (sum(int((grads[n] != g2[n]).sum()) for n in grads)
+                  + sum(int((state[k] != s2[k]).sum()) for k in state))
+        times = []
+        for _ in range(5):
+            parallel.barrier()
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ar = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            parallel.barrier()
+            t0 = time.perf_counter()
+            parallel.all_reduce_grads(net)
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        out["full"] = {"metrics": metrics, "launches": launches, "grads": grads,
+                       "state": state, "repeat_differ": repeat, "step_ms": times,
+                       "all_reduce_ms": ar,
+                       "grad_mib": sum(p.numel() * 4 for p in net.parameters()) / 2**20}
+        del net, opt, batch, snap, opt_snap, g2, s2
+        torch.cuda.empty_cache()
+
+        out.update(dp_f32_cases(io, dev, rank, world))
+        torch.save(out, os.path.join(io, f"rank{rank}.pt"))
+    finally:
+        parallel.destroy()
+
+
+def dp_f32_cases(io: str, dev, rank: int, world: int) -> dict:
+    """A rank's F32_CASES steps in float32, 1 frame a rank: the micro
+    config, and the flagship's widths on a 16 m scene."""
+    import torch
+
+    from btcdet_tpu_torch import parallel
+    from btcdet_tpu_torch.train import trainer
+
+    out = {}
+    for name, (cfg_fn, points, gts) in F32_CASES.items():
+        with f32_everywhere():
+            net, opt, batch = train_setup(cfg_fn(), points, gts, 3, device=dev,
+                                          batch_size=world)
+            batch = trainer.split_batch(batch, rank, world)
+            parallel.broadcast_state(net)
+            if rank == 0:
+                torch.save(host_state(net), os.path.join(io, f"init_{name}.pt"))
+            picked, undo = record_picks()
+            kept = dict.fromkeys(KEPT)
+            try:
+                m = trainer.train_step(net, opt, batch,
+                                       torch.Generator(device=dev).manual_seed(0), keep=kept)
+            finally:
+                undo()
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "grads": host_grads(net), "state": host_state(net), "picked": picked,
+                     "kept": {k: v.cpu() for k, v in kept.items()}}
+        del net, opt, batch
+    return out
+
+
+def one_process_step(cfg, init_path, batch_size, num_points, num_gt, seed, generator,
+                     f32=False, perturb=0.0, kept=None):
+    """The one-process train step on the card from a rank's saved initial
+    weights (each float parameter times 1 + `perturb` * N(0, 1) when
+    given): (metrics, gradients, state after, sampled rois); `kept`, a
+    dict of output names, gets those outputs on the host."""
+    import torch
+
+    from btcdet_tpu_torch.train import trainer
+
+    ctx = f32_everywhere() if f32 else contextlib.nullcontext()
+    with ctx:
+        net, opt, batch = train_setup(cfg, num_points, num_gt, seed, device=DP_DEVICE,
+                                      batch_size=batch_size)
+        net.load_state_dict(torch.load(init_path, map_location=DP_DEVICE, weights_only=True))
+        if perturb:
+            g = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=g).to(p.device))
+        picked, undo = record_picks()
+        try:
+            m = trainer.train_step(net, opt, batch, generator, keep=kept)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        if kept is not None:
+            kept.update({k: v.cpu() for k, v in kept.items()})
+    return ({k: float(v) for k, v in m.items()}, host_grads(net), host_state(net), picked)
+
+
+# the f32 comparisons of the data-parallel step with one process: (config,
+# points, gt boxes a frame)
+F32_CASES = {"micro": (lambda: micro_train_config(), 2048, 4),
+             "small": (lambda: small_config(full=True), 4096, 4)}
+# the train forward's outputs each rank's frames are compared on
+KEPT = ("rois", "occ_points")
+
+
+def f32_case(card: str, name: str, cfg_fn, points: int, gts: int, ranks, io: str):
+    """One F32_CASES comparison: the data-parallel step (2 ranks x 1
+    frame) against one process at B=2 from the same weights, batch and
+    generator: the same sampled rois (indices and boxes) and occ points,
+    the loss and the BN running statistics within 1e-5, every gradient
+    tensor within 1e-3 of its max."""
+    import torch
+
+    init = os.path.join(io, f"init_{name}.pt")
+    kept = dict.fromkeys(KEPT)
+    metrics, grads, state, picked = one_process_step(
+        cfg_fn(), init, DP_WORLD, points, gts, 3,
+        torch.Generator(device=DP_DEVICE).manual_seed(0), f32=True, kept=kept)
+    g = ranks[0][name]
+    assert g["grads"].keys() == grads.keys()
+    rois_equal = all(torch.equal(res[name]["picked"][0][i], picked[r][i])
+                     for r, res in enumerate(ranks) for i in (0, 1))
+    # each output's largest difference over the ranks' frames, relative to its max
+    outs = {k: max(float((res[name]["kept"][k][0] - v[r]).abs().max()) for r, res in
+                   enumerate(ranks)) / max(float(v.abs().max()), 1e-30) for k, v in kept.items()}
+    rel = grad_distance(g["grads"], grads)
+    stats = max(float((g["state"][k] - v).abs().max()) for k, v in state.items()
+                if "running_" in k)
+    loss_rel = abs(g["metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"])
+    log(f"[{card}] data-parallel f32 step ({name} config, 2 ranks x 1 frame) against one "
+        f"process at B=2 on the card: sampled roi indices equal {rois_equal}; roi boxes and "
+        f"occ points largest difference relative to their max "
+        f"{json.dumps({k: f'{v:.3e}' for k, v in outs.items()})} (bound 1e-4); loss relative "
+        f"difference {loss_rel:.3e}; largest BN running-statistic difference {stats:.3e} "
+        f"(bound 1e-5); gradient difference relative to each tensor's max: largest "
+        f"{max(rel.values()):.3e} over {len(rel)} tensors (bound 1e-3), worst 8 "
+        + json.dumps(worst_of(rel)))
+    assert rois_equal and max(outs.values()) <= 1e-4, (name, outs)
+    assert loss_rel <= 1e-5, (name, loss_rel)
+    assert stats <= 1e-5, (name, stats)
+    assert max(rel.values()) <= 1e-3, (name, worst_of(rel))
+
+
+def grad_distance(grads, ref) -> dict:
+    """{tensor: max |grads - ref| / max |ref|}."""
+    return {n: float((grads[n] - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for n, r in ref.items()}
+
+
+def worst_of(rel: dict, k: int = 8) -> dict:
+    return {n: f"{v:.3e}" for n, v in sorted(rel.items(), key=lambda kv: -kv[1])[:k]}
+
+
+def group_distance(grads, ref) -> dict:
+    """GRAD_GROUPS' largest difference, relative to the group's max."""
+    out = {}
+    for group in GRAD_GROUPS:
+        names = [n for n in ref if n.startswith(group)]
+        top = max(float(ref[n].abs().max()) for n in names)
+        diff = max(float((grads[n] - ref[n]).abs().max()) for n in names)
+        out[group.rstrip(".")] = f"{diff / max(top, 1e-30):.3e}"
+    return out
+
+
+def dp_step_phase(card: str):
+    """Seventh path, parts 1 and 2: 2 ranks over gloo, both on cuda:0.
+    1. The flagship train step at full width (train caps), 2 frames a
+    rank of a synthetic B=4 batch, from the same synthetic weights:
+    the all-reduced gradients and the parameters after the step equal on
+    both ranks bit for bit, a repeat of the step the same bits, each
+    rank's launches TRAIN_LAUNCHES, the loss finite; the median step ms
+    and the gradient all-reduce's ms; the loss's and each gradient
+    group's relative distance from the one-process B=4 step.
+    2. `small_config(full=True)` in float32, 1 frame a rank, against one
+    process at B=2: the same sampled rois, every gradient within 1e-3 of
+    its tensor's max, the BN running statistics within 1e-5."""
+    import tempfile
+
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as io:
+        port = free_port()
+        run_group([(SELF + ["--dp-worker", "step", io], rank_env(r, DP_WORLD, port))
+                   for r in range(DP_WORLD)], "data-parallel step ranks")
+        ranks = [torch.load(os.path.join(io, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+        a, b = ranks[0]["full"], ranks[1]["full"]
+        for r, res in enumerate(ranks):
+            f = res["full"]
+            assert f["launches"] == TRAIN_LAUNCHES, (r, f["launches"])
+            assert f["repeat_differ"] == 0, (r, f["repeat_differ"])
+            assert all(math.isfinite(v) for v in f["metrics"].values()), f["metrics"]
+        grad_differ = sum(int((a["grads"][n] != b["grads"][n]).sum()) for n in a["grads"])
+        state_differ = sum(int((a["state"][k] != b["state"][k]).sum()) for k in a["state"])
+        assert a["grads"].keys() == b["grads"].keys() and grad_differ == 0, grad_differ
+        assert state_differ == 0 and a["metrics"] == b["metrics"], state_differ
+        log(f"[{card}] data-parallel flagship step (2 ranks x 2 frames of a B=4 batch, gloo, "
+            f"both on cuda:0): launches a rank {json.dumps(a['launches'])} (TRAIN_LAUNCHES); "
+            f"all-reduced gradients equal on both ranks ({len(a['grads'])} tensors, 0 elements "
+            f"differ), parameters and BN statistics after the step equal (0 of "
+            f"{sum(v.numel() for v in a['state'].values())} elements differ), the step repeated "
+            f"from the same state gives the same bits on both ranks; loss "
+            f"{a['metrics']['loss']:.6f}")
+        log(f"[{card}] 2 ranks sharing one H100 over gloo (no scaling figure): step ms median "
+            f"{statistics.median(a['step_ms']):.2f} (rank 0 {[round(v, 2) for v in a['step_ms']]},"
+            f" rank 1 {[round(v, 2) for v in b['step_ms']]}); gradient all-reduce alone "
+            f"({a['grad_mib']:.1f} MiB f32) median {statistics.median(a['all_reduce_ms']):.2f} "
+            f"ms (all {[round(v, 2) for v in a['all_reduce_ms']]})")
+
+        metrics, grads, _, _ = one_process_step(
+            config.flagship(), os.path.join(io, "init_full.pt"), 2 * DP_WORLD, 16384, 10, 0,
+            trainer.step_generator(0, 0, DP_DEVICE))
+        loss_rel = abs(a["metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"])
+        log(f"[{card}] data-parallel flagship step against the one-process B=4 step on the "
+            f"card (bf16, same weights, batch and generator): loss {metrics['loss']:.6f}, "
+            f"relative difference {loss_rel:.3e}; gradient difference by group, relative to the "
+            f"group's max: " + json.dumps(group_distance(a["grads"], grads)))
+        cmetrics, cgrads, _, _ = one_process_step(
+            config.flagship(), os.path.join(io, "init_full.pt"), 2 * DP_WORLD, 16384, 10, 0,
+            trainer.step_generator(0, 0, DP_DEVICE), perturb=1e-7)
+        log(f"[{card}] control: the one-process B=4 step from weights moved by 1e-7 relative: "
+            f"loss relative difference "
+            f"{abs(cmetrics['loss'] - metrics['loss']) / abs(metrics['loss']):.3e}; gradient "
+            f"difference by group: " + json.dumps(group_distance(cgrads, grads)))
+        assert math.isfinite(loss_rel), loss_rel
+
+        for name, (cfg_fn, points, gts) in F32_CASES.items():
+            f32_case(card, name, cfg_fn, points, gts, ranks, io)
+    log(f"[{card}] seventh path, data-parallel steps: {time.perf_counter() - t0:.1f} s")
+
+
+def dp_cli_worker(task: str, io: str, argv: list):
+    """A torchrun rank running a CLI's `main(argv)` in process: `train_cli`
+    (`train_cli_cut`: stopped after the first epoch's checkpoint) records
+    every step's launches and loss and the trailing eval; `eval_cli` the
+    merged det_annos, the result and the launches."""
+    import importlib.util
+    import pickle
+
+    name = "train_torch" if task.startswith("train") else "test_torch"
+    spec = importlib.util.spec_from_file_location(name + "_cli",
+                                                  os.path.join(REPO, "tools", name + ".py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    rank = int(os.environ["RANK"])
+    rec = {"steps": []}
+    reset_launches()
+    if name == "train_torch":
+        def on_step(gstep, batch, metrics):
+            rec["steps"].append((gstep, read_launches(), float(metrics["loss"])))
+            reset_launches()
+
+        res = cli.main(argv, on_step=on_step,
+                       on_epoch_end=(lambda e, s: True) if task == "train_cli_cut" else None)
+        rec.update({k: res[k] for k in ("start_step", "steps_run", "stopped", "eval")})
+    else:
+        (run,) = cli.main(argv)
+        rec.update(annos=run[3], result={k: v for k, v in run[2].items() if k.startswith("Car_")})
+    rec["launches_after"] = read_launches()
+    with open(os.path.join(io, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(rec, f)
+
+
+def _read_ranks(io: str, n: int = DP_WORLD) -> list:
+    import pickle
+
+    out = []
+    for r in range(n):
+        with open(os.path.join(io, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def dp_train_cli(card: str, root, tmp):
+    """Seventh path, part 3: `tools/train_torch.py --launcher pytorch
+    --dist_backend gloo` under torchrun, 2 ranks on cuda:0, on the sixth
+    path's tree and the flagship yaml (2 frames and 2 loader workers a
+    rank, 2 steps an epoch): an epoch cut after its checkpoint, beside it
+    the 4 steps straight; then a run that resumes the cut one and
+    evaluates the step-4 checkpoint over both ranks, beside it one rank
+    over NCCL for 2 steps. Every step's launches TRAIN_LAUNCHES on each
+    rank, each checkpoint written once, the resumed checkpoint equal to
+    the straight one."""
+    from pathlib import Path
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+
+    def argv(out, *extra):
+        return ["--cfg_file", str(config.FLAGSHIP_CFG), "--batch_size", "2", "--workers", "2",
+                "--epochs", "2", "--steps", "2", "--launcher", "pytorch", "--output_dir",
+                str(out), *extra, "--set", "MODEL.ROI_HEAD.APPROX_QUERY", "False",
+                "DATA_CONFIG.DATA_PATH", str(root)]
+
+    resumed, straight = Path(tmp) / "dp_resumed", Path(tmp) / "dp_straight"
+    nccl = Path(tmp) / "dp_nccl"
+    # the straight run goes beside the cut run, the NCCL rank beside the
+    # resumed run: each pair shares the card, each run its own group
+    side = {"train_cli_cut": (torchrun_argv(DP_WORLD, "tools/train_torch.py",
+                                            *argv(straight, "--dist_backend", "gloo",
+                                                  "--num_epochs_to_eval", "0")),
+                              dict(os.environ)),
+            "train_cli": (torchrun_argv(1, "tools/train_torch.py",
+                                        *argv(nccl, "--dist_backend", "nccl", "--epochs", "1",
+                                              "--num_epochs_to_eval", "0")),
+                          dict(os.environ))}
+    runs, nccl_out = {}, None
+    for task, extra in (("train_cli_cut", ("--num_epochs_to_eval", "0")),
+                        ("train_cli", ("--num_epochs_to_eval", "1"))):
+        io = Path(tmp) / f"io_{task}"
+        io.mkdir()
+        outs = run_group([(torchrun_argv(DP_WORLD, SELF[1], "--dp-worker", task, io,
+                                         *argv(resumed, "--dist_backend", "gloo", *extra)),
+                           dict(os.environ)), side[task]], f"torchrun {task} and its side run")
+        runs[task] = _read_ranks(str(io))
+        if task == "train_cli_cut":
+            assert checkpoint.CheckpointManager(resumed / "ckpt").all_steps() == [2]
+        else:
+            nccl_out = outs[1]
+    for task, want_steps in (("train_cli_cut", [0, 1]), ("train_cli", [2, 3])):
+        for r, rec in enumerate(runs[task]):
+            assert [s for s, _, _ in rec["steps"]] == want_steps, (task, r, rec["steps"])
+            for s, launches, loss in rec["steps"]:
+                assert launches == TRAIN_LAUNCHES and math.isfinite(loss), (task, r, s, launches)
+    cut, res = runs["train_cli_cut"], runs["train_cli"]
+    assert all(c["stopped"] and c["steps_run"] == 2 for c in cut), cut
+    assert all(c["start_step"] == 2 and c["steps_run"] == 2 for c in res), res
+    # the logged losses are the global batch's: the same on both ranks
+    assert cut[0]["steps"] == cut[1]["steps"] and res[0]["steps"] == res[1]["steps"]
+    (step, result), = res[0]["eval"]
+    assert step == 4 and res[1]["eval"][0][0] == 4
+    ap = {k: float(v) for k, v in result.items() if k.startswith("Car_")}
+    ap1 = {k: float(v) for k, v in res[1]["eval"][0][1].items() if k.startswith("Car_")}
+    assert len(ap) >= 18 and ap == ap1 and all(math.isfinite(v) for v in ap.values()), ap
+    for r, rec in enumerate(res):
+        assert rec["launches_after"] == EVAL_LAUNCHES, (r, rec["launches_after"])
+    text = "".join(p.read_text() for p in resumed.glob("train_*.log"))
+    saves = {s: text.count(f"saved checkpoint at step {s}") for s in (2, 4)}
+    assert saves == {2: 1, 4: 1}, saves
+    assert "eval: 4 frames over 2 rank(s)" in text and "auto-resumed from step 2" in text
+    log(f"[{card}] data-parallel train CLI under torchrun (2 ranks, gloo, cuda:0): cut after "
+        f"step 2, resumed at step 2 for 2 steps on both ranks; every step's launches "
+        f"TRAIN_LAUNCHES on each rank; losses (step, rank 0) "
+        f"{[(s, round(l, 5)) for s, _, l in cut[0]['steps'] + res[0]['steps']]}; checkpoints "
+        f"written once a save {saves}; trailing eval of step 4 over both ranks (4 frames, one "
+        f"forward a rank, launches EVAL_LAUNCHES a rank): {len(ap)} finite AP keys, equal on "
+        f"both ranks")
+
+    a = checkpoint.load_file(checkpoint.CheckpointManager(resumed / "ckpt").path(4))
+    b = checkpoint.load_file(checkpoint.CheckpointManager(straight / "ckpt").path(4))
+    diffs = {}
+    for part in ("model_state", "optimizer_state"):
+        flat_a, flat_b = flatten_tensors(a[part]), flatten_tensors(b[part])
+        assert flat_a.keys() == flat_b.keys(), part
+        diffs[part] = {"tensors": len(flat_a),
+                       "elements_differ": sum(int((flat_a[k] != flat_b[k]).sum())
+                                              for k in flat_a)}
+    log(f"[{card}] data-parallel train CLI, resumed (2 + 2 steps) against straight (4 steps), "
+        f"step-4 checkpoints: " + json.dumps(diffs))
+    assert all(d["elements_differ"] == 0 for d in diffs.values()), diffs
+
+    text = "".join(p.read_text() for p in nccl.glob("train_*.log"))
+    assert "data parallel: 1 ranks over pytorch" in text and "epoch 0 it 1/2" in text, \
+        nccl_out[-3000:]
+    assert checkpoint.CheckpointManager(nccl / "ckpt").all_steps() == [2]
+    log(f"[{card}] train CLI under torchrun, one rank over NCCL: 2 steps, checkpoint at step 2")
+    log(f"[{card}] seventh path, train CLI under torchrun: {time.perf_counter() - t0:.1f} s")
+
+
+def dp_eval_cli(card: str, root, pth, tmp, annos, result):
+    """Seventh path, part 4: `tools/test_torch.py --launcher pytorch` with
+    2 ranks on cuda:0 over the fourth path's tree (2 frames a rank, as the
+    fourth path's one process): the merged det_annos, in frame order,
+    equal to the one-process run's bit for bit, the AP equal, each rank's
+    launches EVAL_LAUNCHES per forward."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from btcdet_tpu_torch import config
+
+    t0 = time.perf_counter()
+    io = Path(tmp) / "io_eval"
+    io.mkdir()
+    run_group([(torchrun_argv(DP_WORLD, SELF[1], "--dp-worker", "eval_cli", io,
+                              "--cfg_file", config.FLAGSHIP_CFG, "--ckpt", pth, "--batch_size",
+                              "2", "--workers", "2", "--launcher", "pytorch", "--dist_backend",
+                              "gloo", "--output_dir", Path(tmp) / "dp_eval", "--set",
+                              "MODEL.ROI_HEAD.APPROX_QUERY", "False", "DATA_CONFIG.DATA_PATH",
+                              root), dict(os.environ))], "torchrun eval CLI")
+    forwards = len(annos) // (2 * DP_WORLD)
+    ap = {k: float(v) for k, v in result.items() if k.startswith("Car_")}
+    for r, rec in enumerate(_read_ranks(str(io))):
+        assert rec["launches_after"] == {k: v * forwards for k, v in EVAL_LAUNCHES.items()}, (
+            r, rec["launches_after"])
+        assert [a["frame_id"] for a in rec["annos"]] == [a["frame_id"] for a in annos], r
+        for got, want in zip(rec["annos"], annos):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert np.array_equal(got[k], want[k]), (r, want["frame_id"], k)
+        assert {k: float(v) for k, v in rec["result"].items()} == ap, r
+    log(f"[{card}] data-parallel eval CLI under torchrun (2 ranks, gloo, cuda:0, 2 frames a "
+        f"rank): the merged det_annos of {len(annos)} frames equal the one-process run's bit "
+        f"for bit, in frame order, the {len(ap)} AP keys equal; {forwards} forwards a rank, "
+        f"launches EVAL_LAUNCHES each; {time.perf_counter() - t0:.1f} s")
+
+
+def dp_worker(args: list) -> int:
+    """`chip_smoke.py --dp-worker <task> <io dir> [CLI arguments]`: one
+    rank of the seventh path."""
+    sys.path.insert(0, REPO)
+    task, io, rest = args[0], args[1], args[2:]
+    if task == "step":
+        dp_step_worker(io)
+    else:
+        dp_cli_worker(task, io, rest)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 3 and sys.argv[1] == "--dp-worker":
+        return dp_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2027,7 +2612,8 @@ def main() -> int:
     # 5c. third path: the det backbone's occ-code variants
     kernels += occ_variant_paths()
 
-    # 5d. fourth path: the evaluation entry point on a KITTI tree
+    # 5d. fourth path: the evaluation entry point on a KITTI tree (and the
+    # seventh path's eval CLI under torchrun)
     eval_cli_phase(card)
 
     # 6. small-input checks
@@ -2042,8 +2628,12 @@ def main() -> int:
     small_train_check()
     variant_train_phase()
 
-    # 8. sixth path: the training entry point on a KITTI tree
+    # 8. sixth path: the training entry point on a KITTI tree (and the
+    # seventh path's train CLI under torchrun)
     train_cli_phase(card)
+
+    # 8b. seventh path: the data-parallel train step, 2 ranks on the card
+    dp_step_phase(card)
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

@@ -7,7 +7,8 @@ finite AP keys; two epochs straight equal one epoch, a cut and an
 auto-resumed epoch, bit for bit in weights, BN statistics and optimizer
 state; `--pre_occ` with the occ LR at 0 leaves the occ parameters as
 loaded; without a card and without `--device cpu` it fails with
-`resolve_device`'s error; `--launcher slurm` is refused; and the first
+`resolve_device`'s error; a `--launcher` without its launcher's
+environment is refused; and the first
 train step's loss terms on the port's training batch match the JAX
 package's `make_train_step` on the JAX package's batch of the same frames,
 with bridged weights (tests/test_torch_train.py's harness), to 1e-3."""
@@ -219,9 +220,15 @@ def test_cli_without_a_card_fails_with_resolve_devices_error(micro_train, tmp_pa
 
 
 @pytest.mark.parametrize("launcher", ["slurm", "pytorch"])
-def test_launchers_other_than_none_are_refused(micro_train, tmp_path, launcher):
+def test_launchers_other_than_none_are_refused(micro_train, tmp_path, launcher, monkeypatch):
+    """Without its launcher's environment (srun's SLURM_* or torchrun's
+    RANK / WORLD_SIZE / ...) a --launcher run is refused, naming what is
+    missing (tests/test_torch_dist.py runs them under their launchers)."""
     _, cfg_file = micro_train
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    for k in [k for k in os.environ if k.startswith("SLURM_")] + [
+            "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"]:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match=f"--launcher {launcher} reads .* missing: "):
         run(cfg_file, tmp_path, "--launcher", launcher)
 
 

@@ -10,8 +10,14 @@ CUDA card unless `--device cpu` is passed; there is no silent CPU fallback.
         --ckpt <checkpoint .pth, the port's or the reference BtcDet's> --batch_size 2 \\
         --set MODEL.ROI_HEAD.APPROX_QUERY False DATA_CONFIG.DATA_PATH <kitti_root>
 
+    python -m torch.distributed.run --nproc_per_node 8 tools/test_torch.py \\
+        --launcher pytorch --cfg_file ... --ckpt ...   # data parallel, one process a GPU
+
 The port has the exact ball query only, so configs that leave
-ROI_HEAD.APPROX_QUERY unset (the flagship yaml) must set it False.
+ROI_HEAD.APPROX_QUERY unset (the flagship yaml) must set it False. With a
+--launcher each rank evaluates its shard of the split (`--batch_size`
+frames a process) and the results are merged in frame order; rank 0
+logs and writes the files.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from btcdet_tpu_torch import parallel  # noqa: E402
 from btcdet_tpu_torch.config import EasyDict, cfg_from_list, cfg_from_yaml_file  # noqa: E402
 from btcdet_tpu_torch.utils.common import create_logger, resolve_device  # noqa: E402
 
@@ -31,7 +38,7 @@ from btcdet_tpu_torch.utils.common import create_logger, resolve_device  # noqa:
 def parse_config(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cfg_file", type=str, required=True)
-    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=1, help="frames a process")
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--extra_tag", type=str, default="default")
     parser.add_argument("--ckpt", type=str, default=None,
@@ -43,6 +50,13 @@ def parse_config(argv=None):
     parser.add_argument("--vis_stride", type=int, default=0,
                         help="dump every Nth batch as a cloud .npy for "
                              "tools/visual_utils/visualize_pc.py (0 = off)")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
+                        help="data parallel over processes started by torchrun ('pytorch') "
+                             "or srun ('slurm'), one a GPU")
+    parser.add_argument("--tcp_port", type=int, default=18888,
+                        help="rendezvous port of --launcher slurm without MASTER_PORT")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="default nccl on CUDA, gloo on the CPU")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--output_dir", type=str, default=None,
                         help="default output/<cfg name>/<extra_tag>/eval")
@@ -56,14 +70,12 @@ def parse_config(argv=None):
 
 
 def build_eval(args, cfg, logger, device):
-    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
-    from btcdet_tpu_torch.datasets.loader import make_loader
+    from btcdet_tpu_torch.datasets import build_dataloader
     from btcdet_tpu_torch.models import build_network
 
-    dataset = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
-                           root_path=cfg.DATA_CONFIG.DATA_PATH, logger=logger)
-    dl = make_loader(dataset, args.batch_size, shuffle=False, num_workers=args.workers,
-                     collate_fn=dataset.collate_batch)
+    dataset, dl, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, args.batch_size,
+                                      dist=parallel.data_parallel_group() is not None,
+                                      workers=args.workers, logger=logger, training=False)
     net = build_network(cfg.MODEL, cfg.DATA_CONFIG, cfg.CLASS_NAMES, device=device)
     return net, dl, dataset
 
@@ -126,15 +138,28 @@ class BestMapTracker:
 def main(argv=None, on_batch=None) -> list:
     """Run the CLI; returns [(step, result_str, result_dict, det_annos)] of
     every checkpoint evaluated. `on_batch(batch_idx, batch, outputs)` is
-    handed to the eval loop."""
+    handed to the eval loop. With a --launcher the process joins its
+    data-parallel group first and leaves it at the end."""
     args, cfg = parse_config(argv)
-    device = resolve_device(args.device)
+    local_rank = None
+    if args.launcher != "none":
+        backend = args.dist_backend or ("gloo" if args.device == "cpu" else "nccl")
+        local_rank = parallel.init_dist(args.launcher, backend, args.tcp_port)
+    try:
+        return _main(args, cfg, local_rank, on_batch)
+    finally:
+        parallel.destroy()
+
+
+def _main(args, cfg, local_rank, on_batch) -> list:
+    device = resolve_device(args.device, local_rank)
+    rank = parallel.get_dist_info()[0]
     from btcdet_tpu_torch.train import checkpoint as ckpt_mod
 
     output_dir = Path(args.output_dir or Path("output") / cfg.TAG / args.extra_tag / "eval")
     output_dir.mkdir(parents=True, exist_ok=True)
     stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-    logger = create_logger(output_dir / f"eval_{stamp}.log")
+    logger = create_logger(output_dir / f"eval_{stamp}.log", rank=rank)
     logger.info(f"device {device}; config {args.cfg_file}; overrides {args.set_cfgs}")
     net, dl, dataset = build_eval(args, cfg, logger, device)
 
@@ -144,8 +169,9 @@ def main(argv=None, on_batch=None) -> list:
             step_dir.mkdir(parents=True, exist_ok=True)
         result_str, result_dict, det_annos = eval_ckpt(net, dl, dataset, cfg, args, step_dir,
                                                        logger, on_batch)
-        with open(output_dir / "eval_list_val.txt", "a") as f:
-            f.write(f"{step}\n")  # reference test.py:86-88 eval record
+        if rank == 0:
+            with open(output_dir / "eval_list_val.txt", "a") as f:
+                f.write(f"{step}\n")  # reference test.py:86-88 eval record
         return step, result_str, result_dict, det_annos
 
     if args.ckpt is not None:
@@ -159,10 +185,13 @@ def main(argv=None, on_batch=None) -> list:
     best = BestMapTracker(cfg.CLASS_NAMES)
     wait_start = time.time()
     while True:
-        steps = mgr.all_steps() if args.eval_all else [mgr.latest_step()]
+        # rank 0's reading of the directory, so that every rank evaluates the same
+        steps = parallel.broadcast_object(mgr.all_steps() if args.eval_all
+                                          else [mgr.latest_step()])
         todo = [s for s in steps if s is not None and s not in done]
         if not todo:
-            if not args.eval_all or time.time() - wait_start > args.max_waiting_mins * 60:
+            if not args.eval_all or parallel.broadcast_object(
+                    time.time() - wait_start > args.max_waiting_mins * 60):
                 break
             time.sleep(30)
             continue

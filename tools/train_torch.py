@@ -14,12 +14,21 @@ CPU fallback.
         --set MODEL.ROI_HEAD.APPROX_QUERY False DATA_CONFIG.DATA_PATH <kitti_root>
     python tools/train_torch.py --cfg_file ... --synthetic --epochs 1 --steps 5   # no data
     python tools/train_torch.py --cfg_file ... --pre_occ output/<cfg>/occ_run/ckpt  # staged
+    python -m torch.distributed.run --nproc_per_node 8 tools/train_torch.py \\
+        --launcher pytorch --cfg_file ...      # data parallel, one process a GPU
 
 The port has the exact ball query only, so configs that leave
 ROI_HEAD.APPROX_QUERY unset (the flagship yaml) must set it False. A
 step's random draws come from a generator seeded by (--seed, global
 step), each epoch's order and per-frame augmentation from (--seed,
 epoch), so a resumed run trains as an unbroken one would.
+
+Data parallel (`--launcher pytorch` under torchrun, or `slurm` under
+srun): `--batch_size` frames a process, each rank reading its shard of
+every epoch (`datasets.ShardSampler`); a step computes what one process
+computes on the global batch, and the ranks keep equal weights
+(`btcdet_tpu_torch.parallel`). Rank 0 logs, writes tensorboard and the
+checkpoints; the trailing evaluation is distributed too.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import yaml  # noqa: E402
 
+from btcdet_tpu_torch import parallel  # noqa: E402
 from btcdet_tpu_torch.config import EasyDict, cfg_from_list, cfg_from_yaml_file  # noqa: E402
 from btcdet_tpu_torch.utils.common import create_logger, resolve_device  # noqa: E402
 
@@ -44,7 +54,8 @@ from btcdet_tpu_torch.utils.common import create_logger, resolve_device  # noqa:
 def parse_config(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cfg_file", type=str, required=True)
-    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="frames a process (default OPTIMIZATION.BATCH_SIZE_PER_GPU)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--cache_items", action="store_true",
@@ -70,17 +81,18 @@ def parse_config(argv=None):
     parser.add_argument("--num_epochs_to_eval", type=int, default=30,
                         help="after training, evaluate this many newest checkpoints on the val "
                              "split (0 = off; off with --synthetic)")
-    parser.add_argument("--launcher", type=str, default="none",
-                        help="only 'none': multi-GPU training is not ported yet")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
+                        help="data parallel over processes started by torchrun ('pytorch') "
+                             "or srun ('slurm'), one a GPU")
+    parser.add_argument("--tcp_port", type=int, default=18888,
+                        help="rendezvous port of --launcher slurm without MASTER_PORT")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="default nccl on CUDA, gloo on the CPU")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--output_dir", type=str, default=None,
                         help="default output/<cfg name>/<extra_tag>")
     parser.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-GPU training is not ported yet (ROADMAP, "
-            "Queue 1 item 5); run with --launcher none on one card")
     cfg = cfg_from_yaml_file(args.cfg_file, EasyDict())
     cfg.TAG = Path(args.cfg_file).stem
     if args.set_cfgs is not None:
@@ -90,35 +102,36 @@ def parse_config(argv=None):
 
 def make_dataloader(args, cfg, logger, device):
     """(loader(epoch) -> iterator of numpy batches, steps per epoch,
-    dataset or None)."""
+    dataset or None). In a data-parallel run each rank reads its
+    `ShardSampler` shard (synthetic batches: its frames of the global
+    batch)."""
     bs = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    rank, world = parallel.get_dist_info()
     if args.synthetic:
         from btcdet_tpu_torch.datasets import make_synthetic_batch_np
+        from btcdet_tpu_torch.train.trainer import split_batch
 
         steps = args.steps or 10
 
         def synthetic(epoch):
             for i in range(steps):
-                yield make_synthetic_batch_np(cfg.DATA_CONFIG, batch_size=bs, num_points=16384,
-                                              num_gt=10, seed=epoch * 10000 + i, mode="train")
+                b = make_synthetic_batch_np(cfg.DATA_CONFIG, batch_size=bs * world,
+                                            num_points=16384, num_gt=10,
+                                            seed=epoch * 10000 + i, mode="train")
+                yield b if world == 1 else split_batch(b, rank, world)
 
         return synthetic, steps, None
 
-    from btcdet_tpu_torch.datasets import set_epoch
-    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
-    from btcdet_tpu_torch.datasets.loader import CachedDataset, make_loader
+    from btcdet_tpu_torch.datasets import build_dataloader, set_epoch
 
-    dataset = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True,
-                           root_path=cfg.DATA_CONFIG.DATA_PATH, logger=logger)
-    ds_for_loader = dataset
+    # the cache is sound only with the stochastic augmentation disabled
+    dataset, dl, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, dist=True,
+                                      workers=0 if args.cache_items else args.workers,
+                                      logger=logger, training=True, seed=args.seed,
+                                      cache_items=args.cache_items)
     if args.cache_items:
-        # sound only with the stochastic augmentation disabled
-        ds_for_loader = CachedDataset(dataset)
         logger.info("item cache on (deterministic __getitem__ assumed)")
-    dl = make_loader(ds_for_loader, bs, shuffle=True,
-                     num_workers=0 if args.cache_items else args.workers,
-                     collate_fn=dataset.collate_batch, drop_last=True, seed=args.seed)
-    steps = args.steps or len(dl)
+    steps = min(args.steps, len(dl)) if args.steps else len(dl)
 
     def loader(epoch):
         set_epoch(dataset, dl, epoch)
@@ -162,9 +175,23 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
     steps_per_epoch, start_step, steps_run, history [(global step, metrics
     floats) of the logged steps], time_ms (the loop's wall ms: waiting on
     the loader, the steps, the host's work between them), profile
-    (profiler, wall ms) or None, eval [(step, result dict)], stopped}."""
+    (profiler, wall ms) or None, eval [(step, result dict)], stopped}.
+    With a --launcher the process joins its data-parallel group first and
+    leaves it at the end."""
     args, cfg = parse_config(argv)
-    device = resolve_device(args.device)
+    local_rank = None
+    if args.launcher != "none":
+        backend = args.dist_backend or ("gloo" if args.device == "cpu" else "nccl")
+        local_rank = parallel.init_dist(args.launcher, backend, args.tcp_port)
+    try:
+        return _main(args, cfg, local_rank, on_step, on_epoch_end)
+    finally:
+        parallel.destroy()
+
+
+def _main(args, cfg, local_rank, on_step, on_epoch_end) -> dict:
+    device = resolve_device(args.device, local_rank)
+    rank, world = parallel.get_dist_info()
     from btcdet_tpu_torch.datasets.kitti.kitti_dataset import to_device
     from btcdet_tpu_torch.models import build_network
     from btcdet_tpu_torch.train import checkpoint as ckpt_mod
@@ -173,19 +200,23 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
     output_dir = Path(args.output_dir or Path("output") / cfg.TAG / args.extra_tag)
     output_dir.mkdir(parents=True, exist_ok=True)
     stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-    logger = create_logger(output_dir / f"train_{stamp}.log")
+    logger = create_logger(output_dir / f"train_{stamp}.log", rank=rank)
     logger.info(f"device {device}; config {args.cfg_file}; overrides {args.set_cfgs}")
-    shutil.copy(args.cfg_file, output_dir / Path(args.cfg_file).name)
-    # the config as run (yaml, its base config and --set merged)
-    (output_dir / f"{cfg.TAG}_merged.yaml").write_text(yaml.safe_dump(_plain(cfg),
-                                                                      sort_keys=False))
+    if args.launcher != "none":
+        logger.info(f"data parallel: {world} ranks over {args.launcher}, "
+                    f"{args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU} frames a rank")
     tb = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if rank == 0:
+        shutil.copy(args.cfg_file, output_dir / Path(args.cfg_file).name)
+        # the config as run (yaml, its base config and --set merged)
+        (output_dir / f"{cfg.TAG}_merged.yaml").write_text(yaml.safe_dump(_plain(cfg),
+                                                                          sort_keys=False))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb = SummaryWriter(str(output_dir / "tensorboard"))
-    except ImportError:
-        logger.info("tensorboard unavailable; scalar logging to the log only")
+            tb = SummaryWriter(str(output_dir / "tensorboard"))
+        except ImportError:
+            logger.info("tensorboard unavailable; scalar logging to the log only")
 
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     loader, steps_per_epoch, _ = make_dataloader(args, cfg, logger, device)
@@ -205,6 +236,7 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
         n = ckpt_mod.load_partial(args.pre_det, net, want_occ=False)
         logger.info(f"loaded {n} det entries from {args.pre_det}")
     start_step = mgr.restore(net, opt) or 0
+    parallel.broadcast_state(net)   # every rank starts from rank 0's weights
     start_epoch = start_step // steps_per_epoch
     if start_step:
         logger.info(f"auto-resumed from step {start_step} (epoch {start_epoch})")
@@ -213,14 +245,14 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
         logger.info(f"frozen partitions (LR 0, no gradient): {frozen}")
 
     prof_lo = prof_hi = -1
-    if args.profile_steps:
+    if args.profile_steps and rank == 0:
         lo, _, hi = args.profile_steps.partition("-")
         prof_lo, prof_hi = int(lo), int(hi or int(lo) + 1)
     cloud_dir = output_dir / "cloud"
     # occ-debug views every STEP_STRIDE steps (reference
     # add_occ_template.visualize:290-422, gated by OCC_PNT_UPDATE.VIS)
     vis_cfg = cfg.MODEL.get("OCC", {}).get("OCC_PNT_UPDATE", {}).get("VIS", None)
-    occ_vis_every = int(vis_cfg.get("STEP_STRIDE", 1000)) if vis_cfg else 0
+    occ_vis_every = int(vis_cfg.get("STEP_STRIDE", 1000)) if vis_cfg and rank == 0 else 0
     if occ_vis_every:
         from btcdet_tpu_torch.models.detectors.btcnet import VIS_MASK_KEYS
         from btcdet_tpu_torch.models.occ import occ_targets
@@ -273,7 +305,7 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
             steps_run += 1
             if gstep + 1 == prof_hi and prof is not None:
                 prof_wall = stop_profiler(prof, t_prof, gstep + 1)
-            if args.vis_stride and i % args.vis_stride == 0:
+            if args.vis_stride and i % args.vis_stride == 0 and rank == 0:
                 dump_train_cloud(cloud_dir, epoch, i, batch)
             if keep is not None:
                 tb_imgs, pc = vis_utils.collect_occ_vis_clouds(
@@ -320,21 +352,20 @@ def main(argv=None, on_step=None, on_epoch_end=None) -> dict:
 def eval_with_train(args, cfg, net, mgr, output_dir, logger, tb) -> list:
     """The trailing evaluation of the newest `--num_epochs_to_eval`
     checkpoints on the val split (reference `train.py:202-222`, its
-    `repeat_eval_ckpt`); returns [(step, result dict)]."""
-    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
-    from btcdet_tpu_torch.datasets.loader import make_loader
+    `repeat_eval_ckpt`), over the ranks of a data-parallel run; returns
+    [(step, result dict)]."""
+    from btcdet_tpu_torch.datasets import build_dataloader
     from btcdet_tpu_torch.train import eval_utils
 
     eval_dir = output_dir / "eval" / "eval_with_train"
     eval_dir.mkdir(parents=True, exist_ok=True)
-    val_ds = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
-                          root_path=cfg.DATA_CONFIG.DATA_PATH, logger=logger)
     bs = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    vdl = make_loader(val_ds, bs, shuffle=False, num_workers=args.workers,
-                      collate_fn=val_ds.collate_batch)
+    val_ds, vdl, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs,
+                                      dist=parallel.data_parallel_group() is not None,
+                                      workers=args.workers, logger=logger, training=False)
     post = cfg.MODEL.POST_PROCESSING
     best, out = {}, []
-    for s in mgr.all_steps()[-args.num_epochs_to_eval:]:
+    for s in parallel.broadcast_object(mgr.all_steps()[-args.num_epochs_to_eval:]):
         mgr.restore(net, step=s)
         logger.info(f"eval_with_train: checkpoint step {s}")
         step_dir = eval_dir / f"step_{s}" / "val"
@@ -348,8 +379,9 @@ def eval_with_train(args, cfg, net, mgr, output_dir, logger, tb) -> list:
             if k.endswith("_R40") and v > best.get(k, -1):
                 best[k] = v
                 logger.info(f"new best {k}: {v:.4f} (step {s})")
-        with open(eval_dir / "eval_list_val.txt", "a") as f:
-            f.write(f"{s}\n")
+        if parallel.get_dist_info()[0] == 0:
+            with open(eval_dir / "eval_list_val.txt", "a") as f:
+                f.write(f"{s}\n")
         out.append((s, result))
     logger.info(f"eval_with_train best results: {best}")
     return out
