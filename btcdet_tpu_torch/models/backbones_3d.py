@@ -16,7 +16,9 @@ active-site mask is dilated alongside each regular / transpose conv,
 batch norm uses running statistics on active sites, inactive sites are
 re-zeroed after every block. Its convs run under cuDNN's deterministic
 algorithms, so the occupancy probabilities (and the top-K that reads them)
-are the same from run to run on the card.
+are the same from run to run on the card. `VoxelBackBoneDeconvRes` and
+`VoxelBackBoneInverseRes` (BACKBONE_3D.NAME of MODEL.OCC) add residual
+blocks and the decoder's lateral skips on the same dense blocks.
 
 Submodule names follow the reference state dict (`conv1.0.weight`,
 `conv2_combine.1.1.running_var`, `deconv4.0.0.weight`); conv weights keep
@@ -335,13 +337,110 @@ class VoxelBackBoneDeconv(nn.Module):
         for stage in (self.conv1, self.conv2, self.conv3, self.deconv4, self.deconv5):
             for b in stage:
                 x, mask = b(x, mask)
-        # stride-2 down / up does not invert every grid size: crop, then
-        # zero-pad back to the input grid
-        x = x[:, :, :tgt[0], :tgt[1], :tgt[2]]
-        mask = mask[:, :tgt[0], :tgt[1], :tgt[2]]
-        d, h, w = mask.shape[1:]
-        out = x.new_zeros((*x.shape[:2], *tgt))
-        out[:, :, :d, :h, :w] = x
-        out_mask = mask.new_zeros((mask.shape[0], *tgt))
-        out_mask[:, :d, :h, :w] = mask
-        return out, out_mask
+        # stride-2 down / up does not invert every grid size
+        return crop_pad_to(x, mask, tgt)
+
+
+def crop_pad_to(x, mask, tgt):
+    """Crop, then zero-pad, a (B, C, D, H, W) volume and its (B, D, H, W)
+    mask to the spatial shape `tgt`."""
+    x = x[:, :, :tgt[0], :tgt[1], :tgt[2]]
+    mask = mask[:, :tgt[0], :tgt[1], :tgt[2]]
+    d, h, w = mask.shape[1:]
+    out = x.new_zeros((*x.shape[:2], *tgt))
+    out[:, :, :d, :h, :w] = x
+    out_mask = mask.new_zeros((mask.shape[0], *tgt))
+    out_mask[:, :d, :h, :w] = mask
+    return out, out_mask
+
+
+class DenseResBlock(nn.Module):
+    """Two submanifold blocks (`conv1`, `conv2`) and the identity skip,
+    re-zeroed off the mask (reference `SparseBasicBlock`,
+    `spconv_backbone.py:25-88`, densely; the JAX package's
+    `_DenseResBlock`)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = DenseSparseBlock(channels, channels, submanifold=True)
+        self.conv2 = DenseSparseBlock(channels, channels, submanifold=True)
+
+    def forward(self, x, mask):
+        h, _ = self.conv1(x, mask)
+        h, _ = self.conv2(h, mask)
+        return torch.where(mask[:, None], h + x, torch.zeros((), dtype=h.dtype,
+                                                             device=h.device)), mask
+
+
+class VoxelBackBoneDeconvRes(nn.Module):
+    """Residual occupancy backbone (reference `VoxelBackBoneDeconvRes`,
+    `spconv_backbone.py:226-381`; the JAX package's): a residual block
+    after each encoder conv and each decoder deconv, and lateral skips on
+    the decoder: the deconv's output (cropped / padded to the encoder
+    level's grid) plus the level's features (level 1 through the 1x1 conv
+    `lat1`, from `channels[0]` to `channels[1]`) on the union of both
+    masks, the reference's coordinate-union `combine`. `inverse` is
+    `VoxelBackBoneInverseRes`: each deconv (`inv4`, `inv5`) restores the
+    encoder level's active set exactly (SparseInverseConv3d), so the sum
+    and every block after it keep that level's mask. Same interface as
+    `VoxelBackBoneDeconv`."""
+
+    inverse = False
+
+    def __init__(self, input_channels: int, channels=(16, 32, 64)):
+        super().__init__()
+        c0, c1, c2 = channels
+        blk = DenseSparseBlock
+        up = ("inv4", "inv5") if self.inverse else ("deconv4", "deconv5")
+        self.up_names = up
+        self.conv1 = _seq(blk(input_channels, c0))
+        self.res1 = DenseResBlock(c0)
+        self.conv2 = _seq(blk(c0, c1, stride=2))
+        self.res2 = DenseResBlock(c1)
+        self.conv3 = _seq(blk(c1, c2, stride=2))
+        self.res3 = DenseResBlock(c2)
+        self.add_module(up[0], _seq(blk(c2, c1, stride=2, transpose=True)))
+        self.res4 = DenseResBlock(c1)
+        self.add_module(up[1], _seq(blk(c1, c1, stride=2, transpose=True)))
+        self.lat1 = nn.Module()
+        self.lat1.weight = nn.Parameter(torch.empty(1, 1, 1, c0, c1))
+        nn.init.normal_(self.lat1.weight, std=(1.0 / c0) ** 0.5)
+        self.res5 = DenseResBlock(c1)
+
+    def forward(self, x, mask):
+        with deterministic_cudnn():
+            return self._forward(x, mask)
+
+    def _lateral(self, u, mu, skip, m):
+        """The decoder's lateral combine at one level: u cropped / padded
+        to the level's grid, plus the level's features, on the union of
+        the masks (on the level's own mask for the inverse backbone)."""
+        u, mu = crop_pad_to(u, mu, m.shape[1:])
+        keep = m if self.inverse else mu | m
+        return torch.where(keep[:, None], u + skip, torch.zeros((), dtype=u.dtype,
+                                                                device=u.device)), keep
+
+    def _forward(self, x, mask):
+        x1, m1 = self.res1(*self.conv1[0](x, mask))
+        x2, m2 = self.res2(*self.conv2[0](x1, m1))
+        x3, m3 = self.res3(*self.conv3[0](x2, m2))
+        u2, mu2 = self.res4(*self._lateral(*getattr(self, self.up_names[0])[0](x3, m3), x2, m2))
+        dt = activation_dtype()
+        lat1 = F.conv3d(x1.to(dt), self.lat1.weight.permute(4, 3, 0, 1, 2).to(dt))
+        u1, mu1 = self.res5(*self._lateral(*getattr(self, self.up_names[1])[0](u2, mu2), lat1,
+                                           m1))
+        return crop_pad_to(u1, mu1, mask.shape[1:4])
+
+
+class VoxelBackBoneInverseRes(VoxelBackBoneDeconvRes):
+    """Inverse-conv occupancy backbone (reference `VoxelBackBoneInverseRes`,
+    `spconv_backbone.py:385-527`): `VoxelBackBoneDeconvRes` with the
+    decoder masked to the encoder levels' active sets."""
+
+    inverse = True
+
+
+# the occupancy backbones by BACKBONE_3D.NAME
+OCC_BACKBONES = {"VoxelBackBoneDeconv": VoxelBackBoneDeconv,
+                 "VoxelBackBoneDeconvRes": VoxelBackBoneDeconvRes,
+                 "VoxelBackBoneInverseRes": VoxelBackBoneInverseRes}

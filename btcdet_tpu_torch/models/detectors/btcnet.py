@@ -233,7 +233,7 @@ class BtcNet(nn.Module):
                 batch["points"].device) <= self.useocc_percentage))
         if self.use_occ:
             with stage("occ_subnet", self.stage_ms):
-                occ_out = self.occ_modules(batch)
+                occ_out = self.occ_modules(batch, generator)
             occ_pts, occ_mask = occ_out["occ_points"], occ_out["occ_points_mask"]
             out["occ_probs"] = occ_out["probs"]
             out["occ_points"], out["occ_points_mask"] = occ_pts, occ_mask

@@ -15,6 +15,11 @@ sensor frame):
   fore/mirr   point-in-gt-box membership; points mirrored across each
               box's local y axis
   bm          best-match points inside the gt boxes
+  drop        the cells of the occ voxel rows that train-time dropout
+              zeroed (OCC.DROPOUT_RATE), and the fore cells among them
+
+OccTargetsPillar dilates vcc over the BEV footprint instead, and
+OCC.REVERSE_VIS changes what `occlusion_mask` counts as occluded.
 
 At train `make_targets` adds the loss maps: the per-voxel residual
 targets (`scatter_mean_res` of the fore / mirror / bm points, minus the
@@ -245,24 +250,33 @@ def points_to_grid_coords(occ_pts, tab: GridTables):
     return torch.minimum(cell.clamp(min=0), tab.occ_hi), inr
 
 
-def world_to_occ_coords(points_xyz, rot_z_deg, spec: OccGridSpec):
-    """World-frame cartesian points -> sensor-frame occ coords (cylinder /
-    sphere: azimuth + rot_z degrees, per point)."""
-    if spec.coord_type == "cartesian":
-        raise NotImplementedError("cartesian occ grids")
-    oc = coords.cartesian_to_occ(points_xyz, spec.coord_type)
+def world_to_occ_coords(points_xyz, rot_z_deg, coord_type: str):
+    """World-frame cartesian points (N, 3) -> sensor-frame occ coords, rot_z
+    in degrees per point (N,): a cartesian grid rotates each point by -rot_z
+    about z, a cylinder / sphere grid adds rot_z to the azimuth."""
+    if coord_type == "cartesian":
+        return common.rotate_points_along_z(points_xyz[:, None, :],
+                                            -rot_z_deg * (np.pi / 180.0))[:, 0]
+    oc = coords.cartesian_to_occ(points_xyz, coord_type)
     return torch.cat([oc[:, :1], oc[:, 1:2] + rot_z_deg[:, None], oc[:, 2:]], dim=1)
 
 
 def occlusion_mask(tab: GridTables, points_xyz, points_valid, points_b, rot_z,
                    batch_size: int):
     """Sphere-support-grid occlusion (reference `occ_from_cylin_ocp` /
-    `occ_from_sphere_ocp`, default branch, with the EMPT_SUR_THRESH
-    empty-beam rule). points_xyz (N, 3) world-frame cartesian. Returns
-    bool (B, nz, ny, nx)."""
+    `occ_from_sphere_ocp`) along the range axis of each beam:
+
+      default     at or behind the first return, with the EMPT_SUR_THRESH
+                  empty-beam rule;
+      BACK_TRACK  beyond the last return, or at or behind the first;
+      VCC         everything but the cells in front of a return (the
+                  (DIST_KERN x + 1) // 2 cells before it, range index
+                  clamped at 0), returns included.
+
+    The two REVERSE_VIS modes skip the empty-beam rule, as the reference
+    does. points_xyz (N, 3) world-frame cartesian. Returns bool
+    (B, nz, ny, nx)."""
     spec = tab.spec
-    if spec.reverse_vis != "NOTHING":
-        raise NotImplementedError(f"OCC.REVERSE_VIS {spec.reverse_vis}")
     dev = points_xyz.device
     snx, sny, snz = spec.sphere_grid_size
     sr = tab.sphere_range
@@ -280,7 +294,7 @@ def occlusion_mask(tab: GridTables, points_xyz, points_valid, points_b, rot_z,
     smask[idx] = 1.0
     smask = smask[:-1].reshape(batch_size, snz, sny, snx)
 
-    if spec.empt_sur_thresh < 9:
+    if spec.empt_sur_thresh < 9 and spec.reverse_vis not in ("VCC", "BACK_TRACK"):
         # an empty beam with more than `thresh` occupied beams in its 3x3
         # (elevation, azimuth) neighbourhood counts as occupied at range 0
         # (reference `get_empty_mask:186`); the range-0 cell is overwritten
@@ -290,7 +304,19 @@ def occlusion_mask(tab: GridTables, points_xyz, points_valid, points_b, rot_z,
         empty_occ = (counts2d == 0) & (neigh > spec.empt_sur_thresh)
         smask[:, :, :, 0] = empty_occ.float()
 
-    occluded_sphere = torch.cumsum(smask, dim=3) > 0.9
+    # the returns are 0 / 1, so every sum below is an exact small integer
+    ahead = torch.cumsum(smask, dim=3)                   # returns at range <= i
+    if spec.reverse_vis == "BACK_TRACK":
+        behind = smask.flip(3).cumsum(3).flip(3)         # returns at range >= i
+        occluded_sphere = (behind < 0.9) | (ahead > 0.9)
+    elif spec.reverse_vis == "VCC":
+        h = (spec.dist_kern[2] + 1) // 2
+        vis = smask[..., :1] * (torch.arange(snx, device=dev) == 0)
+        for d in range(1, h + 1):                        # a return d cells further on
+            vis = vis + F.pad(smask[..., d:], (0, min(d, snx)))
+        occluded_sphere = (vis < 0.5) | (smask > 0.5)
+    else:
+        occluded_sphere = ahead > 0.9
     if spec.coord_type == "sphere":
         return occluded_sphere
 
@@ -363,11 +389,17 @@ def points_in_gt_blocked(points_xyz, valid, gt_boxes, gt_valid, batch_size: int)
 
 
 def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bool = False,
-                 weights=None, box_weight: float = 1.0):
-    """The occ subnet's targets (JAX `OccSubnet._make_targets`, no voxel
-    dropout). occ_pnts (N, P, 3+) world-frame cartesian voxel points,
-    slot_mask (N, P), vcoords (N, 4). At train, `weights` are the
-    OCC_DENSE_HEAD loss weights and `box_weight` DATA_CONFIG.OCC.BOX_WEIGHT."""
+                 weights=None, box_weight: float = 1.0, pillar: bool = False,
+                 drop_rows=None):
+    """The occ subnet's targets (JAX `OccSubnet._make_targets`). occ_pnts
+    (N, P, 3+) world-frame cartesian voxel points, slot_mask (N, P),
+    vcoords (N, 4). At train, `weights` are the OCC_DENSE_HEAD loss weights
+    and `box_weight` DATA_CONFIG.OCC.BOX_WEIGHT. `pillar` (OccTargetsPillar)
+    dilates the predict area over the BEV footprint in (y, x) only and
+    applies it to the whole z column. `drop_rows` (N,) marks the occ voxel
+    rows that dropout zeroed: their cells make `voxel_drop_mask`, the fore
+    cells among them `fore_voxel_drop_mask`, which the train loss maps
+    weight up by `fore_dropout_cls_weight` / `fore_dropout_reg_weight`."""
     spec = tab.spec
     nx, ny, nz = spec.grid_size
     grid = (nx, ny, nz)
@@ -383,7 +415,12 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
     vcoords = vcoords.long()
 
     voxelwise = scatter_mask(vcoords, vcoords[:, 0] >= 0, B, grid)
-    vcc = dilate_predict_area(voxelwise, spec.dist_kern, spec.concede_x)
+    if pillar:
+        kz, ky, kx = spec.dist_kern
+        vcc = dilate_predict_area(voxelwise.any(dim=1, keepdim=True), (1, ky, kx),
+                                  spec.concede_x).expand_as(voxelwise)
+    else:
+        vcc = dilate_predict_area(voxelwise, spec.dist_kern, spec.concede_x)
 
     N, P, _ = occ_pnts.shape
     pts = occ_pnts[..., :3].reshape(N * P, 3)
@@ -401,7 +438,7 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
     cw = centers_world(tab, rot_z) if train else None
 
     mirr_cell, mirr_inr = points_to_grid_coords(
-        world_to_occ_coords(mirr_pts, rot_z[pb], spec), tab)
+        world_to_occ_coords(mirr_pts, rot_z[pb], spec.coord_type), tab)
     mirr_coords = torch.cat([pb[:, None], mirr_cell.flip(-1)], dim=1)
     mirr_ok = mirr_val & mirr_inr
     mirr_mask = scatter_mask(mirr_coords, mirr_ok, B, grid) & ~voxelwise
@@ -414,7 +451,7 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
         bmb = torch.arange(B, device=dev).repeat_interleave(Nbm)
         in_gt = points_in_gt_blocked(bmp, batch["bm_points_mask"].reshape(B * Nbm), gt_boxes,
                                      gt_valid, B)
-        bm_cell, bm_inr = points_to_grid_coords(world_to_occ_coords(bmp, rot_z[bmb], spec), tab)
+        bm_cell, bm_inr = points_to_grid_coords(world_to_occ_coords(bmp, rot_z[bmb], spec.coord_type), tab)
         bm_coords = torch.cat([bmb[:, None], bm_cell.flip(-1)], dim=1)
         bm_ok = in_gt & bm_inr
         excl = ~voxelwise & ~mirr_mask
@@ -439,6 +476,10 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
         "neg_mask": general_cls & ~pos,
         "general_cls_loss_mask": general_cls,
     }
+    fore_drop = None
+    if drop_rows is not None:
+        out["voxel_drop_mask"] = scatter_mask(vcoords, drop_rows, B, grid)
+        out["fore_voxel_drop_mask"] = fore_drop = fore_mask & out["voxel_drop_mask"]
     if not train:
         return out
 
@@ -446,6 +487,8 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
     neg = out["neg_mask"]
     cls_f = (fore_cls * w["occ_fore_cls_weight"] + mirr_cls * w["occ_mirr_cls_weight"]
              + bm_cls * w["occ_bm_cls_weight"] + neg * w["occ_neg_cls_weight"]).float()
+    if fore_drop is not None and w.get("fore_dropout_cls_weight", 0.0) > 1e-4:
+        cls_f = cls_f + (general_cls & fore_drop) * w["fore_dropout_cls_weight"]
     forebox = None
     if box_weight != 1.0:
         hit = box_utils.points_in_boxes_mask(cw.reshape(B, -1, 3), gt_boxes[..., :7])
@@ -455,6 +498,8 @@ def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bo
              + mirr_cls * w.get("occ_mirr_res_weight", 0.1)
              + bm_cls * w.get("occ_bm_res_weight", 0.1)).float()
     reg_m = reg_f > 0
+    if fore_drop is not None and w.get("fore_dropout_reg_weight", 0.0) > 1e-4:
+        reg_f = reg_f + (reg_m & fore_drop) * w["fore_dropout_reg_weight"]
     fore_res = scatter_mean_res(pts, pcoords, fore_p, cw, B, grid)
     mirr_res = scatter_mean_res(mirr_pts, mirr_coords, mirr_ok, cw, B, grid) \
         * (~voxelwise)[..., None]

@@ -1,5 +1,5 @@
-"""Sparse pooling forward: CUDA kernel K2 (`csrc/sparse_pool.cu`) in its max
-and sum modes, and their plain PyTorch versions (counterpart of
+"""Sparse pooling: CUDA kernel K2 (`csrc/sparse_pool.cu`) in its max and sum
+modes, their backward, and the plain PyTorch versions (counterpart of
 `btcdet_tpu/ops/pallas_conv.py::fused_pool(mode="max" / "sum")` and of
 their XLA twins `sparse.apply_rulebook_max` and the found-masked gather-sum).
 
@@ -16,11 +16,20 @@ that the trunk's strided conv built for the same input table, sites and
 geometry (`sparse.neighbor_map_cached`). The sum adds the taps one at a
 time in tap order, in the kernel and in the plain version alike.
 
-`sparse_pool` (max) and `sparse_sum_pool` (sum) take the plain version for
-CPU tensors only; a CUDA tensor launches the kernel or raises. K2 has no
-backward: its input, the occ code, is stop-gradient
-(OCC_PNT_UPDATE.PASS_GRAD False), so a CUDA input that requires a gradient
-is refused.
+The backward (the occ code carries a gradient under
+OCC_PNT_UPDATE.PASS_GRAD) is the VJP of the JAX package's XLA twins,
+`_pallas_pool_ad_bwd`: `sparse_pool_grad` gives each matched input the
+output's gradient where its value equals the output's max, split evenly
+over the tied taps; `sparse_sum_pool_grad` sums the gradient of every
+output that reads the input. Both gather over the transpose-query map of
+the same geometry (`cuda_conv.neighbor_map(..., transpose=True)`), in tap
+order, so kernel and plain version agree bit for bit.
+`sparse.SparsePoolFunction` wires them into autograd.
+
+Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises. A CUDA input of the forward wrappers that
+requires a gradient is refused: the gradient goes through
+`sparse.SparsePoolFunction`, never around it.
 """
 
 from __future__ import annotations
@@ -32,10 +41,12 @@ import torch
 from . import cuda_conv, kernel_build
 from .cuda_conv import INT32_MAX, check_map, neighbor_map_plain, triple
 
-# kernel launches made by the wrappers below, max and sum mode (CPU calls
-# take the plain versions and are not counted)
+# kernel launches made by the wrappers below, max and sum mode, forward and
+# backward (CPU calls take the plain versions and are not counted)
 launches = 0
 sum_launches = 0
+bwd_launches = 0
+sum_bwd_launches = 0
 
 
 def sparse_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_size, stride,
@@ -63,12 +74,43 @@ def sparse_sum_pool_plain(features, in_keys, out_coords, in_spatial_shape, kerne
     if nbr is None:
         nbr = neighbor_map_plain(in_keys, out_coords, in_spatial_shape, kernel_size, stride,
                                  padding)
+    return _sum_over_map(features, nbr)
+
+
+def _sum_over_map(features, nbr):
+    """out[m] = the sum of features[nbr[k, m]] over the taps k with a
+    match, added one tap at a time in tap order."""
     zero = torch.zeros((), dtype=features.dtype, device=features.device)
     out = torch.zeros((nbr.shape[1], features.shape[1]), dtype=features.dtype,
                       device=features.device)
     for k in range(nbr.shape[0]):
         out = out + torch.where(nbr[k, :, None] >= 0, features[nbr[k].clamp(min=0).long()], zero)
     return out
+
+
+def sparse_pool_grad_plain(features, out, g, nbr, tnbr):
+    """The plain PyTorch version of K2 max's backward: (N, C) f32 df, each
+    input row adding, in tap order over the transpose-query map `tnbr`
+    (K, N), g[m] / count[m] of every output row m that reads it where its
+    value equals out[m]; count[m, c] is the number of matched taps of row
+    m (forward map `nbr` (K, M)) whose value equals out[m, c]."""
+    found = nbr >= 0
+    tied = found[..., None] & (features[nbr.clamp(min=0).long()] == out[None])   # (K, M, C)
+    share = g / tied.sum(0).clamp(min=1).to(g.dtype)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    df = torch.zeros(features.shape, dtype=g.dtype, device=g.device)
+    for k in range(tnbr.shape[0]):
+        m = tnbr[k].clamp(min=0).long()
+        hit = (tnbr[k, :, None] >= 0) & (features == out[m])
+        df = df + torch.where(hit, share[m], zero)
+    return df
+
+
+def sparse_sum_pool_grad_plain(g, tnbr):
+    """The plain PyTorch version of K2 sum's backward: (N, C) df[i] = the
+    sum of g[tnbr[k, i]] over the taps with a match, in tap order (K2 sum's
+    forward with g as the table, over the transpose-query map)."""
+    return _sum_over_map(g, tnbr)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -91,8 +133,8 @@ def _launch(who, entry, features, in_keys, out_coords, in_spatial_shape, batch_s
     if features.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {features.device}")
     if features.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(f"{who}: K2 has no backward; its input must not "
-                                  "require a gradient")
+        raise ValueError(f"{who}: an input that requires a gradient goes through "
+                         "sparse.SparsePoolFunction")
     kz, ky, kx = triple(kernel_size)
     K = kz * ky * kx
     nz, ny, nx = (int(v) for v in in_spatial_shape)
@@ -159,3 +201,75 @@ def sparse_sum_pool(features, in_keys, out_coords, in_spatial_shape, batch_size,
         global sum_launches
         sum_launches += 1
     return out
+
+
+def _check_grad(who, tensors, nbr, tnbr):
+    """Raise unless the backward's float32 tensors and both maps sit on one
+    CUDA device with matching shapes; returns (N, M, C, K)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.dim() != 2 or t.device != dev:
+            raise TypeError(f"{who}: expected 2-D float32 tensors on {dev}, got {t.dtype} "
+                            f"{tuple(t.shape)} on {t.device}")
+    K, N = tnbr.shape
+    M, C = tensors[-1].shape
+    check_map(who, tnbr, K, N, dev)
+    if nbr is not None:
+        check_map(who, nbr, K, M, dev)
+    if K > 27 or any(t.shape[1] != C for t in tensors):
+        raise ValueError(f"{who}: bad shapes {[tuple(t.shape) for t in tensors]} for {K} taps")
+    return N, M, C, K
+
+
+def sparse_pool_grad(features, out, g, nbr, tnbr):
+    """(N, C) float32 df of K2 max: `sparse_pool_grad_plain`'s function.
+
+    features (N, C) and out (M, C), the forward's input and output, and g
+    (M, C), all float32; nbr the forward's (K, M) map; tnbr (K, N) the
+    transpose-query map of the same geometry (`cuda_conv.neighbor_map(out
+    keys, input coords, out shape, ..., transpose=True)`)."""
+    if features.device.type == "cpu":
+        return sparse_pool_grad_plain(features, out, g, nbr, tnbr)
+    N, M, C, K = _check_grad("sparse_pool_grad", (features, out, g), nbr, tnbr)
+    if features.shape[0] != N:
+        raise ValueError(f"sparse_pool_grad: features {tuple(features.shape)} for a map of "
+                         f"{N} input rows")
+    features, out, g = features.contiguous(), out.contiguous(), g.contiguous()
+    nbr, tnbr = nbr.contiguous(), tnbr.contiguous()
+    df = torch.empty((N, C), dtype=torch.float32, device=features.device)
+    if N == 0:
+        return df
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    fn = getattr(kernel_build.load("sparse_pool"), "sparse_maxpool_bwd")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
+                                                                     ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(features.data_ptr(), out.data_ptr(), g.data_ptr(), nbr.data_ptr(), tnbr.data_ptr(),
+             N, M, K, df.data_ptr(), C, stream)
+    if err != 0:
+        raise RuntimeError(f"sparse_pool_grad kernel launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return df
+
+
+def sparse_sum_pool_grad(g, tnbr):
+    """(N, C) float32 df of K2 sum: K2 sum's forward kernel with g (M, C)
+    float32 as the table, over the transpose-query map tnbr (K, N)."""
+    if g.device.type == "cpu":
+        return sparse_sum_pool_grad_plain(g, tnbr)
+    N, M, C, K = _check_grad("sparse_sum_pool_grad", (g,), None, tnbr)
+    g, tnbr = g.contiguous(), tnbr.contiguous()
+    df = torch.empty((N, C), dtype=torch.float32, device=g.device)
+    if N == 0:
+        return df
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = _fn("sparse_sumpool_fwd")(g.data_ptr(), tnbr.data_ptr(), N, K, df.data_ptr(), C, stream)
+    if err != 0:
+        raise RuntimeError(f"sparse_sum_pool_grad kernel launch failed: cudaError {err}")
+    global sum_bwd_launches
+    sum_bwd_launches += 1
+    return df

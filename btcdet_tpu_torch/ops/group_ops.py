@@ -88,11 +88,49 @@ def ball_query(xyz, xyz_mask, new_xyz, new_mask, radius, nsample: int, chunk: in
     return torch.cat(idx_out, dim=1), torch.cat(empty_out, dim=1)
 
 
+# fixed-point steps of `OrderedGather`'s backward: the largest gradient
+# element maps to 2^40, so a sum of up to 2^22 of them stays in int64
+_GRAD_STEPS = 2.0 ** 40
+
+
+class OrderedGather(torch.autograd.Function):
+    """`torch.gather(table, 1, idx)` of whole rows (table (B, N, C), idx
+    (B, R, C) with equal columns) whose backward adds the gradient of
+    each gathered row into its table row in int64 fixed point (steps of
+    2^-40 of the largest gradient element), exactly and so in any order:
+    a ball query hands one occ point to many balls, and the float
+    `scatter_add_` of gather's own backward adds them in atomic order on
+    the card, which differs from run to run (OCC_PNT_UPDATE.PASS_GRAD,
+    where the occ points carry a gradient)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[1]
+        return torch.gather(table, 1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, _, C = g.shape
+        scale = _GRAD_STEPS / g.abs().amax().double().clamp(min=1e-30)
+        fixed = torch.round(g.double() * scale).long()
+        acc = torch.zeros((B * ctx.rows, C), dtype=torch.long, device=g.device)
+        rows = (idx[..., 0] + torch.arange(B, device=g.device)[:, None] * ctx.rows).reshape(-1)
+        acc.index_add_(0, rows, fixed.reshape(-1, C))
+        return (acc.double() / scale).to(g.dtype).reshape(B, ctx.rows, C), None
+
+
 def _gather(table, idx):
-    """table (B, N, C), idx (B, M, k) -> (B, M, k, C)."""
+    """table (B, N, C), idx (B, M, k) -> (B, M, k, C); a table that needs a
+    gradient gathers through `OrderedGather`."""
     B, M, k = idx.shape
     flat = idx.reshape(B, M * k, 1).expand(B, M * k, table.shape[-1])
-    return torch.gather(table, 1, flat).reshape(B, M, k, table.shape[-1])
+    if table.requires_grad and torch.is_grad_enabled():
+        out = OrderedGather.apply(table, flat)
+    else:
+        out = torch.gather(table, 1, flat)
+    return out.reshape(B, M, k, table.shape[-1])
 
 
 def _offsets(grouped_xyz, new_xyz, empty, rotate_matrix, xy_scale, z_scale):

@@ -337,10 +337,69 @@ def neighbor_map_cached(cache: dict, in_st: SparseTensor, out_keys, out_coords, 
     return nbr
 
 
+def transpose_map_cached(cache: dict, out_keys, in_coords, out_shape, batch_size: int,
+                         kernel_size, stride, padding):
+    """The (K, N) transpose-query map (`cuda_conv.neighbor_map(...,
+    transpose=True)`) of a strided pairing: for each input site and tap,
+    the row of the output key table `out_keys` that reads it, or -1. Built
+    once per forward `cache` and (output table, input sites, geometry),
+    keyed by the tables' identity like `neighbor_map_cached`; a pool's
+    backward reads it."""
+    geo = (triple(kernel_size), triple(stride), triple(padding))
+    key = ("tnbr", id(out_keys), id(in_coords), geo)
+    hit = cache.get(key)
+    if hit is not None and hit[0] is out_keys and hit[1] is in_coords:
+        return hit[2]
+    tnbr = cuda_conv.neighbor_map(out_keys, in_coords, out_shape, batch_size, *geo,
+                                  transpose=True)
+    cache[key] = (out_keys, in_coords, tnbr)
+    return tnbr
+
+
+class SparsePoolFunction(torch.autograd.Function):
+    """K2 (`cuda_pool.sparse_pool` / `sparse_sum_pool`) with its backward
+    (`cuda_pool.sparse_pool_grad` / `sparse_sum_pool_grad`), the
+    counterpart of the JAX package's `_pallas_pool_ad`.
+
+    apply(features, mode, in_keys, in_coords, out_keys, out_coords, geo,
+    nbr, cache) with mode "max" or "sum", geo = (in_shape, out_shape,
+    batch_size, kernel, stride, padding), nbr the forward's (K, M) map and
+    `cache` the forward's cache, where the backward keeps the
+    transpose-query map (`transpose_map_cached`). features float32."""
+
+    @staticmethod
+    def forward(ctx, features, mode, in_keys, in_coords, out_keys, out_coords, geo, nbr, cache):
+        in_shape, _, batch, kernel, stride, padding = geo
+        fn = cuda_pool.sparse_pool if mode == "max" else cuda_pool.sparse_sum_pool
+        out = fn(features, in_keys, out_coords, in_shape, batch, kernel, stride, padding, nbr=nbr)
+        ctx.mode, ctx.geo, ctx.cache = mode, geo, cache
+        # the tables the transpose-query map is cached under, by identity
+        ctx.tables = (out_keys, in_coords)
+        if mode == "max":
+            ctx.save_for_backward(features, out, nbr)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        _, out_shape, batch, kernel, stride, padding = ctx.geo
+        tnbr = transpose_map_cached(ctx.cache, *ctx.tables, out_shape, batch, kernel, stride,
+                                    padding)
+        g = g.float().contiguous()
+        if ctx.mode == "max":
+            features, out, nbr = ctx.saved_tensors
+            df = cuda_pool.sparse_pool_grad(features, out, g, nbr, tnbr)
+        else:
+            df = cuda_pool.sparse_sum_pool_grad(g, tnbr)
+        return df, None, None, None, None, None, None, None, None
+
+
 class _SparsePool(nn.Module):
     """A strided sparse pool over the output sites that an earlier strided
     conv cached under the same `indice_key` (`shared_sites`); no
-    parameters, forward only (kernel K2 on CUDA tensors)."""
+    parameters (kernel K2 on CUDA tensors). An input that requires a
+    gradient goes through `SparsePoolFunction`."""
+
+    mode = ""
 
     def __init__(self, kernel_size, stride, padding, indice_key: str):
         super().__init__()
@@ -348,8 +407,8 @@ class _SparsePool(nn.Module):
                                                        triple(padding))
         self.indice_key = indice_key
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
-        raise NotImplementedError
+    def _scale(self, out):
+        return out
 
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
         keys, coords, nnz, out_shape, stride, padding = shared_sites(
@@ -357,10 +416,18 @@ class _SparsePool(nn.Module):
         # the map of the strided conv that made the sites, where it read the
         # same table with the same geometry; a map of its own otherwise
         nbr = neighbor_map_cached(cache, st, keys, coords, self.kernel_size, stride, padding)
-        out = self._pool(st.features.float(), st.keys, coords, st.spatial_shape, st.batch_size,
-                         stride, padding, nbr)
-        return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
-                            tuple(int(v) for v in out_shape), st.batch_size)
+        f = st.features.float()
+        geo = (st.spatial_shape, tuple(int(v) for v in out_shape), st.batch_size,
+               self.kernel_size, stride, padding)
+        if f.requires_grad and torch.is_grad_enabled():
+            out = SparsePoolFunction.apply(f, self.mode, st.keys, st.coords, keys, coords, geo,
+                                           nbr, cache)
+        else:
+            fn = cuda_pool.sparse_pool if self.mode == "max" else cuda_pool.sparse_sum_pool
+            out = fn(f, st.keys, coords, st.spatial_shape, st.batch_size, self.kernel_size,
+                     stride, padding, nbr=nbr)
+        return SparseTensor(self._scale(out).to(st.features.dtype), coords, keys, nnz,
+                            geo[1], st.batch_size)
 
 
 class SparseMaxPool3d(_SparsePool):
@@ -369,9 +436,7 @@ class SparseMaxPool3d(_SparsePool):
     (`cuda_pool.sparse_pool`). The flagship's occ_conv2 pools onto conv2's
     sites."""
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
-        return cuda_pool.sparse_pool(features, in_keys, out_coords, in_shape, batch_size,
-                                     self.kernel_size, stride, padding, nbr=nbr)
+    mode = "max"
 
 
 class FixedSparseConv3d(_SparsePool):
@@ -386,7 +451,7 @@ class FixedSparseConv3d(_SparsePool):
         super().__init__(kernel_size, stride, padding, indice_key)
         self.default_value = float(default_value)
 
-    def _pool(self, features, in_keys, out_coords, in_shape, batch_size, stride, padding, nbr):
-        return cuda_pool.sparse_sum_pool(features, in_keys, out_coords, in_shape, batch_size,
-                                         self.kernel_size, stride, padding,
-                                         nbr=nbr) * self.default_value
+    mode = "sum"
+
+    def _scale(self, out):
+        return out * self.default_value

@@ -16,7 +16,12 @@ from . import box_utils
 
 
 def binary_cross_entropy_with_logits(logits, targets):
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    # max(x, 0) as `torch.maximum`, whose gradient at x == 0 is 1/2, as that
+    # of the JAX package's `jnp.clip` (`clamp`'s is 1): the occ head's
+    # logits sit at exactly 0 off the occ backbone's active sites when the
+    # bias is 0
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    return torch.maximum(logits, zero) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
 def sigmoid_focal_loss(logits, targets, gamma: float = 2.0, alpha: float = 0.25):

@@ -33,10 +33,14 @@ _DET3D = {
     "occ_conv2": ("occ_conv2", 0), "occ_conv3": ("occ_conv3", 0), "occ_conv4": ("occ_conv4", 0),
 }
 _DET3D_KERNEL = {"conv_out": (3, 1, 1), "squeezeBev": (2, 1, 1)}
-# occ backbone: ours -> (reference block, sub-block); deconv*_0 are transpose convs
+# occ backbone: ours -> (reference block, sub-block); deconv*_0 and inv* are
+# transpose convs. The residual backbones' blocks (res1-5, each two blocks
+# conv1 / conv2) and their 1x1 lateral conv lat1 keep the JAX package's
+# names: the reference's sparse residual backbones have no lat1.
 _OCC3D = {"conv1": ("conv1", 0), "conv2_0": ("conv2", 0), "conv2_1": ("conv2", 1),
           "conv3_0": ("conv3", 0), "conv3_1": ("conv3", 1), "deconv4_0": ("deconv4", 0),
-          "deconv4_1": ("deconv4", 1), "deconv5_0": ("deconv5", 0), "deconv5_1": ("deconv5", 1)}
+          "deconv4_1": ("deconv4", 1), "deconv5_0": ("deconv5", 0), "deconv5_1": ("deconv5", 1),
+          "inv4": ("inv4", 0), "inv5": ("inv5", 0)}
 
 
 def synth_tensor(name: str, shape) -> np.ndarray:
@@ -154,23 +158,45 @@ def _trunk_index(i: int, dp: bool, dropout_after) -> int:
     return sum(3 + (1 if dp and dropout_after(j) else 0) for j in range(i))
 
 
-def _occ_modules(sd, P, S):
-    """occ_subnet/* -> occ_modules.backbone_3d.* / occ_modules.occ_dense_head.*"""
-    pb, sb = P["occ_subnet"]["backbone_3d"], S["occ_subnet"]["backbone_3d"]
+def _dense_block(sd, base, p, s):
+    """A JAX `_DenseSparseBlock` (conv or transpose conv + masked BN) ->
+    `{base}.0.weight` (spconv layout) and the BN under `{base}.1`."""
+    if "ConvTranspose_0" in p:
+        sd[f"{base}.0.weight"] = inv_deconv3d(p["ConvTranspose_0"]["kernel"])
+    else:
+        sd[f"{base}.0.weight"] = np.asarray(p["Conv_0"]["kernel"])
+    _bn(sd, f"{base}.1", p["_DenseBN_0"]["MaskedBatchNorm_0"], s["_DenseBN_0"]["MaskedBatchNorm_0"])
+
+
+def _occ_head_weight(w):
+    """OccHead3D's kernel stays in the spconv layout; OccHead2D's flax
+    (3, 3, ci, co) becomes torch Conv2d (co, ci, 3, 3)."""
+    w = np.asarray(w)
+    return w if w.ndim == 5 else inv_conv2d(w)
+
+
+def occ_subnet_state(params: dict, batch_stats: dict, prefix: str = "occ_modules.") -> dict:
+    """The JAX `OccSubnet`'s `params` / `batch_stats` trees (BtcNet's
+    `occ_subnet` subtrees) -> the port's `OccSubnet` state dict under
+    `prefix` (`backbone_3d.*`, `occ_dense_head.*`), numpy arrays."""
+    sd: dict = {}
+    pb, sb = params["backbone_3d"], batch_stats["backbone_3d"]
+    bb = f"{prefix}backbone_3d"
     for ours, sub in pb.items():
-        ref, i = _OCC3D[ours]
-        base = f"occ_modules.backbone_3d.{ref}.{i}"
-        if "ConvTranspose_0" in sub:
-            sd[f"{base}.0.weight"] = inv_deconv3d(sub["ConvTranspose_0"]["kernel"])
+        if ours == "lat1":
+            sd[f"{bb}.lat1.weight"] = np.asarray(sub["kernel"])
+        elif ours.startswith("res"):
+            for blk in ("conv1", "conv2"):
+                _dense_block(sd, f"{bb}.{ours}.{blk}", sub[blk], sb[ours][blk])
         else:
-            sd[f"{base}.0.weight"] = np.asarray(sub["Conv_0"]["kernel"])
-        _bn(sd, f"{base}.1", sub["_DenseBN_0"]["MaskedBatchNorm_0"],
-            sb[ours]["_DenseBN_0"]["MaskedBatchNorm_0"])
-    po = P["occ_subnet"]
-    sd["occ_modules.occ_dense_head.conv_cls.0.weight"] = po["conv_cls"]["kernel"]
-    sd["occ_modules.occ_dense_head.conv_cls.0.bias"] = po["conv_cls"]["bias"]
-    if "conv_res" in po:
-        sd["occ_modules.occ_dense_head.conv_res.0.weight"] = po["conv_res"]["kernel"]
+            ref, i = _OCC3D[ours]
+            _dense_block(sd, f"{bb}.{ref}.{i}", sub, sb[ours])
+    head = f"{prefix}occ_dense_head"
+    sd[f"{head}.conv_cls.0.weight"] = _occ_head_weight(params["conv_cls"]["kernel"])
+    sd[f"{head}.conv_cls.0.bias"] = params["conv_cls"]["bias"]
+    if "conv_res" in params:
+        sd[f"{head}.conv_res.0.weight"] = _occ_head_weight(params["conv_res"]["kernel"])
+    return sd
 
 
 def det_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> dict:
@@ -200,7 +226,7 @@ def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=Non
     sd: dict = {}
     pre = "det_modules."
     if "occ_subnet" in P:
-        _occ_modules(sd, P, S)
+        sd.update(occ_subnet_state(P["occ_subnet"], S["occ_subnet"]))
 
     p3, s3 = P["det_backbone_3d"], S["det_backbone_3d"]
     sd.update(det_backbone_3d_state(p3, s3, f"{pre}backbone_3d."))

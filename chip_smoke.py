@@ -6,8 +6,12 @@ occ-code variants (`config.flagship_occ_variant`) as a third, the
 evaluation entry point `tools/test_torch.py` on a synthetic KITTI tree as
 a fourth, the flagship training step (and the `fix` variant's) as a
 fifth, the training entry point `tools/train_torch.py` on a synthetic
-KITTI tree as a sixth, and data parallelism (`btcdet_tpu_torch.parallel`:
-2 ranks sharing the card over gloo, one rank over NCCL) as a seventh.
+KITTI tree as a sixth, data parallelism (`btcdet_tpu_torch.parallel`:
+2 ranks sharing the card over gloo, one rank over NCCL) as a seventh, and
+the occupancy subnet's options (OccTargetsPillar + OccHead2D, the residual
+and inverse occ backbones, REVERSE_VIS, USE_ABSXYZ, DB_PROJ; PASS_GRAD with
+K2's backward, the occ voxel dropout, REMAIN_PERCENTAGE, the sigmoid occ
+loss) as an eighth.
 
     python3 chip_smoke.py
 
@@ -118,6 +122,22 @@ Phases (any failure raises and exits non-zero, printing no result):
      pytorch` under torchrun (a cut run and a resumed one with a
      distributed trailing eval against the straight run: 0 elements
      differ; each checkpoint written once), then one rank over NCCL;
+  8c. the eighth path: the full flagship eval forward at B=2 with each of
+     EVAL_OPTIONS in its occ subnet (launches = EVAL_LAUNCHES, finite
+     outputs, occ points and merged det rows per frame, the median of the
+     residual backbones and DB_PROJ) and each option's occ subnet of the
+     small config f32 on the card against the CPU; train step A, the
+     flagship with PASS_GRAD, DROPOUT_RATE 0.2 (REAL_DROP on) and
+     REMAIN_PERCENTAGE [0.5, 1.0]: K2 max's backward on a captured step
+     bit for bit against its plain version, the ops
+     `use_deterministic_algorithms` flags, one counted step
+     (PASS_GRAD_LAUNCHES), the gradient repeat (0 elements), the occ
+     backbone's gradients against the same step without PASS_GRAD, 10
+     timed steps; train step B, the `fix` variant with PASS_GRAD: K2 sum's
+     backward on its 3 levels bit for bit, the launches against the step
+     without PASS_GRAD, 3 timed steps; train step C: one counted step each
+     with a sigmoid loss + OccHead2D + OccTargetsPillar, the two residual
+     backbones and DB_PROJ;
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -179,7 +199,8 @@ EVAL_MAPS = 9
 AVGPOOL_MAPS = 12
 # kernel launches of one flagship eval forward + post-processing
 EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df": 0, "tap_pairs": 0,
-                 "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0, "trilinear_pool": 1,
+                 "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0,
+                 "sparse_pool_grad": 0, "sparse_sum_pool_grad": 0, "trilinear_pool": 1,
                  "trilinear_pool_grad": 0}
 # kernel launches of one flagship train step: the 9 forward maps and the 8
 # transpose-query maps of the strided convs' dfs, 18 convs (17 of them
@@ -187,7 +208,8 @@ EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df":
 # the sampler and its volume gradient
 TRAIN_LAUNCHES = {"neighbor_map": 17, "sparse_conv": 18, "sparse_conv_df": 17, "tap_pairs": 18,
                   "sparse_conv_dw": 18, "sparse_pool": 1, "sparse_sum_pool": 0,
-                  "trilinear_pool": 1, "trilinear_pool_grad": 1}
+                  "sparse_pool_grad": 0, "sparse_sum_pool_grad": 0, "trilinear_pool": 1,
+                  "trilinear_pool_grad": 1}
 
 
 def kernel_modules():
@@ -198,6 +220,8 @@ def kernel_modules():
             "sparse_conv_df": (cuda_conv, "df_launches"), "tap_pairs": (cuda_conv, "pair_launches"),
             "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
             "sparse_sum_pool": (cuda_pool, "sum_launches"),
+            "sparse_pool_grad": (cuda_pool, "bwd_launches"),
+            "sparse_sum_pool_grad": (cuda_pool, "sum_bwd_launches"),
             "trilinear_pool": (cuda_interp, "launches"),
             "trilinear_pool_grad": (cuda_interp, "bwd_launches")}
 
@@ -1911,6 +1935,405 @@ def timed_median(step, runs: int = 5, warmup: int = 2):
     return statistics.median(times), times
 
 
+# ------------------------------------------ eighth path: occupancy options
+
+# the occupancy options of the eighth path: name -> {config path: value}
+# set on the flagship config (MODEL.OCC / DATA_CONFIG.OCC only)
+OCC_OPTIONS = {
+    "pillar_2d": {"MODEL.OCC.TARGETS.NAME": "OccTargetsPillar",
+                  "MODEL.OCC.OCC_DENSE_HEAD.NAME": "OccHead2D"},
+    "deconv_res": {"MODEL.OCC.BACKBONE_3D.NAME": "VoxelBackBoneDeconvRes"},
+    "inverse_res": {"MODEL.OCC.BACKBONE_3D.NAME": "VoxelBackBoneInverseRes"},
+    "back_track": {"DATA_CONFIG.OCC.REVERSE_VIS": "BACK_TRACK"},
+    "vcc": {"DATA_CONFIG.OCC.REVERSE_VIS": "VCC"},
+    "absxyz_original": {"DATA_CONFIG.OCC.USE_ABSXYZ": "original"},
+    "absxyz_both": {"DATA_CONFIG.OCC.USE_ABSXYZ": "both"},
+    # DB_PROJ's candidates make many new det rows: the merged table's headroom
+    # is set for them (K // 4 without it)
+    "db_proj": {"MODEL.OCC.OCC_PNT_UPDATE.DB_PROJ": True,
+                "MODEL.OCC.OCC_PNT_UPDATE.MERGED_CAP_EXTRA": 80000},
+    "sigmoid_pillar_2d": {"MODEL.OCC.OCC_DENSE_HEAD.LOSS_CONFIG.CLS_LOSS_TYPE": "sigmoid",
+                          "MODEL.OCC.TARGETS.NAME": "OccTargetsPillar",
+                          "MODEL.OCC.OCC_DENSE_HEAD.NAME": "OccHead2D"},
+}
+EVAL_OPTIONS = ("pillar_2d", "deconv_res", "inverse_res", "back_track", "vcc", "absxyz_original",
+                "absxyz_both", "db_proj")
+# train step A: the flagship with the occ train options
+PASS_GRAD_OPTIONS = {"MODEL.OCC.OCC_PNT_UPDATE.PASS_GRAD": True,
+                     "DATA_CONFIG.OCC.DROPOUT_RATE": 0.2, "DATA_CONFIG.OCC.REAL_DROP": None,
+                     "MODEL.OCC.PARAMS.REMAIN_PERCENTAGE": [0.5, 1.0]}
+# a PASS_GRAD step adds to TRAIN_LAUNCHES: K2 max's backward and the
+# transpose-query map it reads, and K1's df of conv1 (its input, the merged
+# det voxel features, now needs a gradient; the subm df reads the forward's
+# map)
+PASS_GRAD_LAUNCHES = dict(TRAIN_LAUNCHES, neighbor_map=TRAIN_LAUNCHES["neighbor_map"] + 1,
+                          sparse_conv_df=TRAIN_LAUNCHES["sparse_conv_df"] + 1,
+                          sparse_pool_grad=1)
+
+
+def set_options(cfg, edits: dict):
+    """Set each `A.B.C` path of `edits` in the config tree (None deletes)."""
+    for path, value in edits.items():
+        *head, last = path.split(".")
+        node = cfg
+        for k in head:
+            node = node[k]
+        if value is None:
+            node.pop(last, None)
+        else:
+            node[last] = value
+    return cfg
+
+
+def occ_subnet_for(cfg, device="cuda"):
+    """The occ subnet of `cfg` (its MODEL.OCC and DATA_CONFIG), with
+    synthetic weights by its `occ_modules.*` names, in eval mode."""
+    import torch
+
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.models.occ.occ_subnet import OccSubnet
+
+    d = cfg.DATA_CONFIG
+    det_vs = next(p.VOXEL_SIZE for p in d.DATA_PROCESSOR
+                  if p.NAME == "det_transform_points_to_voxels")
+    sub = OccSubnet(cfg.MODEL.OCC, d, d.POINT_CLOUD_RANGE, det_vs, 4).to(device)
+    sub.load_state_dict({k: torch.from_numpy(weights.synth_tensor(f"occ_modules.{k}", v.shape))
+                         for k, v in sub.state_dict().items()})
+    return sub.eval()
+
+
+def merged_rows(net, batch, run):
+    """run() with a hook on the det backbone: (its result, merged det voxel
+    rows per frame)."""
+    seen = {}
+    hook = net.det_modules.backbone_3d.register_forward_pre_hook(
+        lambda mod, args: seen.update(st=args[0]))
+    try:
+        res = run()
+    finally:
+        hook.remove()
+    c = seen["st"].coords
+    return res, [int((c[:, 0] == b).sum()) for b in range(int(batch["points"].shape[0]))]
+
+
+def occ_options_eval():
+    """The eighth path's eval forwards: the full flagship at B=2 with each
+    of EVAL_OPTIONS in its occ subnet (the det modules and weights are the
+    main path's): launches a forward equal to EVAL_LAUNCHES, finite outputs,
+    occ points and merged det rows per frame; the median forward + post of
+    the two residual backbones and DB_PROJ."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    base = config.flagship()
+    net = build_network(base.MODEL, base.DATA_CONFIG, ["Car"])
+    net.load_state_dict(weights.synth_state_dict(net))
+    batch = make_synthetic_batch(base.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                 seed=0, mode="test")
+    det_rows = [int((batch["det_voxel_coords"][:, 0] == b).sum()) for b in range(2)]
+    for option in EVAL_OPTIONS:
+        cfg = set_options(config.flagship(), OCC_OPTIONS[option])
+        net.occ_modules = occ_subnet_for(cfg)
+
+        def run():
+            o = net(batch)
+            return o, post_processing(o, cfg.MODEL.POST_PROCESSING, 1)
+        reset_launches()
+        (out, post), rows = merged_rows(net, batch, run)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches == EVAL_LAUNCHES, (option, launches, EVAL_LAUNCHES)
+        n_det = check_eval_outputs(net, batch, out, post)
+        n_occ = [int(v) for v in out["occ_points_mask"].sum(dim=1)]
+        assert min(n_occ) > 0 and all(m > d for m, d in zip(rows, det_rows)), (option, n_occ, rows)
+        extra = cfg.MODEL.OCC.OCC_PNT_UPDATE.get("MERGED_CAP_EXTRA")
+        log(f"occ option {option!r} eval (B=2): launches = EVAL_LAUNCHES; occ points per frame "
+            f"{n_occ}; merged det rows per frame {rows} (det {det_rows}, new "
+            f"{[m - d for m, d in zip(rows, det_rows)]}"
+            + (f" of at most {extra}" if extra else "") + f"); detections per frame {n_det}")
+        if option in ("deconv_res", "inverse_res", "db_proj"):
+            med, times = timed_median(lambda: forward_post(net, batch, cfg))
+            log(f"forward+post ms, occ option {option!r} (B=2, 5 runs after 2 warm-ups): median "
+                f"{med:.2f} all {[round(t, 2) for t in times]}; occ_subnet stage ms "
+                f"{stage_times(net, batch, cfg.MODEL.POST_PROCESSING)['occ_subnet']}")
+        del out, post
+    del net, batch
+
+
+def occ_option_small_check(option: str):
+    """The occ subnet of `small_config(full=True)` with `option`, f32 on the
+    card against f32 on the CPU, same synthetic weights and batch:
+    probabilities to 1e-3, occ point sets to 1e-3, merged det voxel sets
+    equal. Under DB_PROJ the candidates whose centre lies on a det or occ
+    cell edge to float32 rounding land on either side (the card's and the
+    CPU's atan2 differ in their last bits), so there the sets must agree
+    but for 1 % of the rows; the count is printed."""
+    import torch
+
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+
+    cfg = set_options(small_config(full=True), OCC_OPTIONS[option])
+    outs = {}
+    with f32_everywhere():
+        batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=4096, num_gt=4,
+                                     seed=3, mode="test", device="cpu")
+        for dev in ("cuda", "cpu"):
+            o = occ_subnet_for(cfg, dev)({k: v.to(dev) for k, v in batch.items()})
+            outs[dev] = {k: v.cpu() for k, v in o.items() if torch.is_tensor(v)}
+    g, c = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(g["probs"], c["probs"], rtol=1e-3, atol=1e-3)
+    worst = same_point_sets(g["occ_points"], g["occ_points_mask"], c["occ_points"],
+                            c["occ_points_mask"], 1e-3)
+    sets = {dev: {tuple(r) for r in o["det_voxel_coords"][o["det_voxel_coords"][:, 0] >= 0]
+                  .tolist()} for dev, o in outs.items()}
+    differ = len(sets["cuda"] ^ sets["cpu"])
+    assert differ <= (0.01 * len(sets["cpu"]) if option == "db_proj" else 0), (option, differ)
+    log(f"occ option {option!r}, small config (cuda f32 vs cpu f32): probs max abs diff "
+        f"{float((g['probs'] - c['probs']).abs().max()):.3e}, occ points as sets {worst:.2e} "
+        f"({[int(v) for v in g['occ_points_mask'].sum(1)]} a frame), merged det voxels "
+        f"{len(sets['cuda'])} ({differ} differ)")
+
+
+def k2_grad_case(call, mode: str, label: str):
+    """K2's backward on a captured call (max: features, out, g, nbr, tnbr;
+    sum: g, tnbr) against its plain version, bit for bit and bit for bit on
+    a repeat, kernel-alone and plain ms, and the bound: the bytes of g,
+    the rows the maps match, both maps (max) or the transpose-query map
+    (sum), and df, at HBM3's rate."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_pool
+
+    args, _ = call
+    if mode == "max":
+        kern, plain, kname = (cuda_pool.sparse_pool_grad, cuda_pool.sparse_pool_grad_plain,
+                              "sparse_maxpool_bwd_kernel")
+        feats, out, g, nbr, tnbr = args
+        N, C = feats.shape
+        nbytes = (g.numel() + out.numel() + feats.numel() + nbr.numel() + tnbr.numel()
+                  + N * C) * 4
+    else:
+        kern, plain, kname = (cuda_pool.sparse_sum_pool_grad,
+                              cuda_pool.sparse_sum_pool_grad_plain, "sparse_pool_kernel")
+        g, tnbr = args
+        N, C = tnbr.shape[1], g.shape[1]
+        found = tnbr >= 0
+        rows = int(tnbr[found].unique().numel())
+        nbytes = (rows * C + tnbr.numel() + N * C) * 4
+    df = kern(*args)
+    ref = plain(*args)
+    again = kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(df, ref), f"K2 {mode} bwd {label}: kernel and plain version differ"
+    assert torch.equal(df, again), f"K2 {mode} bwd {label}: the kernel does not repeat"
+    bound_s = nbytes / HBM_BYTES_PER_S
+    ms = device_ms(lambda: kern(*args), kname)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+    log(f"K2 {mode} bwd {label}: N={N} C={C} taps={tnbr.shape[0]} "
+        f"matches={int((tnbr >= 0).sum())} nonzero_df={int((df != 0).sum())} bytes={nbytes} "
+        f"(bitwise equal to the plain version and on a repeat) ms={ms:.4f} (kernel alone) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
+    name = "sparse_pool_grad" if mode == "max" else "sparse_sum_pool_grad"
+    return {"name": f"{name}:{label}", "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/sparse_pool.cu",
+            "replaces": "btcdet_tpu/ops/sparse.py:1025",
+            "max_abs_err": float((df - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": "bytes", "library_ms": None}
+
+
+def deterministic_scan(net, batch, label: str):
+    """One train forward + backward under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`: prints the
+    ops that PyTorch flags as not deterministic on the card."""
+    import warnings
+
+    import torch
+
+    from btcdet_tpu_torch.train import trainer
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.forward_backward(net, batch, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
+    log(f"{label}: ops flagged under use_deterministic_algorithms: {len(flagged)} "
+        + json.dumps(flagged))
+    for p in net.parameters():
+        p.grad = None
+
+
+def occ_grads(net, batch):
+    """The occ subnet's gradients of one train forward + backward (the
+    gradient-repeat generator)."""
+    import torch
+
+    from btcdet_tpu_torch.train import trainer
+
+    trainer.forward_backward(net, batch, torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    out = {n: p.grad.detach().clone() for n, p in net.named_parameters()
+           if n.startswith("occ_modules.backbone_3d.") and p.grad is not None}
+    for p in net.parameters():
+        p.grad = None
+    return out
+
+
+def pass_grad_train_phase():
+    """Train step A: the flagship with PASS_GRAD, DROPOUT_RATE 0.2 (REAL_DROP
+    unset, so on) and REMAIN_PERCENTAGE [0.5, 1.0] at the train caps. K2
+    max's backward on a captured step; the ops PyTorch flags as not
+    deterministic; one counted step (PASS_GRAD_LAUNCHES); the gradient
+    repeat; the occ backbone's gradients against the same step without
+    PASS_GRAD; 10 timed steps. Returns the kernels line's entries."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = set_options(config.flagship(), PASS_GRAD_OPTIONS)
+    net, opt, batch = train_setup(cfg, 16384, 10, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = capture_kernel_inputs(lambda: trainer.train_step(net, opt, batch, gen))
+    assert len(calls["sparse_pool_grad"]) == 1, len(calls["sparse_pool_grad"])
+    entries = [k2_grad_case(calls["sparse_pool_grad"][0], "max", "pass_grad")]
+    del calls
+    deterministic_scan(net, batch, "PASS_GRAD step")
+    reset_launches()
+    metrics = trainer.train_step(net, opt, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"PASS_GRAD train-step launches: {json.dumps(launches)}")
+    assert launches == PASS_GRAD_LAUNCHES, (launches, PASS_GRAD_LAUNCHES)
+    for e in entries:
+        e["launches"] = launches[e["name"].split(":")[0]]
+    vals = {k: float(v) for k, v in metrics.items()}
+    log("PASS_GRAD train-step metrics: " + json.dumps({k: round(v, 6) for k, v in vals.items()}))
+    assert all(math.isfinite(v) for v in vals.values()), vals
+    gradient_repeat(net, batch, "PASS_GRAD, DROPOUT_RATE 0.2, REMAIN_PERCENTAGE")
+    on = occ_grads(net, batch)
+    net.occ_modules.pass_grad = False
+    try:
+        off = occ_grads(net, batch)
+    finally:
+        net.occ_modules.pass_grad = True
+    rel = {n: float((on[n] - off[n]).abs().max()) / max(float(off[n].abs().max()), 1e-30)
+           for n in on}
+    moved = sum(v > 1e-3 for v in rel.values())
+    log(f"PASS_GRAD: the occ backbone's gradients against the same step without it: "
+        f"{moved} of {len(rel)} tensors differ by more than 1e-3 of their max (largest "
+        f"{max(rel.values()):.3e})")
+    assert moved > 0, rel
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"train step ms, flagship PASS_GRAD + dropout + remain (B=2, train caps, 10 steps): "
+        f"median {statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+    return entries
+
+
+def pass_grad_fix_phase():
+    """Train step B: the `fix` variant with PASS_GRAD: K2 sum's backward on
+    its three levels against its plain version, the step's launches
+    against the same step without PASS_GRAD (3 more K2 sum backwards and
+    their 3 transpose-query maps, conv1's df), 3 timed steps."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = set_options(config.flagship_occ_variant("fix"),
+                      {"MODEL.OCC.OCC_PNT_UPDATE.PASS_GRAD": True})
+    net, opt, batch = train_setup(cfg, 16384, 10, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = capture_kernel_inputs(lambda: trainer.train_step(net, opt, batch, gen))
+    assert len(calls["sparse_sum_pool_grad"]) == 3, len(calls["sparse_sum_pool_grad"])
+    entries = [k2_grad_case(call, "sum", f"fix_l{level}")
+               for level, call in enumerate(calls["sparse_sum_pool_grad"], start=1)]
+    del calls
+    counts = {}
+    for on in (False, True):
+        net.occ_modules.pass_grad = on
+        reset_launches()
+        m = trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        counts[on] = read_launches()
+        assert all(math.isfinite(float(v)) for v in m.values())
+    want = dict(counts[False], neighbor_map=counts[False]["neighbor_map"] + 3,
+                sparse_conv_df=counts[False]["sparse_conv_df"] + 1, sparse_sum_pool_grad=3)
+    log(f"occ variant 'fix' PASS_GRAD train-step launches: {json.dumps(counts[True])}")
+    assert counts[True] == want, (counts, want)
+    for e in entries:
+        e["launches"] = counts[True]["sparse_sum_pool_grad"]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"train step ms, flagship occ variant 'fix' with PASS_GRAD (B=2, train caps, 3 steps): "
+        f"median {statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+    return entries
+
+
+def occ_options_train():
+    """Train step C: one counted step of the flagship at the train caps with
+    each of a sigmoid occ loss + OccHead2D + OccTargetsPillar, the two
+    residual backbones and DB_PROJ in its occ subnet: finite losses, a
+    gradient in every occ parameter, launches equal to TRAIN_LAUNCHES."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    net, _, batch = train_setup(config.flagship(), 16384, 10, 0)
+    for option in ("sigmoid_pillar_2d", "deconv_res", "inverse_res", "db_proj"):
+        cfg = set_options(config.flagship(), OCC_OPTIONS[option])
+        net.occ_modules = occ_subnet_for(cfg).train()
+        opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 1000)
+        reset_launches()
+        keep = {"occ_points_mask": None}
+        m = trainer.train_step(net, opt, batch, torch.Generator(device="cuda").manual_seed(0),
+                               keep=keep)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        vals = {k: round(float(v), 6) for k, v in m.items()}
+        assert launches == TRAIN_LAUNCHES, (option, launches)
+        assert all(math.isfinite(v) for v in vals.values()), (option, vals)
+        assert vals["grad_norm_occ"] > 0, (option, vals)
+        log(f"occ option {option!r} train step: launches = TRAIN_LAUNCHES; occ points per frame "
+            f"{[int(v) for v in keep['occ_points_mask'].sum(1)]}; loss {vals['loss']} occ_loss "
+            f"{vals['occ_loss']} grad_norm_occ {vals['grad_norm_occ']}")
+
+
+def occ_options_path():
+    """The eighth path (module docstring, 8c); returns the K2 backward
+    entries of the kernels line."""
+    import torch
+
+    t0 = time.perf_counter()
+    occ_options_eval()
+    for option in EVAL_OPTIONS:
+        occ_option_small_check(option)
+    entries = pass_grad_train_phase()
+    entries += pass_grad_fix_phase()
+    occ_options_train()
+    torch.cuda.synchronize()
+    log(f"eighth path (occupancy options): {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 # ------------------------------------------ seventh path: data parallelism
 #
 # The card machine has one card. NCCL refuses two ranks on one device, so
@@ -2634,6 +3057,9 @@ def main() -> int:
 
     # 8b. seventh path: the data-parallel train step, 2 ranks on the card
     dp_step_phase(card)
+
+    # 8c. eighth path: the occupancy subnet's options
+    kernels += occ_options_path()
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

@@ -921,3 +921,60 @@ def test_dp_step_matches_jax_data_parallel_step(tmp_path):
             r = ref_grads[k].numpy()
             np.testing.assert_allclose(g, r, rtol=0, atol=1e-3 * np.abs(r).max() + 1e-8,
                                        err_msg=k)
+
+
+def test_occ_draws_are_the_rank_rows_of_the_one_process_draws(monkeypatch):
+    """The occ voxel dropout and REMAIN_PERCENTAGE draws of the port's occ
+    subnet (`draw_occ_dropout` / `draw_occ_remain`) in a data-parallel run:
+    each rank draws the global batch's numbers from the step's generator
+    and keeps its frames' rows. Two ranks are simulated in one process:
+    each rank's dropped cells and occ points equal the one-process run's on
+    its frame (the occ backbone's BN on running statistics, so that a
+    frame's outputs depend on its own data and draws alone)."""
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch, mini_config
+    from btcdet_tpu_torch.models.occ import occ_subnet as TOS
+
+    data_cfg = mini_config.micro_data_cfg(with_occ=True)
+    model_cfg = mini_config.micro_model_cfg(with_occ=True)
+    data_cfg.OCC.DROPOUT_RATE = 0.5
+    model_cfg.OCC.PARAMS.REMAIN_PERCENTAGE = [0.5, 1.0]
+    net = TOS.OccSubnet(model_cfg.OCC, data_cfg, data_cfg.POINT_CLOUD_RANGE, (0.2, 0.2, 0.1), 4)
+    sd = weights.synth_state_dict(net)
+    sd["occ_dense_head.conv_cls.0.bias"].zero_()
+    net.load_state_dict(sd)
+    net.train()
+    net.backbone_3d.eval()
+    batch = make_synthetic_batch(data_cfg, batch_size=2, num_points=2048, num_gt=4, seed=0,
+                                 mode="train", device="cpu")
+    calls = {"one": [], "ranks": []}
+    orig = (TOS.draw_occ_dropout, TOS.draw_occ_remain)
+
+    def recording(fn, key):
+        def draw(generator, rows, n):
+            out = fn(generator, rows, n)
+            calls[key].append((rows, out))
+            return out
+        return draw
+
+    def run(part, key):
+        monkeypatch.setattr(TOS, "draw_occ_dropout", recording(orig[0], key))
+        monkeypatch.setattr(TOS, "draw_occ_remain", recording(orig[1], key))
+        with torch.no_grad():
+            return net(part, torch.Generator().manual_seed(5))
+
+    one = run(batch, "one")
+    for rank in range(2):
+        monkeypatch.setattr(parallel.dist, "get_dist_info", lambda rank=rank: (rank, 2))
+        out = run(trainer.split_batch(batch, rank, 2), "ranks")
+        assert torch.equal(out["voxel_drop_mask"][0], one["voxel_drop_mask"][rank])
+        assert one["voxel_drop_mask"][rank].any()
+        m, om = out["occ_points_mask"][0], one["occ_points_mask"][rank]
+        assert torch.equal(m, om) and m.any()
+        # the same points: the dense convs of one frame and of two round apart
+        torch.testing.assert_close(out["occ_points"][0][m], one["occ_points"][rank][om],
+                                   rtol=1e-5, atol=1e-5)
+    # every rank drew the global batch's rows, the same numbers as one process
+    for (rows, draws), (one_rows, one_draws) in zip(calls["ranks"], calls["one"] * 2):
+        assert rows == one_rows == 2
+        assert all(torch.equal(a, b) for a, b in zip(draws, one_draws))

@@ -3,7 +3,8 @@ card: K1 (`ops/cuda_conv.neighbor_map`, bit for bit, and the gather-GEMM
 `sparse_conv`, bf16 on the tensor cores and f32, and `sparse_conv_df` in
 transpose-query mode), K3 (`ops/cuda_conv.sparse_conv_dw` and its per-tap
 compaction `tap_pairs`, over the map), K2 max and sum over the map
-(`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`), K4
+(`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`) and their backward
+(`sparse_pool_grad` / `sparse_sum_pool_grad`, bit for bit), K4
 (`ops/cuda_interp.trilinear_pool`) and K4's volume gradient
 (`ops/cuda_interp.trilinear_pool_grad`). Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
@@ -285,15 +286,37 @@ def test_sparse_sum_pool_kernel_on_all_padding_table(cuda):
         assert torch.equal(out, torch.zeros_like(out))
 
 
+def _pool_grad_case(device, kind, seed=0):
+    """A 2-channel occ-code table (`flags`: 0 / 1 codes, ties everywhere;
+    `random`), its strided output sites, both maps and an output gradient."""
+    st = _sparse_case(device, 2, seed=seed, n=20000)
+    if kind == "flags":
+        f = (st.features > 0).float() * (st.coords[:, :1] >= 0)
+        st = st.replace(features=f)
+    keys, coords, _, out_shape = TS.conv_output_sites(st, 3, 2, 1, 4 * st.capacity)
+    nbr = cuda_conv.neighbor_map(st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
+    tnbr = cuda_conv.neighbor_map(keys, st.coords, out_shape, 2, 3, 2, 1, transpose=True)
+    g = torch.randn(coords.shape[0], 2, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    return st, coords, nbr, tnbr, g
+
+
 @pytest.mark.cuda
-def test_sparse_sum_pool_refuses_a_gradient(cuda):
-    """K2 sum has no backward: a CUDA input that requires a gradient is refused."""
-    st = _sparse_case(cuda, 2, n=500)
-    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+@pytest.mark.parametrize("kind", ["flags", "random"])
+def test_sparse_sum_pool_grad_kernel_matches_plain(cuda, kind):
+    """K2 sum's backward (its forward kernel over the transpose-query map)
+    against its plain version, bit for bit, and bit for bit on a repeat;
+    the forward wrapper refuses an input that requires a gradient outside
+    `sparse.SparsePoolFunction`."""
+    st, coords, _, tnbr, g = _pool_grad_case(cuda, kind)
+    n0 = cuda_pool.sum_bwd_launches
+    df = cuda_pool.sparse_sum_pool_grad(g, tnbr)
+    assert torch.equal(df, cuda_pool.sparse_sum_pool_grad_plain(g, tnbr))
+    assert torch.equal(df, cuda_pool.sparse_sum_pool_grad(g, tnbr))
+    assert cuda_pool.sum_bwd_launches == n0 + 2
+    assert (df[st.coords[:, 0] < 0] == 0).all() and (df != 0).any()
     feats = st.features.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        cuda_pool.sparse_sum_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
-    with torch.no_grad():
+    with pytest.raises(ValueError):
         cuda_pool.sparse_sum_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
 
 
@@ -434,15 +457,36 @@ def test_cpu_tensors_take_the_plain_backward():
 
 
 @pytest.mark.cuda
-def test_sparse_pool_refuses_a_gradient(cuda):
-    """K2 has no backward: a CUDA input that requires a gradient is refused."""
-    st = _sparse_case(cuda, 2, n=500)
-    _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
+@pytest.mark.parametrize("kind", ["flags", "random"])
+def test_sparse_pool_grad_kernel_matches_plain(cuda, kind):
+    """K2 max's backward against its plain version, bit for bit (tied maxima
+    split evenly, one division per output in both), and bit for bit on a
+    repeat; through `sparse.SparsePoolFunction` on a module the gradient is
+    the same; the forward wrapper refuses an input that requires a
+    gradient outside it."""
+    st, coords, nbr, tnbr, g = _pool_grad_case(cuda, kind)
+    out = cuda_pool.sparse_pool(st.features, st.keys, coords, st.spatial_shape, 2, 3, 2, 1,
+                                nbr=nbr)
+    n0 = cuda_pool.bwd_launches
+    df = cuda_pool.sparse_pool_grad(st.features, out, g, nbr, tnbr)
+    assert torch.equal(df, cuda_pool.sparse_pool_grad_plain(st.features, out, g, nbr, tnbr))
+    assert torch.equal(df, cuda_pool.sparse_pool_grad(st.features, out, g, nbr, tnbr))
+    assert cuda_pool.bwd_launches == n0 + 2
+    assert (df[st.coords[:, 0] < 0] == 0).all() and (df != 0).any()
     feats = st.features.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         cuda_pool.sparse_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
-    with torch.no_grad():
-        cuda_pool.sparse_pool(feats, st.keys, coords, st.spatial_shape, 2, 3, 2, 1)
+    cache = {}
+    TS.SparseConv3d(2, 4, 3, 2, 1, indice_key="spconv2",
+                    frame_capacity=(2 * st.capacity, 2 * st.capacity)).to(cuda)(st, cache)
+    pooled = TS.SparseMaxPool3d(3, 2, 1, indice_key="spconv2")(st.replace(features=feats), cache)
+    site_nbr = cuda_conv.neighbor_map(st.keys, pooled.coords, st.spatial_shape, 2, 3, 2, 1)
+    site_tnbr = cuda_conv.neighbor_map(pooled.keys, st.coords, pooled.spatial_shape, 2, 3, 2, 1,
+                                       transpose=True)
+    gg = torch.randn_like(pooled.features)
+    pooled.features.backward(gg)
+    assert torch.equal(feats.grad, cuda_pool.sparse_pool_grad_plain(
+        st.features, pooled.features.detach(), gg, site_nbr, site_tnbr))
 
 
 K1_EDGE_CASES = [  # kernel, stride, padding, Cin, Cout: ragged Cin, Cout 8 and 256

@@ -449,10 +449,6 @@ def test_dual_optimizer_matches_optax(frozen):
 
 
 @pytest.mark.parametrize("path,value", [
-    (("data", "OCC", "DROPOUT_RATE"), 0.5),
-    (("model", "OCC", "PARAMS", "REMAIN_PERCENTAGE"), 0.5),
-    (("model", "OCC", "OCC_PNT_UPDATE", "PASS_GRAD"), True),
-    (("model", "OCC", "OCC_DENSE_HEAD", "LOSS_CONFIG", "CLS_LOSS_TYPE"), "sigmoid"),
     (("model", "DENSE_HEAD", "TARGET_ASSIGNER_CONFIG", "MATCH_HEIGHT"), True),
     (("model", "ROI_HEAD", "LOSS_CONFIG", "CORNER_LOSS_REGULARIZATION"), False),
 ], ids=lambda v: v[-1] if isinstance(v, tuple) else None)
@@ -505,7 +501,8 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
     `mode="train"` batch (seed 0, B=2; or `batch_np`, numpy arrays). Roi sampling uses PRNGKey(7) in
     both: the JAX `assign_targets` is given that key, the port
     `draw_roi_sampling_uniforms` returns its draws. The JAX occ targets and
-    sampled rois come back through debug callbacks. All arrays numpy."""
+    sampled rois come back through debug callbacks, beside the JAX
+    `variables` and the `batch`. All arrays numpy."""
     from btcdet_tpu.datasets import make_synthetic_batch as jax_batch
     from btcdet_tpu.models import build_network as jax_build
     from btcdet_tpu.models.occ import occ_subnet as JOS
@@ -564,6 +561,7 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
             {"params": to_np_tree(new.params), "batch_stats": to_np_tree(new.batch_stats)},
             dp_ratio=dp)
         res["ref_rois"], res["ref_occ"] = seen["rois"], seen["occ"]
+        res["variables"], res["batch"] = variables, batch_np
 
         tc = tcfg.EasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg})
         port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")

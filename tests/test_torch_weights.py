@@ -226,3 +226,57 @@ def test_synth_tensor_matches_golden_synth():
     model = torch.nn.Linear(3, 2)
     sd = weights.synth_state_dict(model)
     assert sd.keys() == model.state_dict().keys()
+
+
+@pytest.mark.parametrize("option,edit", [
+    ("OccHead2D", ("conv_cls", "kernel")),
+    ("VoxelBackBoneDeconvRes", ("backbone_3d", "lat1", "kernel")),
+    ("VoxelBackBoneInverseRes", ("backbone_3d", "inv4", "ConvTranspose_0", "kernel")),
+])
+def test_occ_option_weights_map_and_reach_the_output(option, edit):
+    """The JAX `OccSubnet` of an occ option (OccHead2D, the residual and
+    inverse backbones) through `weights.occ_subnet_state`: the port's
+    subnet loads it strictly, `synth_state_dict` covers the same names and
+    shapes, and a change of one new weight in the JAX tree moves the port's
+    occupancy probabilities."""
+    import jax
+    import jax.numpy as jnp
+
+    from btcdet_tpu.config import CfgBox
+    from btcdet_tpu.models.occ import occ_subnet as JOS
+    from btcdet_tpu_torch.models.occ import occ_subnet as TOS
+
+    data_cfg, model_cfg = full_micro_cfgs()
+    if option == "OccHead2D":
+        model_cfg.OCC.OCC_DENSE_HEAD.NAME = option
+    else:
+        model_cfg.OCC.BACKBONE_3D.NAME = option
+    det_vs = (0.2, 0.2, 0.1)
+    batch_np = jax_batch(data_cfg, batch_size=2, num_points=2048, num_gt=4, seed=0, mode="test")
+    with f32_mode():
+        jnet = JOS.OccSubnet(model_cfg=CfgBox(model_cfg.OCC), data_cfg=CfgBox(data_cfg),
+                             point_cloud_range=tuple(data_cfg.POINT_CLOUD_RANGE),
+                             det_voxel_size=det_vs, fused_vfe_nrf=4)
+        v = perturb_variables(jax.jit(lambda b: jnet.init(
+            {"params": jax.random.PRNGKey(0)}, b, train=False))(
+                {k: jnp.asarray(x) for k, x in batch_np.items()}))
+        v["params"]["conv_cls"]["bias"] = np.zeros_like(v["params"]["conv_cls"]["bias"])
+        tc = tcfg.EasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg})
+        port = TOS.OccSubnet(tc.MODEL.OCC, tc.DATA_CONFIG, tuple(data_cfg.POINT_CLOUD_RANGE),
+                             det_vs, 4).eval()
+        synth = weights.synth_state_dict(port)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(x)) for k, x in batch_np.items()}
+        probs = []
+        for scale in (1.0, 1.5):
+            node = v["params"]
+            for k in edit[:-1]:
+                node = node[k]
+            node[edit[-1]] = np.asarray(node[edit[-1]]) * scale
+            sd = weights.occ_subnet_state(v["params"], v["batch_stats"], prefix="")
+            assert {k: tuple(x.shape) for k, x in sd.items()} == {
+                k: tuple(x.shape) for k, x in synth.items()}
+            res = port.load_state_dict({k: torch.from_numpy(np.array(x)) for k, x in sd.items()},
+                                       strict=True)
+            assert not res.missing_keys and not res.unexpected_keys
+            probs.append(port(batch)["probs"])
+    assert probs[0].max() > 0 and not torch.equal(probs[0], probs[1])
