@@ -46,6 +46,19 @@
 // whose tap k reads input row i, or -1), one thread per (input row,
 // channel), adding in tap order: no atomics, so the result repeats bit for
 // bit and equals the plain version, which adds in the same order.
+//
+// The max mode's backward follows the plain version's two steps, so each
+// tie is counted once per output, not once per input that reads it (the
+// flags tie almost everywhere, and a recount per input walked 27 taps of
+// the forward's map 2-3 times a thread): sparse_maxpool_share_kernel, one
+// thread per (output row, channel), writes share = g / count (count at
+// least 1) into a scratch the wrapper allocates, reading the forward's
+// map as the forward does; sparse_maxpool_bwd_kernel, one thread per
+// (input row, channel), adds share[m, c] over the transpose taps in tap
+// order where feats[i, c] == out[m, c]. The division and the order of the
+// sum are the plain version's. At the occ code's 2 channels both kernels
+// are a few dependent loads a thread: the launch and those round trips
+// bound them, not bandwidth.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -78,28 +91,50 @@ __global__ void __launch_bounds__(NT) sparse_pool_kernel(
   out[t] = (kSum || any) ? acc : 0.f;
 }
 
+// the max mode's backward, first kernel: one thread per (output row m,
+// channel c) counts the matched taps whose value ties out[m, c], reading the
+// forward's map as the forward does, and writes the share of each tie,
+// g[m, c] / count (count at least 1, as the plain version clamps it)
+__global__ void __launch_bounds__(NT) sparse_maxpool_share_kernel(
+    const float* __restrict__ feats, const float* __restrict__ out,
+    const float* __restrict__ g, const int* __restrict__ nbr, int n_out, int K,
+    float* __restrict__ share, int C) {
+  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
+  if (t >= (long long)n_out * C) return;
+  const int m = (int)(t / C);
+  const int c = (int)(t - (long long)m * C);
+  int rows[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) rows[k] = k < K ? nbr[(long long)k * n_out + m] : -1;
+  const float o = out[t];
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    if (rows[k] >= 0 && feats[(long long)rows[k] * C + c] == o) ++count;
+  share[t] = g[t] / (float)max(count, 1);
+}
+
+// second kernel: one thread per (input row i, channel c) adds, in tap order
+// over the transpose-query map, the share of every output row m that reads
+// it where its value ties out[m, c]
 __global__ void __launch_bounds__(NT) sparse_maxpool_bwd_kernel(
     const float* __restrict__ feats, const float* __restrict__ out,
-    const float* __restrict__ g, const int* __restrict__ nbr, const int* __restrict__ tnbr,
-    int n_in, int n_out, int K, float* __restrict__ df, int C) {
+    const float* __restrict__ share, const int* __restrict__ tnbr, int n_in, int K,
+    float* __restrict__ df, int C) {
   const long long t = (long long)blockIdx.x * NT + threadIdx.x;
   if (t >= (long long)n_in * C) return;
   const int i = (int)(t / C);
   const int c = (int)(t - (long long)i * C);
+  int outs[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) outs[k] = k < K ? tnbr[(long long)k * n_in + i] : -1;
   const float f = feats[t];
   float acc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const int m = tnbr[(long long)k * n_in + i];
-    if (m < 0) continue;
-    const float o = out[(long long)m * C + c];
-    if (f != o) continue;
-    // the tied maxima of output row m, channel c (row i's own tap included)
-    int count = 0;
-    for (int k2 = 0; k2 < K; ++k2) {
-      const int r = nbr[(long long)k2 * n_out + m];
-      if (r >= 0 && feats[(long long)r * C + c] == o) ++count;
-    }
-    acc += g[(long long)m * C + c] / (float)count;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (outs[k] < 0) continue;
+    const long long mc = (long long)outs[k] * C + c;
+    if (f == out[mc]) acc += share[mc];
   }
   df[t] = acc;
 }
@@ -132,16 +167,20 @@ extern "C" int sparse_sumpool_fwd(const float* feats, const int* nbr, int n_out,
 
 // Max mode's backward. feats (n_in, C), out (n_out, C) the forward's output,
 // g (n_out, C), all float32; nbr (K, n_out) the forward's map; tnbr
-// (K, n_in) the transpose-query map of the same geometry; df (n_in, C)
-// float32, every element written.
+// (K, n_in) the transpose-query map of the same geometry; share (n_out, C)
+// float32 scratch; df (n_in, C) float32, every element written.
 extern "C" int sparse_maxpool_bwd(const float* feats, const float* out, const float* g,
                                   const int* nbr, const int* tnbr, int n_in, int n_out, int K,
-                                  float* df, int C, void* stream) {
+                                  float* share, float* df, int C, void* stream) {
   if (n_in == 0) return 0;
   if (K <= 0 || K > KMAX || C <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_sh = (long long)n_out * C;
+  if (n_sh > 0)
+    sparse_maxpool_share_kernel<<<(unsigned)((n_sh + NT - 1) / NT), NT, 0, s>>>(
+        feats, out, g, nbr, n_out, K, share, C);
   const long long n = (long long)n_in * C;
-  sparse_maxpool_bwd_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0,
-                              static_cast<cudaStream_t>(stream)>>>(feats, out, g, nbr, tnbr,
-                                                                   n_in, n_out, K, df, C);
+  sparse_maxpool_bwd_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, s>>>(feats, out, share,
+                                                                         tnbr, n_in, K, df, C);
   return (int)cudaGetLastError();
 }

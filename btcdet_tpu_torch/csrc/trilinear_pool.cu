@@ -45,31 +45,49 @@
 // the scatter transpose of the same sampling, which the JAX package runs
 // as the XLA VJP of pallas_interp._xla_reference_pool (pallas_interp.py
 // :284-288): each valid sample (r, s) adds g[r, s, :] * w_corner to each of
-// its in-volume corner cells. It is written as an ordered gather so that
-// two calls give the same bits (float atomics would add in another order
-// each run):
-//   1. one thread per sample writes, per corner (entry e = 8 * sample +
-//      corner), the corner's linear cell (or the sentinel M = B*D*H*W for
-//      a corner outside the volume or an invalid sample) and its weight in
-//      the forward's f32 arithmetic, and counts entries per cell with an
-//      integer atomic (one for a warp's lanes of one cell) whose ticket is
-//      the entry's slot in its cell;
-//   2. an exclusive scan of the counts gives each cell's segment, and each
-//      entry goes to its slot there (an order that differs from run to run);
-//   3. each segment is sorted by entry index (bitonic): one warp per cell
-//      in shared memory for segments of at most SEG_CAP entries, a block
-//      per longer segment (in shared memory up to LONG_CAP entries), so a
-//      cell's entries come in ascending (r, s, corner) order on every call;
-//   4. one warp per cell of the volume walks its sorted segment, lanes
-//      over channels with 16-byte loads of g (4 loads in flight per lane;
-//      for C <= 128 the warp's lane groups take every other entry and are
-//      added in group order at the end), sums g * w in f32 with a Kahan
-//      compensation, and writes the cell's row once, in the volume's dtype
-//      (0 for an untouched cell): one rounding, as the plain version's
-//      .to(dtype). No float atomics anywhere.
-// Its floor is memory (g and the whole output volume); on the train call
-// most of its time is step 4, whose warps walk segments of hundreds to a
-// few thousand entries (overlapping rois) one row after another.
+// its in-volume corner cells. Float atomics would add in another order on
+// every run, so it is an ordered gather whose order is fixed by
+// construction: each cell sums its entries (e = 8 * sample + corner)
+// ascending by e, in chunks of at most CH entries, each chunk Kahan-
+// compensated in round-to-nearest f32, the chunks' values added in chunk
+// order (Kahan again), and the row rounded once to the volume's dtype.
+// cuda_interp.trilinear_pool_volume_grad_ordered is this order in plain
+// PyTorch, equal bit for bit.
+//
+// What bounds it on an H100: the function needs g's rows once (170 MB in
+// bf16 on the flagship train call) and the whole output volume written
+// once (90 MB): 0.08 ms of HBM time. The kernel moves more: every sample's
+// g row is read once per corner cell (5.3 M gathers of 256 B, mostly from
+// L2), its f32 Kahan sums take 5 float operations per (entry, channel),
+// and grouping 5.3 M entries by cell costs a sort. The design:
+//   1. corner_entries: one thread a sample writes its 8 entries' cell keys
+//      (a sentinel past the volume) and weights, and the first sort pass's
+//      digit histogram of its tile (shared-memory integer atomics). Keys
+//      walk tiles of 8 x 8 cells in (y, x) over all z, and 2 x 2 x 2 cubes
+//      inside a tile, so cells that share samples have near keys.
+//   2. an LSD radix sort by key, 10-bit digits (2 passes at the flagship's
+//      422 400 keys): per pass a digit histogram of each 8 192-entry tile,
+//      their scan, and a stable scatter that ranks a tile's entries in
+//      shared memory (__match_any_sync per 32 entries, warps in order) and
+//      writes each digit's run out contiguously. Stable, so each cell's
+//      entries stay ascending by e; it carries (e, weight) pairs.
+//   3. segment_bounds: each cell's segment from where the sorted keys
+//      change (no atomics); a scan of the cells' entry, chunk, partial-row
+//      and multi-chunk counts; chunk_list: the (cell, chunk) work list,
+//      ordered by cube, then chunk, then cell, so the chunks summed side by
+//      side read the same samples' rows; zero_fill: one coalesced pass of
+//      0s over the untouched cells' rows.
+//   4. chunk_sum: one thread a (chunk, 8 channels), 16-byte loads of g, 4
+//      rows in flight, no chunk longer than CH: a cell of thousands of
+//      entries is summed by dozens of threads at once. A cell of one chunk
+//      writes its row; longer cells write f32 partial rows.
+//   5. chunk_combine: one thread a (cell of several chunks, 8 channels)
+//      adds the partial rows in chunk order and writes the row once.
+// Bit for bit on a repeat, no float atomics, nothing allocated: the
+// workspace (trilinear_pool_bwd_workspace) holds keys, weights, pairs,
+// offsets, the work list and the partial rows.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,121 +247,218 @@ int launch(const void* vol, int B, int D, int H, int W, int C, const long long* 
 // ------------------------------------------------------------- backward
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int BW_NT = 256;                           // threads of the entry kernels
 constexpr int SCAN_NT = 1024;                        // 32 warps
 constexpr int SCAN_ITEMS = 4;
 constexpr int SCAN_TILE = SCAN_NT * SCAN_ITEMS;
-constexpr int SUM_NT = 128;                          // 4 warps, one cell each
-constexpr int SUM_UNROLL = 4;                        // g rows in flight per lane
-constexpr int SEG_CAP = 1024;                        // longest segment a warp sorts in shared memory
-constexpr int LONG_NT = 256;                         // threads of the long-segment sort
-constexpr int LONG_CAP = 4096;                       // longest segment it sorts in shared memory
-constexpr int LONG_BLOCKS = 1056;                     // 8 an SM
+constexpr int RADIX_BITS = 10;                       // digit of one sort pass
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int SORT_NT = 512;                         // 16 warps
+constexpr int SORT_WARPS = SORT_NT / 32;
+constexpr int SORT_ROUNDS = 16;                      // 32-entry rounds of a warp
+constexpr int SORT_TILE = SORT_NT * SORT_ROUNDS;     // entries of a sort block
+constexpr int ENT_NT = SORT_TILE / 8;                // samples of an entry block: one sort tile
+constexpr int CH = 64;                               // most entries of a chunk
+constexpr int NT_1D = 256;                           // threads of the one-pass kernels
+constexpr int SUM_NT = 512;                          // threads of the chunk sum
+constexpr int SUM_UNROLL = 4;                        // g rows in flight per thread
+constexpr int COMBINE_UNROLL = 4;                    // partial rows in flight per thread
+constexpr int TILE = 8;                              // cells of a key tile along y and x
 
-// exclusive scan of v over a block of SCAN_NT threads; *total gets the sum
-__device__ __forceinline__ int block_scan_excl(int v, int* total) {
-  __shared__ int warp_sums[32];
+// The cells in the order of their sort key: tiles of 8 x 8 cells in (y, x)
+// over every z (D rounded up to even), tile after tile (frame-major); in a
+// tile, cubes of 2 x 2 x 2 cells (z, then y, then x), the 8 cells of a
+// cube consecutive. A sample's corners are the cells of one such cube
+// where its corner (z0, y0, x0) has even coordinates, and of neighbouring
+// cubes otherwise, so the chunks summed close in time share g rows. Keys
+// of cells past D, H or W exist but never hold an entry.
+struct KeyGeom {
+  int D, H, W, ty, tx;  // tiles along y and x
+  int tile_keys;        // (D rounded up to even) * TILE * TILE
+
+  __device__ __forceinline__ int key(int b, int z, int y, int x) const {
+    const int tile = (b * ty + y / TILE) * tx + x / TILE;
+    const int ly = y % TILE, lx = x % TILE;
+    const int cube = ((z >> 1) * (TILE / 2) + (ly >> 1)) * (TILE / 2) + (lx >> 1);
+    return tile * tile_keys + cube * 8 + (z & 1) * 4 + (ly & 1) * 2 + (lx & 1);
+  }
+  // the linear (b, z, y, x) cell of a key that holds entries
+  __device__ __forceinline__ long long cell(int k) const {
+    const int tile = k / tile_keys, r = k - tile * tile_keys;
+    const int cube = r >> 3;
+    const int lx = (cube % (TILE / 2)) * 2 + (r & 1);
+    const int ly = (cube / (TILE / 2) % (TILE / 2)) * 2 + ((r >> 1) & 1);
+    const int z = (cube / (TILE * TILE / 4)) * 2 + ((r >> 2) & 1);
+    const int x = tile % tx * TILE + lx, y = tile / tx % ty * TILE + ly, b = tile / tx / ty;
+    return (((long long)b * D + z) * H + y) * W + x;
+  }
+};
+
+KeyGeom key_geom(int D, int H, int W) {
+  return {D, H, W, (H + TILE - 1) / TILE, (W + TILE - 1) / TILE, (D + 1) / 2 * 2 * TILE * TILE};
+}
+
+// keys of a volume: every cell has one below the returned count
+long long key_count(int B, int D, int H, int W) {
+  const KeyGeom k = key_geom(D, H, W);
+  return (long long)B * k.ty * k.tx * k.tile_keys;
+}
+
+// per cell key: its entries, chunks, partial rows (the chunks of a cell of
+// more than one) and whether it has more than one chunk; scanned together
+struct Seg {
+  int n, nch, np, nm;
+};
+__device__ __forceinline__ Seg operator+(const Seg& a, const Seg& b) {
+  return {a.n + b.n, a.nch + b.nch, a.np + b.np, a.nm + b.nm};
+}
+__device__ __forceinline__ Seg operator-(const Seg& a, const Seg& b) {
+  return {a.n - b.n, a.nch - b.nch, a.np - b.np, a.nm - b.nm};
+}
+__device__ __forceinline__ int shfl_up(int v, int o) { return __shfl_up_sync(FULL, v, o); }
+__device__ __forceinline__ Seg shfl_up(const Seg& v, int o) {
+  return {shfl_up(v.n, o), shfl_up(v.nch, o), shfl_up(v.np, o), shfl_up(v.nm, o)};
+}
+
+// exclusive scan of v over a block of NT threads; *total gets the sum
+template <typename V, int NT = SCAN_NT>
+__device__ __forceinline__ V block_scan_excl(V v, V* total) {
+  __shared__ V warp_sums[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+  V x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
+    const V y = shfl_up(x, o);
+    if (lane >= o) x = x + y;
   }
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int t = warp_sums[lane];
+    V t = lane < NT / 32 ? warp_sums[lane] : V{};
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, t, o);
-      if (lane >= o) t += y;
+      const V y = shfl_up(t, o);
+      if (lane >= o) t = t + y;
     }
     warp_sums[lane] = t;
   }
   __syncthreads();
-  const int before = warp ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[31];
+  const V before = warp ? warp_sums[warp - 1] : V{};
+  *total = warp_sums[NT / 32 - 1];
   __syncthreads();  // warp_sums is reused by the next call
   return before + x - v;
 }
 
-// partials[b] = sum of data over block b's SCAN_TILE items
-__global__ void __launch_bounds__(SCAN_NT) scan_reduce_kernel(const int* __restrict__ data,
-                                                              long long n,
-                                                              int* __restrict__ partials) {
+// an int array scanned in place
+struct IntScan {
+  int* data;
+  __device__ int load(long long i) const { return data[i]; }
+  __device__ void store(long long i, int v) const { data[i] = v; }
+};
+
+// the cell keys' segments [lo, hi) scanned into entry, chunk, partial-row
+// and multi-chunk-cell offsets (key `last` = the sentinel's, counted 0:
+// its offsets are the totals)
+struct SegScan {
+  const int *lo, *hi;
+  int *off, *choff, *poff, *moff;
+  long long last;
+  __device__ Seg load(long long i) const {
+    const int n = i < last ? hi[i] - lo[i] : 0;
+    const int nch = (n + CH - 1) / CH;
+    return {n, nch, nch > 1 ? nch : 0, nch > 1 ? 1 : 0};
+  }
+  __device__ void store(long long i, const Seg& v) const {
+    off[i] = v.n;
+    choff[i] = v.nch;
+    poff[i] = v.np;
+    moff[i] = v.nm;
+  }
+};
+
+// partials[b] = sum of the items of block b's SCAN_TILE
+template <typename V, typename Op>
+__global__ void __launch_bounds__(SCAN_NT) scan_reduce_kernel(Op op, long long n,
+                                                              V* __restrict__ partials) {
   const long long base = (long long)blockIdx.x * SCAN_TILE + threadIdx.x * SCAN_ITEMS;
-  int s = 0;
+  V s{};
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k)
-    if (base + k < n) s += data[base + k];
-  int total;
+    if (base + k < n) s = s + op.load(base + k);
+  V total;
   block_scan_excl(s, &total);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
 // exclusive scan of partials[0, P) in place, one block, chunk by chunk
-__global__ void __launch_bounds__(SCAN_NT) scan_partials_kernel(int* __restrict__ partials,
+template <typename V>
+__global__ void __launch_bounds__(SCAN_NT) scan_partials_kernel(V* __restrict__ partials,
                                                                 long long P) {
-  int carry = 0;
+  V carry{};
   for (long long c0 = 0; c0 < P; c0 += SCAN_TILE) {
     const long long base = c0 + threadIdx.x * SCAN_ITEMS;
-    int v[SCAN_ITEMS], s = 0;
+    V v[SCAN_ITEMS], s{};
 #pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
-      v[k] = base + k < P ? partials[base + k] : 0;
-      s += v[k];
+      v[k] = base + k < P ? partials[base + k] : V{};
+      s = s + v[k];
     }
-    int total;
-    int ex = block_scan_excl(s, &total) + carry;
+    V total;
+    V ex = block_scan_excl(s, &total) + carry;
 #pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
       if (base + k < P) partials[base + k] = ex;
-      ex += v[k];
+      ex = ex + v[k];
     }
-    carry += total;
+    carry = carry + total;
   }
 }
 
-// data <- exclusive scan of data, block b starting from partials[b]
-__global__ void __launch_bounds__(SCAN_NT) scan_apply_kernel(int* __restrict__ data, long long n,
-                                                             const int* __restrict__ partials) {
+// item i <- the exclusive scan at i, block b starting from partials[b]
+template <typename V, typename Op>
+__global__ void __launch_bounds__(SCAN_NT) scan_apply_kernel(Op op, long long n,
+                                                             const V* __restrict__ partials) {
   const long long base = (long long)blockIdx.x * SCAN_TILE + threadIdx.x * SCAN_ITEMS;
-  int v[SCAN_ITEMS], s = 0;
+  V v[SCAN_ITEMS], s{};
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    v[k] = base + k < n ? data[base + k] : 0;
-    s += v[k];
+    v[k] = base + k < n ? op.load(base + k) : V{};
+    s = s + v[k];
   }
-  int total;
-  int ex = block_scan_excl(s, &total) + partials[blockIdx.x];
+  V total;
+  V ex = block_scan_excl(s, &total) + partials[blockIdx.x];
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    if (base + k < n) data[base + k] = ex;
-    ex += v[k];
+    if (base + k < n) op.store(base + k, ex);
+    ex = ex + v[k];
   }
 }
 
-int exclusive_scan(int* data, long long n, int* partials, cudaStream_t s) {
+template <typename V, typename Op>
+int exclusive_scan(Op op, long long n, V* partials, cudaStream_t s) {
   const long long P = (n + SCAN_TILE - 1) / SCAN_TILE;
   if (P == 0) return 0;
   if (P > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  scan_reduce_kernel<<<(unsigned)P, SCAN_NT, 0, s>>>(data, n, partials);
-  scan_partials_kernel<<<1, SCAN_NT, 0, s>>>(partials, P);
-  scan_apply_kernel<<<(unsigned)P, SCAN_NT, 0, s>>>(data, n, partials);
+  scan_reduce_kernel<V, Op><<<(unsigned)P, SCAN_NT, 0, s>>>(op, n, partials);
+  scan_partials_kernel<V><<<1, SCAN_NT, 0, s>>>(partials, P);
+  scan_apply_kernel<V, Op><<<(unsigned)P, SCAN_NT, 0, s>>>(op, n, partials);
   return 0;
 }
 
-// step 1: per (sample, corner) entry its cell (M when out), its slot among
-// the cell's entries (an integer atomic's ticket, one atomic for the lanes
-// of a warp with the same cell: any order) and weight; cnt[cell] counts
-// the entries of each cell
-__global__ void __launch_bounds__(BW_NT) corner_entries_kernel(
+
+// step 1: one thread a sample writes the sort keys of its 8 (sample,
+// corner) entries, e = 8 * sample + corner: the corner's cell key, or the
+// sentinel Mkey for a corner outside the volume or an invalid sample, and
+// their weights in the forward's f32 arithmetic; and,
+// a block being one sort tile, the tile's histogram of the first sort
+// pass's digit (sentinels included; shared-memory integer atomics)
+__global__ void __launch_bounds__(ENT_NT) corner_entries_kernel(
     const float* __restrict__ zyx, const uint8_t* __restrict__ valid,
-    const int* __restrict__ roi_b, int B, int D, int H, int W, long long RS, int S, int M,
-    int* __restrict__ keys, int* __restrict__ slots, float* __restrict__ wts,
-    int* __restrict__ cnt) {
-  const long long rs = (long long)blockIdx.x * BW_NT + threadIdx.x;
+    const int* __restrict__ roi_b, int B, KeyGeom kg, long long RS, int S, int Mkey,
+    int* __restrict__ keys, float* __restrict__ wts, int* __restrict__ hist, int nblk) {
+  __shared__ int h[RADIX];
+  for (int d = threadIdx.x; d < RADIX; d += ENT_NT) h[d] = 0;
+  __syncthreads();
+  const long long rs = (long long)blockIdx.x * ENT_NT + threadIdx.x;
   const bool live = rs < RS;
   const int b = live ? roi_b[rs / S] : -1;
   const bool ok = live && b >= 0 && b < B && valid[rs] != 0;
@@ -354,102 +469,202 @@ __global__ void __launch_bounds__(BW_NT) corner_entries_kernel(
     x = zyx[rs * 3 + 2];
   }
   const float z0 = floorf(z), y0 = floorf(y), x0 = floorf(x);
-  const int lane = threadIdx.x & 31;
+  int key[8];
+  float w[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int dz = j >> 2, dy = (j >> 1) & 1, dx = j & 1;
     const float zf = z0 + dz, yf = y0 + dy, xf = x0 + dx;
-    int key = M;
-    float w = 0.f;
-    if (ok && zf >= 0.f && zf < (float)D && yf >= 0.f && yf < (float)H && xf >= 0.f &&
-        xf < (float)W) {
-      key = (int)((((long long)b * D + (int)zf) * H + (int)yf) * W + (int)xf);
-      w = __fmul_rn(__fmul_rn(axis_weight(z, z0, dz), axis_weight(y, y0, dy)),
-                    axis_weight(x, x0, dx));
+    key[j] = Mkey;
+    w[j] = 0.f;
+    if (ok && zf >= 0.f && zf < (float)kg.D && yf >= 0.f && yf < (float)kg.H && xf >= 0.f &&
+        xf < (float)kg.W) {
+      key[j] = kg.key(b, (int)zf, (int)yf, (int)xf);
+      w[j] = __fmul_rn(__fmul_rn(axis_weight(z, z0, dz), axis_weight(y, y0, dy)),
+                       axis_weight(x, x0, dx));
     }
-    const unsigned peers = __match_any_sync(FULL, live ? key : -1);
+    if (live) atomicAdd(h + (key[j] & (RADIX - 1)), 1);
+  }
+  if (live) {
+    int4* p = reinterpret_cast<int4*>(keys + rs * 8);
+    p[0] = make_int4(key[0], key[1], key[2], key[3]);
+    p[1] = make_int4(key[4], key[5], key[6], key[7]);
+    float4* q = reinterpret_cast<float4*>(wts + rs * 8);
+    q[0] = make_float4(w[0], w[1], w[2], w[3]);
+    q[1] = make_float4(w[4], w[5], w[6], w[7]);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < RADIX; d += ENT_NT)
+    hist[(long long)d * nblk + blockIdx.x] = h[d];
+}
+
+// a later sort pass's histogram of its digit, one column per sort tile
+__global__ void __launch_bounds__(SORT_NT) radix_upsweep_kernel(const int* __restrict__ keys,
+                                                                long long n, int shift, int nblk,
+                                                                int* __restrict__ hist) {
+  __shared__ int h[RADIX];
+  for (int d = threadIdx.x; d < RADIX; d += SORT_NT) h[d] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * SORT_TILE;
+  for (int i = threadIdx.x; i < SORT_TILE; i += SORT_NT) {
+    const long long p = base + i;
+    if (p < n) atomicAdd(h + ((keys[p] >> shift) & (RADIX - 1)), 1);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < RADIX; d += SORT_NT) hist[(long long)d * nblk + blockIdx.x] = h[d];
+}
+
+// shared memory of radix_downsweep_kernel: per-warp digit counts, the
+// digits' block-local starts, the tile's keys and their slots in the tile,
+// in digit order
+constexpr int DOWN_SMEM = SORT_WARPS * RADIX * 2 + RADIX * 4 + SORT_TILE * 6;
+
+// one stable counting-sort pass by the digit at `shift`: hist holds the
+// exclusive scan of the (digit, tile) counts, digit-major, so a tile's
+// entries of digit d start at hist[d * nblk + tile]. Inside a tile, warp w
+// ranks its 512 entries in order, 32 a round (lanes of one digit by
+// __match_any_sync, earlier rounds by a per-warp count), and the warps'
+// counts are added in warp order: the pass keeps the entries' order within
+// a digit. The tile is put in digit order in shared memory first, so each
+// digit's run is written out contiguously. The values are (entry, weight
+// bits) pairs; pairs_in null (the first pass): the entry is the position
+// and its weight wts[position]
+__global__ void __launch_bounds__(SORT_NT) radix_downsweep_kernel(
+    const int* __restrict__ keys_in, const int2* __restrict__ pairs_in,
+    const float* __restrict__ wts, long long n, int shift, int nblk,
+    const int* __restrict__ hist, int* __restrict__ keys_out, int2* __restrict__ pairs_out) {
+  extern __shared__ int4 smem4[];
+  unsigned short(*s_cnt)[RADIX] = reinterpret_cast<unsigned short(*)[RADIX]>(smem4);
+  int* s_base = reinterpret_cast<int*>(s_cnt + SORT_WARPS);
+  int* s_key = s_base + RADIX;
+  unsigned short* s_slot = reinterpret_cast<unsigned short*>(s_key + SORT_TILE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < SORT_WARPS * RADIX; i += SORT_NT) (&s_cnt[0][0])[i] = 0;
+  __syncthreads();
+  const long long tile0 = (long long)blockIdx.x * SORT_TILE;
+  const int slot0 = warp * (SORT_ROUNDS * 32) + lane;
+  int key[SORT_ROUNDS], rank[SORT_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const long long p = tile0 + slot0 + r * 32;
+    key[r] = p < n ? keys_in[p] : -1;
+  }
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const int d = key[r] < 0 ? -1 : (key[r] >> shift) & (RADIX - 1);
+    const unsigned peers = __match_any_sync(FULL, d);
     const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (live && key != M && lane == leader) base = atomicAdd(cnt + key, __popc(peers));
-    base = __shfl_sync(FULL, base, leader);
-    if (live) {
-      const long long e = rs * 8 + j;
-      keys[e] = key;
-      slots[e] = base + __popc(peers & ((1u << lane) - 1u));
-      wts[e] = w;
+    int before = 0;
+    if (lane == leader && d >= 0) {
+      before = s_cnt[warp][d];
+      s_cnt[warp][d] = (unsigned short)(before + __popc(peers));
     }
+    rank[r] = __shfl_sync(FULL, before, leader) + __popc(peers & lt);
+    __syncwarp();
+  }
+  __syncthreads();
+  // per digit: the warps' starts within the digit, then the digits'
+  // block-local starts (a block scan of the digits' totals)
+  constexpr int DPT = RADIX / SORT_NT;  // digits a thread
+  int tot[DPT], sum = 0;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int d = threadIdx.x * DPT + j;
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < SORT_WARPS; ++w) {
+      const int c = s_cnt[w][d];
+      s_cnt[w][d] = (unsigned short)run;
+      run += c;
+    }
+    tot[j] = run;
+    sum += run;
+  }
+  int total;
+  int start = block_scan_excl<int, SORT_NT>(sum, &total);
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    s_base[threadIdx.x * DPT + j] = start;
+    start += tot[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    if (key[r] < 0) continue;
+    const int d = (key[r] >> shift) & (RADIX - 1);
+    const int at = s_base[d] + s_cnt[warp][d] + rank[r];
+    s_key[at] = key[r];
+    s_slot[at] = (unsigned short)(slot0 + r * 32);
+  }
+  __syncthreads();
+  // s_base becomes the shift from a digit-ordered slot to its global position
+  for (int d = threadIdx.x; d < RADIX; d += SORT_NT)
+    s_base[d] = hist[(long long)d * nblk + blockIdx.x] - s_base[d];
+  __syncthreads();
+  const int live = (int)min((long long)SORT_TILE, n - tile0);
+  for (int i = threadIdx.x; i < live; i += SORT_NT) {
+    const int k = s_key[i];
+    const int pos = s_base[(k >> shift) & (RADIX - 1)] + i;
+    const long long src = tile0 + s_slot[i];
+    keys_out[pos] = k;
+    pairs_out[pos] = pairs_in ? pairs_in[src] : make_int2((int)src, __float_as_int(wts[src]));
   }
 }
 
-// step 2: each in-volume entry to its slot of its cell's segment (off holds
-// the exclusive scan of the counts, off[M + 1] the number of long
-// segments); the first entry of a segment longer than SEG_CAP lists it
-__global__ void __launch_bounds__(BW_NT) entry_scatter_kernel(
-    const int* __restrict__ keys, const int* __restrict__ slots, long long N, int M,
-    int* __restrict__ off, int* __restrict__ vals, int* __restrict__ long_cells) {
-  const long long e = (long long)blockIdx.x * BW_NT + threadIdx.x;
-  if (e >= N) return;
-  const int key = keys[e];
-  if (key == M) return;
-  const int slot = slots[e];
-  const int start = off[key];
-  vals[start + slot] = (int)e;
-  if (slot == 0 && off[key + 1] - start > SEG_CAP) long_cells[atomicAdd(off + M + 1, 1)] = key;
+// step 3: each cell key's segment [lo, hi) of the sorted entries, from
+// where the sorted keys change (keys without entries keep lo = hi = 0)
+__global__ void __launch_bounds__(NT_1D) segment_bounds_kernel(const int* __restrict__ keys,
+                                                                long long n, int Mkey,
+                                                                int* __restrict__ lo,
+                                                                int* __restrict__ hi) {
+  const long long p = (long long)blockIdx.x * NT_1D + threadIdx.x;
+  if (p >= n) return;
+  const int k = keys[p];
+  if (k == Mkey) return;
+  if (p == 0 || keys[p - 1] != k) lo[k] = (int)p;
+  if (p + 1 == n || keys[p + 1] != k) hi[k] = (int)p + 1;
 }
 
-// ascending sort of a[0, n) (distinct keys) by a bitonic network whose
-// merges flip the lower half, so every comparator puts the smaller key at
-// the lower index and the positions past n act as +inf and never move.
-// The threads tid, tid + nt, ... of a group of nt take the comparators;
-// sync() separates the steps.
-template <typename Sync>
-__device__ __forceinline__ void bitonic_sort(int* a, int n, int tid, int nt, Sync sync) {
-  int P = 2;
-  while (P < n) P <<= 1;
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int h = k >> 1; h > 0; h >>= 1) {
-      for (int p = tid; p < P / 2; p += nt) {
-        const int i = ((p & ~(h - 1)) << 1) | (p & (h - 1));
-        const int j = h == k >> 1 ? i ^ (k - 1) : i + h;  // the flip, then half-cleaners
-        if (j < n) {
-          const int x = a[i], y = a[j];
-          if (x > y) {
-            a[i] = y;
-            a[j] = x;
-          }
-        }
-      }
-      sync();
-    }
+// the work lists, one thread a cube of 8 cell keys: every chunk as (cell
+// key, chunk in the cell), in the cube's chunk range ordered by chunk,
+// then cell (the cube's cells' first chunks, then their second ones, ...),
+// so the chunks summed side by side cover the same stretch of samples;
+// and the keys of the cells of more than one chunk
+__global__ void __launch_bounds__(NT_1D) chunk_list_kernel(
+    const int* __restrict__ choff, const int* __restrict__ moff, int Mkey,
+    int2* __restrict__ work, int* __restrict__ multi_key) {
+  const int c0 = (blockIdx.x * NT_1D + threadIdx.x) * 8;
+  if (c0 >= Mkey) return;
+  int q = choff[c0], nch[8], most = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    nch[i] = choff[c0 + i + 1] - choff[c0 + i];
+    most = max(most, nch[i]);
+    if (nch[i] > 1) multi_key[moff[c0 + i]] = c0 + i;
   }
+  for (int k = 0; k < most; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (k < nch[i]) work[q++] = make_int2(c0 + i, k);
 }
 
-struct BlockSync {
-  __device__ void operator()() const { __syncthreads(); }
-};
-struct WarpSync {
-  __device__ void operator()() const { __syncwarp(); }
-};
-
-// step 3: the segments longer than SEG_CAP, one block each: in shared
-// memory up to LONG_CAP entries, in place in global memory beyond
-__global__ void __launch_bounds__(LONG_NT) long_segment_sort_kernel(
-    const int* __restrict__ off, int M, const int* __restrict__ long_cells, int* vals) {
-  __shared__ int buf[LONG_CAP];
-  const int n_long = off[M + 1];
-  for (int i = blockIdx.x; i < n_long; i += gridDim.x) {
-    const int cell = long_cells[i];
-    const int start = off[cell], n = off[cell + 1] - start;
-    int* seg = vals + start;
-    if (n > LONG_CAP) {
-      bitonic_sort(seg, n, threadIdx.x, LONG_NT, BlockSync{});
-      continue;
-    }
-    for (int k = threadIdx.x; k < n; k += LONG_NT) buf[k] = seg[k];
-    __syncthreads();
-    bitonic_sort(buf, n, threadIdx.x, LONG_NT, BlockSync{});
-    for (int k = threadIdx.x; k < n; k += LONG_NT) seg[k] = buf[k];
-    __syncthreads();
+// 0 in every row of a cell without entries, 16 bytes a thread, in the
+// output's order
+template <typename T>
+__global__ void __launch_bounds__(NT_1D) zero_fill_kernel(const int* __restrict__ off,
+                                                          KeyGeom kg, long long units,
+                                                          int row_units, T* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * NT_1D;
+  for (long long u = (long long)blockIdx.x * NT_1D + threadIdx.x; u < units; u += stride) {
+    long long cell = u / row_units;
+    const int x = (int)(cell % kg.W);
+    cell /= kg.W;
+    const int y = (int)(cell % kg.H);
+    cell /= kg.H;
+    const int z = (int)(cell % kg.D);
+    const int k = kg.key((int)(cell / kg.D), z, y, x);
+    if (off[k + 1] == off[k]) __stcs(reinterpret_cast<uint4*>(out) + u, make_uint4(0, 0, 0, 0));
   }
 }
 
@@ -461,97 +676,123 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
   s = t;
 }
 
-// step 4: one warp per cell; a segment of at most SEG_CAP entries is
-// sorted by entry in the warp's shared buffer (longer ones were sorted by
-// step 3). Lanes of a group of Lp (a power of two, Lp * 8 channels a pass)
-// cover the channels, the 32 / Lp groups take every (32 / Lp)-th entry of
-// the segment and are added in group order
+// step 4: one thread a (chunk, 8 channels), over the work list in a
+// grid-stride loop, so the resident threads sum neighbouring chunks. The
+// chunk's entries (at most CH, ascending by entry) are summed in order,
+// g[sample] * weight (the weight beside the entry in the sorted pairs),
+// Kahan in f32, SUM_UNROLL g rows in flight. A cell of one chunk writes
+// its row (rounded once to the volume's dtype), a longer cell the chunk's
+// value s - c, in f32, to its partial row.
 template <typename T>
-__global__ void __launch_bounds__(SUM_NT) cell_sum_kernel(
-    const T* __restrict__ g, int C, int Lp, const int* __restrict__ off, const int* vals,
-    const float* __restrict__ wts, int M, T* __restrict__ out) {
-  __shared__ int buf[SUM_NT / 32][SEG_CAP];
-  const int lane = threadIdx.x & 31;
-  const long long cell = (long long)blockIdx.x * (SUM_NT / 32) + (threadIdx.x >> 5);
-  if (cell >= M) return;  // the whole warp
-  const int start = off[cell], n = off[cell + 1] - start;
-  const int* seg = vals + start;
-  if (n > 1 && n <= SEG_CAP) {
-    int* a = buf[threadIdx.x >> 5];
-    for (int i = lane; i < n; i += 32) a[i] = seg[i];
-    __syncwarp();
-    bitonic_sort(a, n, lane, 32, WarpSync{});
-    seg = a;
+__global__ void __launch_bounds__(SUM_NT) chunk_sum_kernel(
+    const T* __restrict__ g, int C, const int* __restrict__ off,
+    const int* __restrict__ choff, const int* __restrict__ poff, const int2* __restrict__ work,
+    const int2* __restrict__ pairs, int Mkey, KeyGeom kg, float* __restrict__ partial,
+    T* __restrict__ out) {
+  const int slices = C / 8;
+  const long long items = (long long)choff[Mkey] * slices;
+  const long long stride = (long long)gridDim.x * SUM_NT;
+  for (long long it = (long long)blockIdx.x * SUM_NT + threadIdx.x; it < items; it += stride) {
+    const long long q = it / slices;
+    const int ch = (int)(it - q * slices) * 8;
+    const int2 wk = work[q];
+    const int c = wk.x, k = wk.y, nch = choff[c + 1] - choff[c];
+    const int begin = off[c] + k * CH, len = min(CH, off[c + 1] - begin);
+    float s[8], cp[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = cp[i] = 0.f;
+    for (int t0 = 0; t0 < len; t0 += SUM_UNROLL) {
+      int2 pr[SUM_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SUM_UNROLL; ++u)
+        pr[u] = t0 + u < len ? pairs[begin + t0 + u] : make_int2(-1, 0);
+      Raw8<T> v[SUM_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SUM_UNROLL; ++u)
+        if (pr[u].x >= 0) v[u] = load8(g + (long long)(pr[u].x >> 3) * C + ch);
+#pragma unroll
+      for (int u = 0; u < SUM_UNROLL; ++u) {
+        if (pr[u].x < 0) continue;
+        const float w = __int_as_float(pr[u].y);
+        float f[8];
+        widen(v[u], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kahan_add(s[i], cp[i], __fmul_rn(f[i], w));
+      }
+    }
+    float r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = __fsub_rn(s[i], cp[i]);
+    if (nch == 1) {
+      store8(out + kg.cell(c) * C + ch, r);
+    } else {
+      float4* p = reinterpret_cast<float4*>(partial + ((long long)poff[c] + k) * C + ch);
+      p[0] = make_float4(r[0], r[1], r[2], r[3]);
+      p[1] = make_float4(r[4], r[5], r[6], r[7]);
+    }
   }
-  const int groups = 32 / Lp, q = lane / Lp, u = lane - q * Lp;
-  for (int ch0 = 0; ch0 < C; ch0 += Lp * 8) {
-    const int ch = ch0 + u * 8;
-    const bool ch_ok = ch < C;
-    float s[8], c[8];
+}
+
+// step 5: one thread a (cell of more than one chunk, 8 channels): the
+// chunks' values added in chunk order, Kahan in f32, and the row written
+// once in the volume's dtype
+template <typename T>
+__global__ void __launch_bounds__(NT_1D) chunk_combine_kernel(
+    int C, const int* __restrict__ choff, const int* __restrict__ poff,
+    const int* __restrict__ moff, const int* __restrict__ multi_key, int Mkey, KeyGeom kg,
+    const float* __restrict__ partial, T* __restrict__ out) {
+  const int slices = C / 8;
+  const long long items = (long long)moff[Mkey] * slices;
+  const long long stride = (long long)gridDim.x * NT_1D;
+  for (long long it = (long long)blockIdx.x * NT_1D + threadIdx.x; it < items; it += stride) {
+    const long long mi = it / slices;
+    const int ch = (int)(it - mi * slices) * 8;
+    const int c = multi_key[mi];
+    const int nch = choff[c + 1] - choff[c];
+    const float* row = partial + (long long)poff[c] * C + ch;
+    float s[8], cp[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] = c[k] = 0.f;
-    for (int k0 = 0; k0 < n; k0 += 32) {
-      const int nb = min(32, n - k0);
-      int e = 0;
-      float we = 0.f;
-      if (lane < nb) {
-        e = seg[k0 + lane];
-        we = wts[e];
-      }
-      for (int t0 = 0; t0 < nb; t0 += groups * SUM_UNROLL) {
-        Raw8<T> v[SUM_UNROLL];
-        float wv[SUM_UNROLL];
-        bool okv[SUM_UNROLL];
+    for (int i = 0; i < 8; ++i) s[i] = cp[i] = 0.f;
+    for (int k0 = 0; k0 < nch; k0 += COMBINE_UNROLL) {
+      float4 v[COMBINE_UNROLL][2];
 #pragma unroll
-        for (int k = 0; k < SUM_UNROLL; ++k) {
-          const int t = t0 + k * groups + q;
-          const int et = __shfl_sync(FULL, e, t & 31);
-          wv[k] = __shfl_sync(FULL, we, t & 31);
-          okv[k] = t < nb && ch_ok;
-          if (okv[k]) v[k] = load8(g + (long long)(et >> 3) * C + ch);
+      for (int u = 0; u < COMBINE_UNROLL; ++u)
+        if (k0 + u < nch) {
+          const float4* p = reinterpret_cast<const float4*>(row + (long long)(k0 + u) * C);
+          v[u][0] = p[0];
+          v[u][1] = p[1];
         }
 #pragma unroll
-        for (int k = 0; k < SUM_UNROLL; ++k) {
-          if (!okv[k]) continue;
-          float f[8];
-          widen(v[k], f);
+      for (int u = 0; u < COMBINE_UNROLL; ++u) {
+        if (k0 + u >= nch) continue;
+        const float f[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                            v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
 #pragma unroll
-          for (int cc = 0; cc < 8; ++cc) kahan_add(s[cc], c[cc], __fmul_rn(f[cc], wv[k]));
-        }
+        for (int i = 0; i < 8; ++i) kahan_add(s[i], cp[i], f[i]);
       }
     }
-    // the groups' compensated sums, added in group order into group 0
-    float acc[8], comp[8];
+    float r[8];
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) {
-      acc[cc] = __fsub_rn(s[cc], c[cc]);
-      comp[cc] = 0.f;
-    }
-    for (int gq = 1; gq < groups; ++gq) {
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        const float other = __shfl_sync(FULL, __fsub_rn(s[cc], c[cc]), (lane + gq * Lp) & 31);
-        kahan_add(acc[cc], comp[cc], other);
-      }
-    }
-    if (q == 0 && ch_ok) {
-      float r[8];
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) r[cc] = __fsub_rn(acc[cc], comp[cc]);
-      store8(out + cell * C + ch, r);
-    }
+    for (int i = 0; i < 8; ++i) r[i] = __fsub_rn(s[i], cp[i]);
+    store8(out + kg.cell(c) * C + ch, r);
   }
 }
 
 // the workspace's parts, each 256-byte aligned
 struct BwdWorkspace {
-  int *keys, *slots, *vals, *off, *long_cells, *partials;
+  int *keys_a, *keys_b, *lo, *hi, *off, *choff, *poff, *moff, *hist, *multi_key;
+  int2 *pairs_a, *pairs_b, *work;
   float* wts;
+  Seg* partials;
+  float* partial;
   long long bytes;
 };
 
-BwdWorkspace carve(char* base, long long RS, long long M) {
+long long sort_blocks(long long N) { return (N + SORT_TILE - 1) / SORT_TILE; }
+
+BwdWorkspace carve(char* base, long long RS, long long Mkey, int C) {
   const long long N = RS * 8;
+  const long long nblk = sort_blocks(N);
   BwdWorkspace w{};
   long long at = 0;
   auto take = [&](long long bytes) {
@@ -559,44 +800,100 @@ BwdWorkspace carve(char* base, long long RS, long long M) {
     at += (bytes + 255) / 256 * 256;
     return p;
   };
-  w.keys = reinterpret_cast<int*>(take(4 * N));
-  w.slots = reinterpret_cast<int*>(take(4 * N));
-  w.vals = reinterpret_cast<int*>(take(4 * N));
+  w.keys_a = reinterpret_cast<int*>(take(4 * N));
+  w.keys_b = reinterpret_cast<int*>(take(4 * N));
   w.wts = reinterpret_cast<float*>(take(4 * N));
-  w.off = reinterpret_cast<int*>(take(4 * (M + 2)));
-  w.long_cells = reinterpret_cast<int*>(take(4 * (N / (SEG_CAP + 1) + 1)));
-  w.partials = reinterpret_cast<int*>(take(4 * ((M + 1 + SCAN_TILE - 1) / SCAN_TILE)));
+  w.pairs_a = reinterpret_cast<int2*>(take(8 * N));
+  w.pairs_b = reinterpret_cast<int2*>(take(8 * N));
+  w.lo = reinterpret_cast<int*>(take(4 * 2 * (Mkey + 1)));  // lo, then hi: one memset
+  w.hi = w.lo ? w.lo + Mkey + 1 : nullptr;
+  w.off = reinterpret_cast<int*>(take(4 * (Mkey + 1)));
+  w.choff = reinterpret_cast<int*>(take(4 * (Mkey + 1)));
+  w.poff = reinterpret_cast<int*>(take(4 * (Mkey + 1)));
+  w.moff = reinterpret_cast<int*>(take(4 * (Mkey + 1)));
+  w.hist = reinterpret_cast<int*>(take(4 * RADIX * nblk));
+  const long long P = (std::max(RADIX * nblk, Mkey + 1) + SCAN_TILE - 1) / SCAN_TILE;
+  w.partials = reinterpret_cast<Seg*>(take(sizeof(Seg) * P));
+  // chunks: at most N / CH full ones and one part-full one a cell with
+  // entries; the cells of more than one chunk hold more than CH entries
+  // each, and their chunks number less than 2 N / CH
+  w.work = reinterpret_cast<int2*>(take(8 * (N / CH + std::min(N, Mkey) + 1)));
+  w.multi_key = reinterpret_cast<int*>(take(4 * (N / (CH + 1) + 1)));
+  w.partial = reinterpret_cast<float*>(take(4 * (2 * N / CH + 1) * (long long)C));
   w.bytes = at;
   return w;
+}
+
+// resident blocks of a grid-stride kernel: enough to fill every SM
+template <typename K>
+int fill_grid(K kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return std::max(1, sms * std::max(1, per_sm));
 }
 
 template <typename T>
 int launch_bwd(const void* g, int B, int D, int H, int W, int C, const float* zyx,
                const uint8_t* valid, const int* roi_b, long long RS, int S,
                const BwdWorkspace& ws, void* out, cudaStream_t s) {
-  const long long M = (long long)B * D * H * W;
+  const KeyGeom kg = key_geom(D, H, W);
+  const long long Mkey = key_count(B, D, H, W);
   const long long N = RS * 8;
-  // the counts, then (scanned) the segments' offsets, and the long segments' count
-  cudaError_t err = cudaMemsetAsync(ws.off, 0, 4 * (M + 2), s);
+  const long long nblk = sort_blocks(N);
+  cudaError_t err = cudaMemsetAsync(ws.lo, 0, 4 * 2 * (Mkey + 1), s);
   if (err != cudaSuccess) return (int)err;
-  if (N > 0)
-    corner_entries_kernel<<<(unsigned)((RS + BW_NT - 1) / BW_NT), BW_NT, 0, s>>>(
-        zyx, valid, roi_b, B, D, H, W, RS, S, (int)M, ws.keys, ws.slots, ws.wts, ws.off);
-  const int e = exclusive_scan(ws.off, M + 1, ws.partials, s);
-  if (e) return e;
+  err = cudaFuncSetAttribute(radix_downsweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DOWN_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int2* sorted = nullptr;
   if (N > 0) {
-    entry_scatter_kernel<<<(unsigned)((N + BW_NT - 1) / BW_NT), BW_NT, 0, s>>>(
-        ws.keys, ws.slots, N, (int)M, ws.off, ws.vals, ws.long_cells);
-    long_segment_sort_kernel<<<LONG_BLOCKS, LONG_NT, 0, s>>>(ws.off, (int)M, ws.long_cells,
-                                                             ws.vals);
+    // 1. keys and the first pass's histogram; 2. LSD radix passes by cell
+    // key, stable, so each cell's entries stay ascending by entry
+    corner_entries_kernel<<<(unsigned)nblk, ENT_NT, 0, s>>>(
+        zyx, valid, roi_b, B, kg, RS, S, (int)Mkey, ws.keys_a, ws.wts, ws.hist, (int)nblk);
+    int bits = 0;
+    while ((Mkey >> bits) > 0) ++bits;  // the sentinel Mkey's bits
+    const int* kin = ws.keys_a;
+    int* kout = ws.keys_b;
+    const int2* pin = nullptr;
+    int2* pout = ws.pairs_a;
+    for (int shift = 0; shift < bits; shift += RADIX_BITS) {
+      if (shift > 0)
+        radix_upsweep_kernel<<<(unsigned)nblk, SORT_NT, 0, s>>>(kin, N, shift, (int)nblk,
+                                                                ws.hist);
+      int e = exclusive_scan<int>(IntScan{ws.hist}, RADIX * nblk,
+                                  reinterpret_cast<int*>(ws.partials), s);
+      if (e) return e;
+      radix_downsweep_kernel<<<(unsigned)nblk, SORT_NT, DOWN_SMEM, s>>>(
+          kin, pin, ws.wts, N, shift, (int)nblk, ws.hist, kout, pout);
+      sorted = pout;
+      kin = kout;
+      kout = kin == ws.keys_a ? ws.keys_b : ws.keys_a;
+      pin = pout;
+      pout = pout == ws.pairs_a ? ws.pairs_b : ws.pairs_a;
+    }
+    segment_bounds_kernel<<<(unsigned)((N + NT_1D - 1) / NT_1D), NT_1D, 0, s>>>(
+        kin, N, (int)Mkey, ws.lo, ws.hi);
   }
-  int lanes = C / 8 < 32 ? C / 8 : 32;
-  int Lp = 1;
-  while (Lp < lanes) Lp <<= 1;
-  const long long blocks = (M + SUM_NT / 32 - 1) / (SUM_NT / 32);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cell_sum_kernel<T><<<(unsigned)blocks, SUM_NT, 0, s>>>(
-      static_cast<const T*>(g), C, Lp, ws.off, ws.vals, ws.wts, (int)M, static_cast<T*>(out));
+  // the cells' entry, chunk, partial-row and multi-chunk-cell offsets
+  const SegScan seg{ws.lo, ws.hi, ws.off, ws.choff, ws.poff, ws.moff, Mkey};
+  const int e = exclusive_scan<Seg>(seg, Mkey + 1, ws.partials, s);
+  if (e) return e;
+  chunk_list_kernel<<<(unsigned)((Mkey / 8 + NT_1D - 1) / NT_1D), NT_1D, 0, s>>>(
+      ws.choff, ws.moff, (int)Mkey, ws.work, ws.multi_key);
+  const int row_units = C * (int)sizeof(T) / 16;
+  zero_fill_kernel<T><<<fill_grid(zero_fill_kernel<T>, NT_1D), NT_1D, 0, s>>>(
+      ws.off, kg, (long long)B * D * H * W * row_units, row_units, static_cast<T*>(out));
+  if (sorted) {
+    chunk_sum_kernel<T><<<fill_grid(chunk_sum_kernel<T>, SUM_NT), SUM_NT, 0, s>>>(
+        static_cast<const T*>(g), C, ws.off, ws.choff, ws.poff, ws.work, sorted,
+        (int)Mkey, kg, ws.partial, static_cast<T*>(out));
+    chunk_combine_kernel<T><<<fill_grid(chunk_combine_kernel<T>, NT_1D), NT_1D, 0, s>>>(
+        C, ws.choff, ws.poff, ws.moff, ws.multi_key, (int)Mkey, kg, ws.partial,
+        static_cast<T*>(out));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -622,30 +919,32 @@ extern "C" int trilinear_pool_fwd(const void* vol, int is_bf16, int B, int D, in
 }
 
 
-// Bytes of the workspace trilinear_pool_bwd needs for R*S samples and a
-// volume of M = B*D*H*W cells.
-extern "C" long long trilinear_pool_bwd_workspace(long long RS, long long M) {
-  return carve(nullptr, RS, M).bytes;
+// Bytes of the workspace trilinear_pool_bwd needs for R*S samples, a
+// (B, D, H, W) volume and C channels.
+extern "C" long long trilinear_pool_bwd_workspace(long long RS, int B, int D, int H, int W,
+                                                  int C) {
+  return carve(nullptr, RS, key_count(B, D, H, W), C).bytes;
 }
 
 // Gradient of trilinear_pool with respect to the volume. g (R, S, C) in the
 // volume's dtype (float32: is_bf16 = 0, bfloat16: 1), contiguous and
 // 16-byte aligned, C a multiple of 8 and at most 2048; zyx, valid, roi_b as
 // for trilinear_pool_fwd; ws a device workspace of
-// trilinear_pool_bwd_workspace(R * S, B*D*H*W) bytes; out (B, D, H, W, C)
-// contiguous, in the volume's dtype, every element written. B*D*H*W and
-// 8*R*S must stay below 2^31 - 1. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError() (or the first error met).
+// trilinear_pool_bwd_workspace(R * S, B, D, H, W, C) bytes; out (B, D, H, W,
+// C) contiguous and 16-byte aligned, in the volume's dtype, every element
+// written. The cell keys (B*D*H*W with H and W rounded up to multiples of
+// 8) and 8*R*S must stay below 2^31 - 1. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError() (or the first error met).
 extern "C" int trilinear_pool_bwd(const void* g, int is_bf16, int B, int D, int H, int W, int C,
                                   const float* zyx, const uint8_t* valid, const int* roi_b,
                                   int R, int S, void* ws, long long ws_bytes, void* out,
                                   void* stream) {
-  const long long M = (long long)B * D * H * W;
+  const long long Mkey = key_count(B, D, H, W);
   const long long RS = (long long)R * S;
-  if (C <= 0 || C % 8 != 0 || C > 2048 || M <= 0 || M >= 0x7fffffffLL ||
-      RS * 8 >= 0x7fffffffLL)
+  if (C <= 0 || C % 8 != 0 || C > 2048 || B <= 0 || D <= 0 || H <= 0 || W <= 0 ||
+      Mkey >= 0x7fffffffLL || RS * 8 >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const BwdWorkspace w = carve(static_cast<char*>(ws), RS, M);
+  const BwdWorkspace w = carve(static_cast<char*>(ws), RS, Mkey, C);
   if (w.bytes > ws_bytes) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)

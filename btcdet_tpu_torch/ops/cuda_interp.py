@@ -19,6 +19,9 @@ as an XLA VJP. `trilinear_pool_grad` computes it with the CUDA kernel
 `trilinear_pool_bwd` (an ordered gather by cell, the same bits on every
 call) on CUDA tensors and with its plain version
 `trilinear_pool_volume_grad` (float `index_add_`) on the CPU.
+`trilinear_pool_volume_grad_ordered` is the kernel's order of sums (each
+cell's entries in chunks of BWD_CHUNK, Kahan in f32) in plain PyTorch,
+equal to the kernel bit for bit.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def _lib():
         lib.trilinear_pool_fwd.restype = ctypes.c_int
         lib.trilinear_pool_bwd.argtypes = _BWD_ARGTYPES
         lib.trilinear_pool_bwd.restype = ctypes.c_int
-        lib.trilinear_pool_bwd_workspace.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        lib.trilinear_pool_bwd_workspace.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
         lib.trilinear_pool_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
@@ -132,6 +135,98 @@ def trilinear_pool_volume_grad(g, volume_shape, zyx, roi_b, valid, dtype=torch.f
     return grad.reshape(B, D, H, W, C)
 
 
+# entries a chunk of `trilinear_pool_bwd` sums in order (CH of
+# csrc/trilinear_pool.cu); its cell keys are sorted by digits of
+# BWD_RADIX_BITS, one pass each
+BWD_CHUNK = 64
+BWD_RADIX_BITS = 10
+
+
+def bwd_key_count(volume_shape) -> int:
+    """Cell keys of `trilinear_pool_bwd` on a (B, D, H, W, ...) volume:
+    tiles of 8 x 8 cells in (y, x) over D rounded up to even (key_count in
+    csrc/trilinear_pool.cu)."""
+    B, D, H, W = volume_shape[:4]
+    return B * -(-H // 8) * -(-W // 8) * -(-D // 2) * 2 * 64
+
+
+def _corner_entries(zyx, roi_b, valid, volume_shape):
+    """(cell, w) of every (sample, corner) entry e = 8 * (r * S + s) +
+    corner, in entry order: the corner's linear (b, z, y, x) cell, -1 for a
+    corner outside the volume or a sample that is invalid or of no frame in
+    [0, B), and its weight in the forward's f32 arithmetic (0 past the
+    volume; an in-volume corner may weigh 0 too and still counts)."""
+    B, D, H, W, _ = volume_shape
+    ok = valid & (roi_b >= 0)[:, None] & (roi_b < B)[:, None]
+    base = roi_b.long()[:, None].expand(valid.shape) * (D * H * W)
+    z, y, x = zyx[..., 0], zyx[..., 1], zyx[..., 2]
+    zi0, yi0, xi0 = torch.floor(z).long(), torch.floor(y).long(), torch.floor(x).long()
+    cells, ws = [], []
+    for (lin, w), (dz, dy, dx) in zip(trilinear_corners(zyx, (D, H, W)),
+                                      [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]):
+        zi, yi, xi = zi0 + dz, yi0 + dy, xi0 + dx
+        inb = ok & (zi >= 0) & (zi < D) & (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        cells.append(torch.where(inb, base + lin, torch.full_like(lin, -1)))
+        ws.append(w)
+    return torch.stack(cells, -1).reshape(-1), torch.stack(ws, -1).reshape(-1)
+
+
+def _kahan(s, c, x):
+    """One compensated f32 step (round-to-nearest, no fused ops), as the
+    kernel's `kahan_add`: returns the new (s, c)."""
+    y = x - c
+    t = s + y
+    return t, (t - s) - y
+
+
+def trilinear_pool_volume_grad_ordered(g, volume_shape, zyx, roi_b, valid):
+    """(B, D, H, W, C) f32 gradient of `trilinear_pool` with respect to the
+    volume in the order of the kernel `trilinear_pool_bwd`: each cell's
+    entries ascending by entry (e = 8 * sample + corner), cut into chunks
+    of BWD_CHUNK entries; each chunk's g * w summed in order, Kahan in f32,
+    to s - c; a cell's chunk values added in chunk order, Kahan in f32 (a
+    cell of one chunk takes its value as it is). Vectorised over chunks,
+    one chunk position at a time. Rounding the result to the volume's
+    dtype is the caller's (the kernel rounds once)."""
+    B, D, H, W, C = volume_shape
+    M = B * D * H * W
+    dev = g.device
+    out = torch.zeros((M, C), dtype=torch.float32, device=dev)
+    cell, w = _corner_entries(zyx, roi_b, valid, volume_shape)
+    ent = torch.nonzero(cell >= 0).squeeze(1)
+    if ent.numel() == 0:
+        return out.reshape(B, D, H, W, C)
+    cells, order = torch.sort(cell[ent], stable=True)
+    ent = ent[order]
+    counts = torch.bincount(cells, minlength=M)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(ent.numel(), device=dev) - start[cells]
+    nch = (counts + BWD_CHUNK - 1) // BWD_CHUNK
+    choff = torch.cumsum(nch, 0) - nch
+    chunk_id = choff[cells] + rank // BWD_CHUNK
+    pos = rank % BWD_CHUNK
+    gf = g.reshape(-1, C)
+    n_chunks = int(nch.sum())
+    s = torch.zeros((n_chunks, C), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(s)
+    for t in range(min(BWD_CHUNK, int(counts.max()))):
+        sel = torch.nonzero(pos == t).squeeze(1)
+        ids, e = chunk_id[sel], ent[sel]
+        x = gf[e // 8].float() * w[e][:, None]
+        s[ids], c[ids] = _kahan(s[ids], c[ids], x)
+    v = s - c
+    one = torch.nonzero(nch == 1).squeeze(1)
+    out[one] = v[choff[one]]
+    multi = torch.nonzero(nch > 1).squeeze(1)
+    acc = torch.zeros((multi.numel(), C), dtype=torch.float32, device=dev)
+    comp = torch.zeros_like(acc)
+    for k in range(int(nch.max())):
+        live = torch.nonzero(nch[multi] > k).squeeze(1)
+        acc[live], comp[live] = _kahan(acc[live], comp[live], v[choff[multi[live]] + k])
+    out[multi] = acc - comp
+    return out.reshape(B, D, H, W, C)
+
+
 def trilinear_pool_grad(g, volume_shape, volume_dtype, zyx, roi_b, valid):
     """(B, D, H, W, C) gradient of `trilinear_pool` with respect to the
     volume, in `volume_dtype`: the plain `trilinear_pool_volume_grad`
@@ -150,10 +245,11 @@ def trilinear_pool_grad(g, volume_shape, volume_dtype, zyx, roi_b, valid):
         raise ValueError(f"trilinear_pool_grad: bad shapes g {tuple(g.shape)} points "
                          f"{tuple(zyx.shape)} valid {tuple(valid.shape)} rois "
                          f"{tuple(roi_b.shape)} for volume {tuple(volume_shape)}")
-    if C % 8 or C > 2048 or B * D * H * W >= 2**31 - 1 or 8 * R * S >= 2**31 - 1:
+    if (C % 8 or C > 2048 or bwd_key_count(volume_shape) >= 2**31 - 1
+            or 8 * R * S >= 2**31 - 1):
         raise ValueError(f"trilinear_pool_grad: volume {tuple(volume_shape)} with {R}x{S} "
                          "samples: the kernel takes C a multiple of 8 up to 2048 and fewer "
-                         "than 2^31 - 1 cells and corner entries")
+                         "than 2^31 - 1 cell keys (`bwd_key_count`) and corner entries")
     for t in (zyx, roi_b, valid):
         if t.device != g.device:
             raise ValueError("trilinear_pool_grad: tensors on different devices")
@@ -165,7 +261,7 @@ def trilinear_pool_grad(g, volume_shape, volume_dtype, zyx, roi_b, valid):
     roi_b32 = roi_b.to(torch.int32).contiguous()
     out = torch.empty(tuple(volume_shape), dtype=volume_dtype, device=g.device)
     lib = _lib()
-    ws_bytes = lib.trilinear_pool_bwd_workspace(R * S, B * D * H * W)
+    ws_bytes = lib.trilinear_pool_bwd_workspace(R * S, B, D, H, W, C)
     ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.trilinear_pool_bwd(

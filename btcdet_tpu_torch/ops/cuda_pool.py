@@ -224,7 +224,9 @@ def _check_grad(who, tensors, nbr, tnbr):
 
 
 def sparse_pool_grad(features, out, g, nbr, tnbr):
-    """(N, C) float32 df of K2 max: `sparse_pool_grad_plain`'s function.
+    """(N, C) float32 df of K2 max: `sparse_pool_grad_plain`'s function,
+    in its two steps (each output's share g / count, then each input's sum
+    of shares in tap order), two kernels over an (M, C) float32 scratch.
 
     features (N, C) and out (M, C), the forward's input and output, and g
     (M, C), all float32; nbr the forward's (K, M) map; tnbr (K, N) the
@@ -241,14 +243,15 @@ def sparse_pool_grad(features, out, g, nbr, tnbr):
     df = torch.empty((N, C), dtype=torch.float32, device=features.device)
     if N == 0:
         return df
+    share = torch.empty((M, C), dtype=torch.float32, device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     fn = getattr(kernel_build.load("sparse_pool"), "sparse_maxpool_bwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
-                                                                     ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     err = fn(features.data_ptr(), out.data_ptr(), g.data_ptr(), nbr.data_ptr(), tnbr.data_ptr(),
-             N, M, K, df.data_ptr(), C, stream)
+             N, M, K, share.data_ptr(), df.data_ptr(), C, stream)
     if err != 0:
         raise RuntimeError(f"sparse_pool_grad kernel launch failed: cudaError {err}")
     global bwd_launches

@@ -14,6 +14,7 @@ K2's backward, the occ voxel dropout, REMAIN_PERCENTAGE, the sigmoid occ
 loss) as an eighth.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
@@ -79,7 +80,9 @@ Phases (any failure raises and exits non-zero, printing no result):
      (conv1), its transpose-query df (a strided conv) and subm df, K2, K4
      and K4's volume gradient (against its plain `index_add_` version: f32
      within 1e-5 of the plain output's max and no further from a float64
-     sum, bf16 one rounding of the f32 sum, bit for bit on a repeat); then
+     sum, bf16 one rounding of the f32 sum, bit for bit with the ordered
+     plain version and on a repeat; timed by sub-kernel with its segment
+     lengths, on the step's call and on the `hot` layout); then
      counts reset, one step whose launches of every kernel (K1 map, forward
      and df, K3 and its compaction, K2, K4 and its gradient) must equal
      TRAIN_LAUNCHES, with its loss terms, per-partition gradient norms and
@@ -162,6 +165,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_function(line: str) -> str:
+    """":kernel<dtype>" of a ptxas "Compiling entry function '<mangled>'"
+    line, read from the mangled name ("" where it names no kernel)."""
+    import re
+
+    m = re.search(r"\d+([a-z][a-z_]*?kernel)", line)
+    if not m:
+        return ""
+    kind = "<bf16>" if "bfloat16" in line else "<f32>" if "IfE" in line else ""
+    return f":{m.group(1)}{kind}"
 
 
 def gpu_name_and_power_limit() -> str:
@@ -600,26 +615,83 @@ def k4_case(args, label: str = ""):
             else "operations", "library_ms": lib_ms}
 
 
-# the kernels of one `trilinear_pool_bwd` call; launches a call of each:
-# the entries, the exclusive scan of the cells' counts (three kernels),
-# the scatter to the segments, the sort of the long segments and the
-# per-cell sort and sum
-K4_GRAD_SEG_CAP = 1024   # SEG_CAP of csrc/trilinear_pool.cu
-K4_GRAD_LAUNCHES = {"corner_entries_kernel": 1, "scan_reduce_kernel": 1,
-                    "scan_partials_kernel": 1, "scan_apply_kernel": 1,
-                    "entry_scatter_kernel": 1, "long_segment_sort_kernel": 1,
-                    "cell_sum_kernel": 1}
+def k4_grad_launches(shape) -> dict:
+    """{kernel: launches} of one `trilinear_pool_bwd` call on a (B, D, H,
+    W, ...) volume: the entries' keys (with the first sort pass's
+    histogram), per radix pass the histogram (after the first), its scan
+    (three kernels) and the stable scatter, the segments' bounds, the scan
+    of the cells' segments, the chunk list, the zero fill of untouched
+    cells, the chunk sums and the combine of cells of several chunks. The
+    passes follow the cell keys' bits (2 for the flagship's volume)."""
+    from btcdet_tpu_torch.ops import cuda_interp
+
+    keys = cuda_interp.bwd_key_count(shape)
+    passes = -(-keys.bit_length() // cuda_interp.BWD_RADIX_BITS)
+    return {"corner_entries_kernel": 1, "radix_upsweep_kernel": passes - 1,
+            "scan_reduce_kernel": passes + 1, "scan_partials_kernel": passes + 1,
+            "scan_apply_kernel": passes + 1, "radix_downsweep_kernel": passes,
+            "segment_bounds_kernel": 1, "chunk_list_kernel": 1, "zero_fill_kernel": 1,
+            "chunk_sum_kernel": 1, "chunk_combine_kernel": 1}
+
+
+# the `hot` layout of tests/test_torch_kernels.py::_k4_grad_case at the
+# flagship's width: 40 rois of 2 592 samples piled around one centre
+# (within 2 cells in y and x), so cells hold thousands of corner entries;
+# the rois split evenly over the 2 frames, so `grid_sampler_3d_backward`
+# can time the same function
+K4_GRAD_HOT = {"R": 40, "S": 2592, "C": 128, "shape": (2, 5, 200, 176), "spread": 2.0,
+               "seed": 5}
+
+
+def k4_grad_hot_args():
+    """(g, volume shape, dtype, zyx, roi_b, valid) of the `hot` layout
+    (K4_GRAD_HOT), made on the host from its seed: bf16 g, the step's dtype."""
+    import torch
+
+    h = K4_GRAD_HOT
+    R, S, C, (B, D, H, W) = h["R"], h["S"], h["C"], h["shape"]
+    gen = torch.Generator().manual_seed(h["seed"])
+    centre = torch.rand(1, 2, generator=gen) * torch.tensor([H - 20.0, W - 20.0]) + 10
+    zyx = torch.cat([torch.rand(R, S, 1, generator=gen) * (D + 2) - 1,
+                     centre[:, None] + (torch.rand(R, S, 2, generator=gen) - 0.5) * h["spread"]],
+                    -1)
+    zyx[0, :7] = torch.tensor([0.0, 3.0, 4.0])      # on grid points: zero-weight corners
+    roi_b = torch.arange(B).repeat_interleave(R // B)
+    valid = torch.rand(R, S, generator=gen) < 0.9
+    g = torch.randn(R, S, C, generator=gen)
+    return (g.to("cuda", torch.bfloat16), (B, D, H, W, C), torch.bfloat16, zyx.to("cuda"),
+            roi_b.to("cuda"), valid.to("cuda"))
+
+
+# the bins of the segment-length histogram (entries a cell), upper bounds
+K4_GRAD_SEG_BINS = (1, 8, 64, 1024)
+
+
+def k4_segment_histogram(seg) -> dict:
+    """{bin: [cells, entries]} of the per-cell entry counts `seg`: untouched
+    cells, then K4_GRAD_SEG_BINS' ranges and the rest."""
+    import torch
+
+    hist, lo = {"0": [int((seg == 0).sum()), 0]}, 1
+    for hi in (*K4_GRAD_SEG_BINS, None):
+        sel = (seg >= lo) if hi is None else (seg >= lo) & (seg <= hi)
+        name = f">{lo - 1}" if hi is None else (f"{lo}" if lo == hi else f"{lo}-{hi}")
+        hist[name] = [int(sel.sum()), int(seg[sel].sum())]
+        lo = (hi or 0) + 1
+    return hist
 
 
 def k4_grad_case(args, label: str = "train"):
     """K4's volume gradient (`trilinear_pool_bwd`) on the captured call of
-    a train step against its plain version (8 `index_add_` calls with
-    float atomics): the f32 kernel within 1e-5 of the plain output's max
-    and no further from a float64 sum than the plain version; the bf16
-    kernel (the step's) equal to the f32 kernel's sum rounded once, and
-    within one bf16 ulp of the plain version's cast wherever the f32 sums
-    round alike (the others counted); bit for bit on a repeat; timed, by
-    kernel too, beside `grid_sampler_3d_backward` as the library yardstick."""
+    a train step (or the `hot` layout) against its plain version (8
+    `index_add_` calls with float atomics): the f32 kernel within 1e-5 of
+    the plain output's max and no further from a float64 sum than the
+    plain version; the bf16 kernel (the step's) equal to the f32 kernel's
+    sum rounded once, and within one bf16 ulp of the plain version's cast
+    wherever the f32 sums round alike (the others counted); both equal bit
+    for bit to the ordered plain version (`trilinear_pool_volume_grad_ordered`,
+    the kernel's order of sums); bit for bit on a repeat; timed, by kernel
+    too, beside `grid_sampler_3d_backward` as the library yardstick."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_interp
@@ -646,6 +718,12 @@ def k4_grad_case(args, label: str = "train"):
     err_p = float((ref32.double() - exact).abs().max())
     assert err_k <= err_p, f"K4 grad: {err_k} from a float64 sum, plain {err_p}"
     del exact
+    ordered = cuda_interp.trilinear_pool_volume_grad_ordered(g, shape, zyx, roi_b, valid)
+    torch.cuda.synchronize()
+    n_ordered = int((out32 != ordered).sum())
+    assert n_ordered == 0 and torch.equal(out, ordered.to(dtype)), (
+        f"K4 grad: {n_ordered} f32 elements differ from the ordered plain version")
+    del ordered
     diff = (out.float() - ref32.to(dtype).float()).abs()
     mag = torch.maximum(out.float().abs(), ref32.to(dtype).float().abs()).clamp(min=2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
@@ -654,10 +732,13 @@ def k4_grad_case(args, label: str = "train"):
     err = float(diff.max())
     del diff, mag, ulp, out32, again
     ms = cuda_ms(kernel, reps=10)
-    kernel_ms = device_ms(kernel, K4_GRAD_LAUNCHES, reps=10)
-    parts = {name: round(device_ms(kernel, name, reps=5), 4) for name in K4_GRAD_LAUNCHES}
+    per_call = {k: n for k, n in k4_grad_launches(shape).items() if n}
+    kernel_ms = device_ms(kernel, per_call, reps=10)
+    parts = {name: round(device_ms(kernel, {name: n}, reps=5), 4) for name, n in per_call.items()}
     plain_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_volume_grad(
         g, shape, zyx, roi_b, valid).to(dtype), reps=5, warmup=1)
+    ordered_ms = cuda_ms(lambda: cuda_interp.trilinear_pool_volume_grad_ordered(
+        g, shape, zyx, roi_b, valid).to(dtype), reps=2, warmup=1)
     # library yardstick: the input gradient of 5-D grid_sample (the mapping
     # of k4_case, f32) on the same gradient, invalid samples zeroed
     lib_ms, lib_kernel_ms, lib_err = None, None, None
@@ -680,30 +761,37 @@ def k4_grad_case(args, label: str = "train"):
     # needs, in g's dtype, the points, flags and roi indices read once, and
     # the whole output volume written once; operations: a multiply and an
     # add per channel of each in-volume corner of a valid sample, at the f32
-    # rate. The entries' index arrays are the kernel's own traffic, not the
-    # function's: logged beside it, not bound
+    # rate. The kernel's workspace (sort keys, entries, partial rows) is its
+    # own traffic, not the function's: its size is logged beside it
     n_entries = 8 * R * S
     cells, n_rows = k4_corners(shape, zyx, roi_b, valid)
     n_in = int(cells.numel())
     seg = torch.bincount(cells, minlength=B * D * H * W)
-    seg_max, n_long = int(seg.max()), int((seg > K4_GRAD_SEG_CAP).sum())
-    del cells, seg
+    chunks = (seg + cuda_interp.BWD_CHUNK - 1) // cuda_interp.BWD_CHUNK
+    seg_max, n_chunks, n_multi = int(seg.max()), int(chunks.sum()), int((chunks > 1).sum())
+    hist = k4_segment_histogram(seg)
+    del cells, seg, chunks
     elt = out.element_size()
     nbytes = (n_rows * C * elt + R * S * 12 + R * S + R * 4 + B * D * H * W * C * elt)
-    index_bytes = 2 * (12 * n_entries + 4 * n_in) + 4 * 4 * (B * D * H * W + 2)
+    ws_bytes = cuda_interp._lib().trilinear_pool_bwd_workspace(R * S, B, D, H, W, C)
     flops = 2.0 * C * n_in
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
     log(f"K4 volume gradient {label}: volume {tuple(shape)} {dtype} R={R} S={S} corner entries "
-        f"{n_entries} (in the volume, of valid samples: {n_in}; longest segment {seg_max}, "
-        f"{n_long} longer than {K4_GRAD_SEG_CAP}) max_abs_err={err:.3e} (bf16 against the plain "
+        f"{n_entries} (in the volume, of valid samples: {n_in}; longest segment {seg_max}; "
+        f"{n_chunks} chunks of up to {cuda_interp.BWD_CHUNK} entries, {n_multi} cells of more "
+        f"than one; bit for bit with the ordered plain version) max_abs_err={err:.3e} (bf16 "
+        f"against the plain "
         f"version's cast; {beyond} of {out.numel()} elements beyond one bf16 ulp, all within it "
         f"plus 1e-5 of the plain max {scale:.3e}; f32 {err32:.3e}; from a float64 sum: kernel "
         f"{err_k:.3e}, plain {err_p:.3e}) ms={ms:.4f} (kernel alone, profiler: "
-        f"{kernel_ms:.4f}; by kernel {json.dumps(parts)}) plain_ms={plain_ms:.4f} "
+        f"{kernel_ms:.4f}, {n_rows * C * elt / (kernel_ms * 1e-3) / 1e9:.1f} GB/s of g rows; by "
+        f"kernel {json.dumps(parts)}) plain_ms={plain_ms:.4f} (ordered plain "
+        f"{ordered_ms:.4f}) "
         f"grid_sampler_3d_backward_ms={lib_ms} "
         f"(kernel alone {lib_kernel_ms}; max diff to the plain f32 {lib_err}) bytes={nbytes} "
-        f"(g rows {n_rows}) bound_ms={bound_s * 1e3:.4f}; the kernel's index arrays, not in "
-        f"the bound: about {index_bytes} bytes")
+        f"(g rows {n_rows}) bound_ms={bound_s * 1e3:.4f}; the kernel's workspace, not in the "
+        f"bound: {ws_bytes} bytes; segment lengths, {{bin: [cells, entries]}}: "
+        f"{json.dumps(hist)}")
     return {"name": "trilinear_pool_grad" + (f":{label}" if label else ""), "route": "cuda",
             "source": "btcdet_tpu_torch/csrc/trilinear_pool.cu",
             "replaces": "btcdet_tpu/ops/pallas_interp.py:284", "max_abs_err": err, "ms": ms,
@@ -1384,6 +1472,7 @@ def train_phase():
     entries.append(k4_case(calls["trilinear_pool"][0][0], "train"))
     assert len(calls["trilinear_pool_grad"]) == 1, len(calls["trilinear_pool_grad"])
     entries.append(k4_grad_case(calls["trilinear_pool_grad"][0][0], "train"))
+    entries.append(k4_grad_case(k4_grad_hot_args(), "hot"))
     del calls, picks, df, fwd
 
     params = {n: p.detach().clone() for n, p in net.named_parameters()}
@@ -2111,7 +2200,7 @@ def k2_grad_case(call, mode: str, label: str):
     args, _ = call
     if mode == "max":
         kern, plain, kname = (cuda_pool.sparse_pool_grad, cuda_pool.sparse_pool_grad_plain,
-                              "sparse_maxpool_bwd_kernel")
+                              ("sparse_maxpool_share_kernel", "sparse_maxpool_bwd_kernel"))
         feats, out, g, nbr, tnbr = args
         N, C = feats.shape
         nbytes = (g.numel() + out.numel() + feats.numel() + nbr.numel() + tnbr.numel()
@@ -2132,10 +2221,13 @@ def k2_grad_case(call, mode: str, label: str):
     assert torch.equal(df, again), f"K2 {mode} bwd {label}: the kernel does not repeat"
     bound_s = nbytes / HBM_BYTES_PER_S
     ms = device_ms(lambda: kern(*args), kname)
+    parts = ({name: round(device_ms(lambda: kern(*args), name), 4) for name in kname}
+             if isinstance(kname, tuple) else {})
     plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
     log(f"K2 {mode} bwd {label}: N={N} C={C} taps={tnbr.shape[0]} "
         f"matches={int((tnbr >= 0).sum())} nonzero_df={int((df != 0).sum())} bytes={nbytes} "
-        f"(bitwise equal to the plain version and on a repeat) ms={ms:.4f} (kernel alone) "
+        f"(bitwise equal to the plain version and on a repeat) ms={ms:.4f} (kernel alone"
+        f"{'; by kernel ' + json.dumps(parts) if parts else ''}) "
         f"plain_ms={plain_ms:.4f} bound_ms={bound_s * 1e3:.4f}")
     name = "sparse_pool_grad" if mode == "max" else "sparse_sum_pool_grad"
     return {"name": f"{name}:{label}", "route": "cuda",
@@ -2895,6 +2987,32 @@ def dp_worker(args: list) -> int:
     return 0
 
 
+def kernel_bench() -> None:
+    """`chip_smoke.py --kernels`: only the backward kernels' cases of the
+    full run, for a quick check of a change to them. K4's volume gradient
+    on the flagship train step's call and on the `hot` layout, and K2
+    max's backward on the flagship PASS_GRAD step's call, each against its
+    plain version with its times (K4's by kernel, and its segment
+    lengths); prints their kernels-line entries (no launch counts)."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    entries = []
+    for edits in ({}, PASS_GRAD_OPTIONS):
+        net, opt, batch = train_setup(set_options(config.flagship(), edits), 16384, 10, 0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        calls = capture_kernel_inputs(lambda: trainer.train_step(net, opt, batch, gen))
+        if edits:
+            entries.append(k2_grad_case(calls["sparse_pool_grad"][0], "max", "pass_grad"))
+        else:
+            entries.append(k4_grad_case(calls["trilinear_pool_grad"][0][0], "train"))
+        del net, opt, batch, calls
+    entries.append(k4_grad_case(k4_grad_hot_args(), "hot"))
+    print(json.dumps({"kernels": entries}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2903,6 +3021,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    kernels_only = sys.argv[1:] == ["--kernels"]
     sys.path.insert(0, REPO)
     try:
         import btcdet_tpu_torch  # noqa: F401
@@ -2927,9 +3046,16 @@ def main() -> int:
                         "trilinear_pool"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "bytes smem" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = ptxas_function(line)
+            elif "registers" in line or "bytes smem" in line:
+                log(f"  ptxas[{name}{fn}]: {line.strip()}")
+    if kernels_only:
+        kernel_bench()
+        log(f"chip_smoke --kernels: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
     # 3. full flagship model, synthetic weights by name, capture run
     cfg = config.flagship()

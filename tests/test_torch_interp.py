@@ -116,6 +116,42 @@ def test_volume_gradient_matches_xla_twin():
     assert (ref != 0).mean() > 0.05
 
 
+@pytest.mark.parametrize("hot", [True, False], ids=["hot", "spread"])
+def test_ordered_volume_gradient_matches_xla_vjp(hot):
+    """`trilinear_pool_volume_grad_ordered`, the order of the kernel
+    `trilinear_pool_bwd` (each cell's entries ascending, Kahan in f32 in
+    chunks of BWD_CHUNK entries, chunks added in order), against jax.vjp of
+    the XLA twin. The twin casts its volume to bf16, so its VJP is the f32
+    scatter-add rounded once to bf16: the ordered f32 sum rounded once is
+    within one bf16 ulp of it, plus 1e-5 of the max where the two f32 sums
+    differ by more than that ulp (near 0). Against a float64 sum the ordered
+    version is no further off than the `index_add_` one. `hot` piles all
+    rois around one centre: segments of several chunks."""
+    import jax
+
+    dense, zyx, centers, roi_b, valid = make_case(seed=9, C=16, R=12, spread=2.0 if hot else 14.0)
+    if hot:
+        zyx[..., 1:] += centers[:1, None] - centers[:, None]
+    g = np.random.RandomState(10).randn(*zyx.shape[:2], 16).astype(np.float32)
+    _, vjp = jax.vjp(lambda d: PI._xla_reference_pool(d, jnp.asarray(zyx), jnp.asarray(roi_b),
+                                                      jnp.asarray(valid)), jnp.asarray(dense))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    args = (torch.from_numpy(g), dense.shape, torch.from_numpy(zyx), torch.from_numpy(roi_b),
+            torch.from_numpy(valid))
+    out = cuda_interp.trilinear_pool_volume_grad_ordered(*args)
+    cells, _ = cuda_interp._corner_entries(*args[2:], dense.shape)
+    longest = int(torch.bincount(cells[cells >= 0]).max())
+    assert (longest > 4 * cuda_interp.BWD_CHUNK) == hot, longest
+    got = out.to(torch.bfloat16).float().numpy()
+    tol = np.maximum(bf16_ulp(got), bf16_ulp(ref)) + 1e-5 * np.abs(ref).max()
+    assert (np.abs(got - ref) <= tol).all()
+    assert (ref != 0).sum() > 1000
+    exact = cuda_interp.trilinear_pool_volume_grad(*args, dtype=torch.float64)
+    plain = cuda_interp.trilinear_pool_volume_grad(*args)
+    assert float((out.double() - exact).abs().max()) <= float((plain.double() - exact)
+                                                              .abs().max())
+
+
 @pytest.mark.parametrize("layout", ["zyx", "yzx-permuted"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_plain_sampler_on_strided_volumes(layout, dtype):

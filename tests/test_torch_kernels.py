@@ -144,10 +144,11 @@ def test_trilinear_pool_grad_kernel_matches_plain(cuda, C, R, hot):
     version is; in bf16 the f32 result rounded once (equal to the f32
     kernel's output cast to bf16, so within one bf16 ulp of the plain
     version's cast wherever the two f32 sums round alike); the same bits
-    on a repeat. The `hot` cases pile all rois' samples into a few cells,
-    thousands of entries a cell: segments longer than a warp sorts in
-    shared memory (12 rois: up to 2 678 entries, sorted by a block in
-    shared memory; 40 rois: up to 9 154, past that too)."""
+    on a repeat; bit for bit the ordered plain version
+    (`trilinear_pool_volume_grad_ordered`: the kernel's chunks and order).
+    The `hot` cases pile all rois' samples into a few cells, thousands of
+    entries a cell (12 rois: up to 2 678 entries; 40 rois: up to 9 154),
+    so cells span dozens of chunks."""
     (gout, zyx, roi_b, valid), shape = _k4_grad_case(cuda, C, R=R, spread=2.0 if hot else 30.0,
                                                      one_center=hot)
     g16 = gout.to(torch.bfloat16)
@@ -168,6 +169,8 @@ def test_trilinear_pool_grad_kernel_matches_plain(cuda, C, R, hot):
                                                    torch.float64)
     assert float((out32.double() - exact).abs().max()) <= float((ref32.double() - exact)
                                                                 .abs().max())
+    ordered = cuda_interp.trilinear_pool_volume_grad_ordered(g16, shape, zyx, roi_b, valid)
+    assert torch.equal(out32, ordered)
     untouched = exact.abs().sum(-1) == 0
     assert bool(untouched.any()) and bool((out16[untouched] == 0).all())
 
