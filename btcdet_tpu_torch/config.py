@@ -1,5 +1,6 @@
 """YAML configuration: attribute dicts, `_BASE_CONFIG_` inheritance, the
-flagship config, its det-only variant and its occ-code variants.
+flagship config, its det-only variant and its occ-code variants, and the
+3-class config.
 
 Own copy of the config layer of `btcdet_tpu/config.py`, so the reference
 YAML files under `tools/cfgs/` load unchanged.
@@ -175,6 +176,18 @@ def flagship() -> EasyDict:
     False; the yaml leaves it unset, which the JAX package reads as its
     approximate shared-candidate query)."""
     cfg = cfg_from_yaml_file(FLAGSHIP_CFG)
+    cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
+    return cfg
+
+
+THREE_CLASS_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_3classes.yaml"
+
+
+def three_class() -> EasyDict:
+    """The 3-class `btcdet_kitti_3classes.yaml` (Car, Pedestrian, Cyclist:
+    the flagship with per-class anchors) with the exact ball query, as
+    `flagship()`."""
+    cfg = cfg_from_yaml_file(THREE_CLASS_CFG)
     cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
     return cfg
 

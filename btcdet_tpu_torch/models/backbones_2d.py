@@ -2,7 +2,10 @@
 reference `base_bev_backbone.py`): conv pyramid with per-block stride,
 transposed-conv upsampling and channel concat, in the reference module
 layout (`blocks.{i}` = ZeroPad2d, then [Conv2d, BN, ReLU] * (n+1);
-`deblocks.{i}` = [ConvTranspose2d, BN, ReLU]). NCHW inside."""
+`deblocks.{i}` = [ConvTranspose2d, BN, ReLU]). A fractional
+UPSAMPLE_STRIDES entry s < 1 downsamples instead, as the JAX package builds
+it: a 1x1 Conv2d of stride round(1 / s) (the anchors' `feature_map_stride`
+must then follow the coarser map). NCHW inside."""
 
 from __future__ import annotations
 
@@ -61,11 +64,12 @@ class BaseBEVBackbone(nn.Module):
             self.blocks.append(nn.Sequential(*layers))
             if i < len(upsample_strides):
                 s = upsample_strides[i]
-                if s < 1:
-                    raise NotImplementedError("fractional upsample strides")
+                up = (nn.ConvTranspose2d(num_filters[i], num_upsample_filters[i], int(s),
+                                         stride=int(s), bias=False) if s >= 1 else
+                      nn.Conv2d(num_filters[i], num_upsample_filters[i], 1,
+                                stride=int(round(1 / s)), bias=False))
                 self.deblocks.append(nn.Sequential(
-                    nn.ConvTranspose2d(num_filters[i], num_upsample_filters[i], int(s),
-                                       stride=int(s), bias=False),
+                    up,
                     BatchNorm2d(num_upsample_filters[i], eps=1e-3, momentum=0.01),
                     nn.ReLU()))
             c_in = num_filters[i]

@@ -1,7 +1,8 @@
 """RPN anchor head (counterpart of `btcdet_tpu/models/dense_heads/anchor_head.py`):
 anchor generation, the 1x1 conv heads and the ResidualCoder decode with
-direction bins; at train, the axis-aligned target assignment and the
-focal cls / sin-difference smooth-L1 / direction-bin losses."""
+direction bins; at train, the axis-aligned target assignment (nearest-BEV
+IoU, or with MATCH_HEIGHT the rotated 3-D IoU) and the focal cls /
+sin-difference smooth-L1 / direction-bin losses."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import iou3d
 from ...parallel import global_rows
 from ...utils import box_utils, common, loss_utils
 from ...utils.box_coder import ResidualCoder
@@ -59,16 +61,37 @@ def generate_anchors(anchor_range, grid_size, anchor_configs):
     return stacked.reshape(-1, 7), anchor_class, num_per_loc
 
 
+# anchor-gt pairs of one rotated 3-D IoU call: the clipping keeps a few
+# (pairs, 64, 2) float tensors alive, about 0.5 KiB a pair each
+IOU3D_CHUNK_PAIRS = 1 << 18
+
+
+def anchor_iou3d(anchors, anchor_sel, gt_boxes):
+    """(A, G) rotated 3-D IoU of the selected anchors with the gts, -1 for
+    the others, computed over chunks of anchors (IOU3D_CHUNK_PAIRS pairs at
+    most): each pair's IoU is elementwise, so a chunk gives the same bits
+    as the whole matrix."""
+    A, G = anchors.shape[0], gt_boxes.shape[0]
+    iou = torch.full((A, G), -1.0, dtype=anchors.dtype, device=anchors.device)
+    idx = anchor_sel.nonzero()[:, 0]
+    rows = max(IOU3D_CHUNK_PAIRS // max(G, 1), 1)
+    for lo in range(0, idx.numel(), rows):
+        part = idx[lo:lo + rows]
+        iou[part] = iou3d.boxes_iou3d(anchors[part], gt_boxes)
+    return iou
+
+
 def assign_targets_single_class(anchors, anchor_sel, gt_boxes, gt_valid, gt_class_id: int,
                                 matched_threshold: float, unmatched_threshold: float,
-                                box_coder):
+                                box_coder, match_height: bool = False):
     """AxisAlignedTargetAssigner for one class (reference
-    `axis_aligned_target_assigner.py:131-213`) with MATCH_HEIGHT False, the
-    only matching the port has: nearest-BEV IoU. anchors (A, 7), anchor_sel
-    (A,) marks this class's anchors, gt_boxes (G, 7), gt_valid (G,).
-    Returns (labels (A,) in {-1, 0, class id}, reg_targets (A, 7),
+    `axis_aligned_target_assigner.py:131-213`): nearest-BEV IoU, or the
+    rotated 3-D IoU with `match_height` (MATCH_HEIGHT). anchors (A, 7),
+    anchor_sel (A,) marks this class's anchors, gt_boxes (G, 7), gt_valid
+    (G,). Returns (labels (A,) in {-1, 0, class id}, reg_targets (A, 7),
     reg_mask (A,))."""
-    iou = box_utils.boxes3d_nearest_bev_iou(anchors, gt_boxes)
+    iou = (anchor_iou3d(anchors, anchor_sel, gt_boxes) if match_height
+           else box_utils.boxes3d_nearest_bev_iou(anchors, gt_boxes))
     iou = torch.where(gt_valid[None, :] & anchor_sel[:, None], iou, torch.full_like(iou, -1.0))
     a2g_max, a2g_arg = iou.max(dim=1)
     g2a_max = iou.max(dim=0).values
@@ -100,8 +123,10 @@ class AnchorHeadSingle(nn.Module):
                  use_direction_classifier=True, dir_offset=0.78539, dir_limit_offset=0.0,
                  num_dir_bins=2, anchor_class=None, matched_thresholds=(0.6,),
                  unmatched_thresholds=(0.45,), cls_weight=1.0,
-                 loc_weight=2.0, dir_weight=0.2, code_weights=(1.0,) * 7):
+                 loc_weight=2.0, dir_weight=0.2, code_weights=(1.0,) * 7,
+                 match_height: bool = False):
         super().__init__()
+        self.match_height = match_height
         self.num_class = num_class
         if anchor_class is None:
             anchor_class = np.zeros((np.asarray(anchors).shape[0],), np.int32)
@@ -168,7 +193,7 @@ class AnchorHeadSingle(nn.Module):
                 lab, regt, regm = assign_targets_single_class(
                     self.anchors, sel, gt7, (gt_cls > 0) & (gt_cls == ci + 1), ci + 1,
                     self.matched_thresholds[ci], self.unmatched_thresholds[ci],
-                    self.box_coder)
+                    self.box_coder, self.match_height)
                 labels = torch.where(sel, lab, labels)
                 reg = torch.where(sel[:, None], regt, reg)
                 mask = torch.where(sel, regm, mask)

@@ -15,7 +15,12 @@ The modules sit under `occ_modules` and `det_modules`, so the state dict
 carries the reference BtcDet names (`occ_modules.backbone_3d.conv1.0.0.weight`,
 `det_modules.backbone_3d.conv1.0.weight`, ...). Without `MODEL.OCC` (the
 det-only variant, `config.det_only`) the det path reads the batch's own
-voxel table through MeanVFE.
+voxel table through MeanVFE. With it, the det VFE is the occ subnet's fused
+merge + OccVFE (VFE.NAME OccVFE, OCC_PNT_UPDATE.FUSED_VFE unset or True),
+or reduces the materialized merged table: OccVFE (the occ code then feeds
+the backbone's side branch) or MeanVFE (no occ code, no side branch).
+DATA_CONFIG.CLAMP ("tanh", or a positive max) clamps the intensity channel
+of the points and of every voxel table before anything reads them.
 """
 
 from __future__ import annotations
@@ -85,39 +90,43 @@ class BtcNet(nn.Module):
         super().__init__()
         mc = model_cfg
         self.use_occ = mc.get("OCC") is not None
-        want_vfe = "OccVFE" if self.use_occ else "MeanVFE"
-        if mc.VFE.NAME != want_vfe:
-            raise NotImplementedError(f"VFE {mc.VFE.NAME} with MODEL.OCC "
-                                      f"{'set' if self.use_occ else 'unset'}")
-        if data_cfg.get("CLAMP") is not None:
-            raise NotImplementedError("DATA_CONFIG.CLAMP")
+        if mc.VFE.NAME not in ("OccVFE", "MeanVFE"):
+            raise KeyError(f"unknown VFE.NAME {mc.VFE.NAME!r}")
+        if mc.VFE.NAME == "OccVFE" and not self.use_occ:
+            raise NotImplementedError("VFE OccVFE needs MODEL.OCC: it reduces the merged table")
+        clamp = data_cfg.get("CLAMP")
+        self.clamp = clamp if clamp is not None and (clamp == "tanh" or float(clamp) > 0) else None
         bb = mc.BACKBONE_3D
         self.det_grid_size = tuple(int(v) for v in det_grid_size)
         self.class_names = tuple(class_names)
-        self.vfe = vfe.MeanVFE()
+        self.vfe = (vfe.OccVFE(num_point_features) if mc.VFE.NAME == "OccVFE"
+                    else vfe.MeanVFE())
         self.map_to_bev = map_to_bev.HeightCompression()
-        occ_code_num = 0
+        input_channels, occ_code_num = num_point_features, 0
         if self.use_occ:
             # parameters under the reference names occ_modules.backbone_3d /
-            # occ_modules.occ_dense_head
+            # occ_modules.occ_dense_head; the merge + OccVFE fuse unless
+            # OCC_PNT_UPDATE.FUSED_VFE is False or the det VFE is MeanVFE
+            fused = (mc.VFE.NAME == "OccVFE"
+                     and bool(mc.OCC.OCC_PNT_UPDATE.get("FUSED_VFE", True)))
             self.occ_modules = occ_subnet.OccSubnet(mc.OCC, data_cfg, point_cloud_range,
-                                                    det_voxel_size, num_point_features)
-            occ_code_num = int(data_cfg.OCC.get("CODE_NUM_DIM", 2))
+                                                    det_voxel_size, num_point_features, fused)
+            # the merged points carry the occ code; only OccVFE passes it on
+            # to the backbone's side branch (MeanVFE averages it in)
+            input_channels += int(data_cfg.OCC.get("CODE_NUM_DIM", 2))
+            if mc.VFE.NAME == "OccVFE":
+                occ_code_num = input_channels - num_point_features
 
         det = nn.Module()
         channels = tuple(bb.get("CHANNELS", (16, 32, 64, 64, 128)))
         out_feat_type = tuple(bb.get("OUT_FEAT_TYPE", ["None"] * 4 + ["big_bev_combine"]))
-        if out_feat_type[4] != "big_bev_combine":
-            # the backbone builds every OUT_FEAT_TYPE; ConvHead's x_combine
-            # pool reads the big_bev_combine grid and widths only
-            raise NotImplementedError(f"OUT_FEAT_TYPE {out_feat_type[4]} in BtcNet")
         det.backbone_3d = backbones_3d.VoxelBackBone8xOcc(
-            input_channels=num_point_features + occ_code_num, channels=channels,
+            input_channels=input_channels, channels=channels,
             out_feat_type=out_feat_type,
             level_caps={m: _level_caps(bb, m) for m in ("train", "test")},
             occ_code_num=occ_code_num,
-            occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])),
-            occ_conv_exec=tuple(bb.get("OCC_CONV_EXECUTE", [])),
+            occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])) if occ_code_num else (),
+            occ_conv_exec=tuple(bb.get("OCC_CONV_EXECUTE", [])) if occ_code_num else (),
             out_att=tuple(bb.get("OCC_ATT", [])))
         nz_bev = self._bev_depth(channels)
         b2 = mc.BACKBONE_2D
@@ -138,7 +147,8 @@ class BtcNet(nn.Module):
             matched_thresholds=[c["matched_threshold"] for c in dh.ANCHOR_GENERATOR_CONFIG],
             unmatched_thresholds=[c["unmatched_threshold"] for c in dh.ANCHOR_GENERATOR_CONFIG],
             cls_weight=lw["cls_weight"], loc_weight=lw["loc_weight"],
-            dir_weight=lw["dir_weight"], code_weights=lw["code_weights"])
+            dir_weight=lw["dir_weight"], code_weights=lw["code_weights"],
+            match_height=bool(dh.TARGET_ASSIGNER_CONFIG.get("MATCH_HEIGHT", False)))
         rh = mc.ROI_HEAD
         cg = rh.CONV_GRID_POOL
         xc = cg.CONV_LAYER.get("x_combine")
@@ -148,11 +158,18 @@ class BtcNet(nn.Module):
             raise NotImplementedError("ConvHead occ_points without MODEL.OCC")
         if bool(rh.get("APPROX_QUERY", True)):
             raise NotImplementedError("approximate ball queries; set ROI_HEAD.APPROX_QUERY False")
+        if not rh.get("CLASS_AGNOSTIC", True) and len(class_names) > 1:
+            # the JAX package's ConvHead.get_loss takes the BCE of (R, classes)
+            # logits against (R,) labels and fails to broadcast, so no model
+            # of it trains this; a class-agnostic head is what the yamls set
+            raise NotImplementedError(
+                "ROI_HEAD.CLASS_AGNOSTIC False with several classes: the JAX package's rcnn "
+                "loss cannot broadcast per-class logits against its per-roi labels")
         cd = (torch.float32 if str(rh.get("COMPUTE_DTYPE", "bf16")) in ("f32", "fp32", "float32")
               else activation_dtype())
         det.roi_head = conv_head.ConvHead(
             num_class=1 if rh.get("CLASS_AGNOSTIC", True) else len(class_names),
-            input_channels_xc=channels[3] * 2,
+            input_channels_xc=channels[3] * 2 if out_feat_type[4] != "None" else None,
             grid_size=tuple(cg.GRID_SIZE), dim_times=cg.get("DIM_TIMES", 1.0),
             point_rot=cg.get("POINT_ROT", False), features_source=tuple(cg.FEATURES_SOURCE),
             raw_mlps=tuple(tuple(m) for m in raw.MLPS), raw_radii=tuple(raw.POOL_RADIUS),
@@ -171,13 +188,8 @@ class BtcNet(nn.Module):
             rcnn_cls_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_cls_weight"],
             rcnn_reg_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_reg_weight"],
             rcnn_corner_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_corner_weight"],
-            code_weights=tuple(rh.LOSS_CONFIG.LOSS_WEIGHTS["code_weights"]))
-        # train-only options the port refuses when a train step meets them
-        self.train_refusals = [k for k, on in (
-            ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT",
-             bool(dh.TARGET_ASSIGNER_CONFIG.get("MATCH_HEIGHT", False))),
-            ("ROI_HEAD.LOSS_CONFIG.CORNER_LOSS_REGULARIZATION False",
-             not rh.LOSS_CONFIG.get("CORNER_LOSS_REGULARIZATION", True))) if on]
+            code_weights=tuple(rh.LOSS_CONFIG.LOSS_WEIGHTS["code_weights"]),
+            corner_loss=bool(rh.LOSS_CONFIG.get("CORNER_LOSS_REGULARIZATION", True)))
         self.nms_cfg_train = rh.NMS_CONFIG.TRAIN
         self.nms_cfg_test = rh.NMS_CONFIG.TEST
         tc = rh.TARGET_CONFIG
@@ -213,8 +225,6 @@ class BtcNet(nn.Module):
         intermediates (with MODEL.OCC the occ masks of VIS_MASK_KEYS); `generator` draws its random numbers. Each stage
         runs in `stage(name)` (STAGES)."""
         if self.training:
-            if self.train_refusals:
-                raise NotImplementedError(f"train options not ported: {self.train_refusals}")
             if generator is None:
                 raise ValueError("a train forward needs a torch.Generator")
             return self._forward(batch, generator, train=True)
@@ -227,6 +237,8 @@ class BtcNet(nn.Module):
         B = int(batch["points"].shape[0])
         nx, ny, nz = self.det_grid_size
         occ_pts = occ_mask = occ_code = None
+        if self.clamp is not None:
+            batch = clamp_intensity(batch, self.clamp)
         if self.use_occ and train and "use_occ_prob" not in batch:
             rows, lo = global_rows(B)   # this rank's frames of the global draw
             batch = dict(batch, use_occ_prob=(draw_use_occ_prob(generator, rows)[lo:lo + B].to(
@@ -244,15 +256,23 @@ class BtcNet(nn.Module):
                 out["occ_pos_mask"] = occ_out["pos_mask"]
                 out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]
         with stage("backbone_3d", self.stage_ms):
-            if self.use_occ:
-                # the occ code rides the sort permutation as a per-row side table
-                st, occ_code = sparse.from_coords(
-                    occ_out["det_voxel_features"], occ_out["det_voxel_coords"],
-                    (nz + 1, ny, nx), B, aux=occ_out["det_occ_code"])
+            if self.use_occ and "det_voxel_features" in occ_out:
+                voxel_features, occ_code = occ_out["det_voxel_features"], occ_out["det_occ_code"]
+                coords = occ_out["det_voxel_coords"]
             else:
-                voxel_features = self.vfe(batch["voxels"], batch["voxel_num_points"])
-                st = sparse.from_coords(voxel_features, batch["voxel_coords"], (nz + 1, ny, nx),
-                                        B)
+                vox, num, coords = ((occ_out["det_voxels"], occ_out["det_voxel_num_points"],
+                                     occ_out["det_voxel_coords"]) if self.use_occ else
+                                    (batch["voxels"], batch["voxel_num_points"],
+                                     batch["voxel_coords"]))
+                voxel_features = self.vfe(vox, num)
+                if isinstance(self.vfe, vfe.OccVFE):
+                    voxel_features, occ_code = voxel_features
+            if occ_code is not None:
+                # the occ code rides the sort permutation as a per-row side table
+                st, occ_code = sparse.from_coords(voxel_features, coords, (nz + 1, ny, nx), B,
+                                                  aux=occ_code)
+            else:
+                st = sparse.from_coords(voxel_features, coords, (nz + 1, ny, nx), B)
             bb_out = det.backbone_3d(st, occ_code)
         out["encoded_features"] = bb_out["encoded"].features
         out["nnz"] = {k: int(v.nnz) for k, v in bb_out.items() if v is not None}
@@ -304,6 +324,21 @@ class BtcNet(nn.Module):
             losses["occ_loss"] = out["occ_loss"]
         out["loss"], out["loss_dict"] = total, losses
         return out
+
+
+def clamp_intensity(batch: dict, clamp) -> dict:
+    """The intensity channel (3) of `points` and of every voxel table
+    (`voxels`, `occ_voxels`, `det_voxels`) through tanh (`clamp` "tanh") or
+    clamped to [0, clamp] (reference `BtcNet.clamp`, `btcnet.py:16-30`)."""
+    def f(x):
+        return torch.tanh(x) if clamp == "tanh" else x.clamp(0.0, float(clamp))
+
+    batch = dict(batch)
+    for k in ("points", "voxels", "occ_voxels", "det_voxels"):
+        if k in batch:
+            v = batch[k]
+            batch[k] = torch.cat([v[..., :3], f(v[..., 3:4]), v[..., 4:]], dim=-1)
+    return batch
 
 
 def draw_use_occ_prob(generator: torch.Generator, B: int) -> torch.Tensor:

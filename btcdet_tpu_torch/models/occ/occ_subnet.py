@@ -16,7 +16,8 @@ occ_targets -> vfe -> backbone_3d -> occ_dense_head -> occ_pnt_update).
                of a column; the probability is masked to
                `general_cls_loss_mask`
   PassOccVox   threshold, top-K, cell centre + residual -> occ points;
-               then the fused merge + OccVFE into the det voxel table
+               then the fused merge + OccVFE into the det voxel table, or
+               (`fused_vfe` False) the merged point table itself
                (OCC_PNT_UPDATE.DB_PROJ first expands each occ point onto
                the det cells of its occ voxel, for the merge only)
 
@@ -180,19 +181,21 @@ class OccSubnet(nn.Module):
     `occ_dense_head` (reference `occ_modules.*` names)."""
 
     def __init__(self, model_cfg, data_cfg, point_cloud_range, det_voxel_size,
-                 num_point_features: int = 4):
+                 num_point_features: int = 4, fused_vfe: bool = True):
         super().__init__()
         occ_d = data_cfg.OCC
         p = model_cfg.PARAMS
         upd = model_cfg.OCC_PNT_UPDATE
         head = model_cfg.OCC_DENSE_HEAD
-        # the unfused merge computes what the fused one does; a cartesian occ
-        # grid reaches no model (the host processor refuses it)
-        for key, ok in (("OCC_PNT_UPDATE.FUSED_VFE False", bool(upd.get("FUSED_VFE", True))),
-                        ("OCC_PNT_UPDATE.MERGE_IMPL", upd.get("MERGE_IMPL") is None),
-                        ("OCC.COORD_TYPE cartesian", occ_d.COORD_TYPE != "cartesian")):
-            if not ok:
-                raise NotImplementedError(f"occ subnet option {key} is not ported")
+        # a cartesian occ grid reaches no model (the host processor refuses it)
+        if occ_d.COORD_TYPE == "cartesian":
+            raise NotImplementedError("occ subnet option OCC.COORD_TYPE cartesian is not ported")
+        # both of the JAX package's merges build the same table bit for bit
+        if upd.get("MERGE_IMPL", "v1") not in ("v1", "v2"):
+            raise KeyError(f"unknown OCC_PNT_UPDATE.MERGE_IMPL {upd.MERGE_IMPL!r}")
+        # the fused merge + OccVFE, or the materialized merged point table
+        # (`det_voxels`) for the det VFE to reduce
+        self.fused_vfe = bool(fused_vfe)
         self.targets_name = model_cfg.get("TARGETS", {}).get("NAME", "OccTargets3D")
         if self.targets_name not in ("OccTargets3D", "OccTargetsPillar"):
             raise KeyError(f"unknown occ TARGETS.NAME {self.targets_name!r}")
@@ -256,8 +259,10 @@ class OccSubnet(nn.Module):
     def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """Returns the target masks, `probs` (B, nz, ny, nx), `res_pred`,
         `occ_points` (B, K, 4) xyz + prob / `occ_points_mask` (B, K), the
-        merged det table: `det_voxel_features` (B*(Nd/B+extra), 4 + code),
-        `det_occ_code`, `det_voxel_coords` (b, z, y, x), `det_voxel_num_points`;
+        merged det table: `det_voxel_features` (B*(Nd/B+extra), 4 + code) and
+        `det_occ_code`, or without `fused_vfe` the merged points `det_voxels`
+        (B*(Nd/B+extra), MAX_POINTS_MERGED, 4 + code), then
+        `det_voxel_coords` (b, z, y, x), `det_voxel_num_points`;
         in train mode also the loss maps and `loss`. A train forward that
         draws (DROPOUT_RATE, REMAIN_PERCENTAGE) needs `generator`. Eval runs
         without a gradient."""
@@ -442,16 +447,28 @@ class OccSubnet(nn.Module):
         # it under DB_PROJ, whose candidates would overflow that)
         extra = int(self.merged_cap_extra if self.merged_cap_extra is not None else K // 4)
         merged = per_frame + extra
-        feat, occ_code, num, coords_zyx, row_valid = voxelizer.merge_points_into_voxel_features(
-            det_vox, batch["det_voxel_coords"].reshape(B, per_frame, 4), det_num,
-            merge_pts, merge_valid, grid_size=grid_size, lo=self.det_lo, vs=self.det_vs,
-            extra=extra, max_points=MAX_POINTS_MERGED, num_raw_features=self.num_point_features)
-        rv = row_valid[..., None]
-        out["det_voxel_features"] = torch.where(rv, feat, zero).reshape(B * merged, -1)
-        out["det_occ_code"] = torch.where(rv, occ_code, zero).reshape(B * merged, -1)
+        det_coords = batch["det_voxel_coords"].reshape(B, per_frame, 4)
+        kw = dict(grid_size=grid_size, lo=self.det_lo, vs=self.det_vs, extra=extra,
+                  max_points=MAX_POINTS_MERGED)
+        if self.fused_vfe:
+            feat, occ_code, num, coords_zyx, row_valid = \
+                voxelizer.merge_points_into_voxel_features(
+                    det_vox, det_coords, det_num, merge_pts, merge_valid,
+                    num_raw_features=self.num_point_features, **kw)
+            rv = row_valid[..., None]
+            out["det_voxel_features"] = torch.where(rv, feat, zero).reshape(B * merged, -1)
+            out["det_occ_code"] = torch.where(rv, occ_code, zero).reshape(B * merged, -1)
+        else:
+            # det points widened to the occ points' channels (a zero occ-code
+            # tail) and to the merged point slots
+            C6 = occ_pts6.shape[-1]
+            det_vox6 = F.pad(det_vox, (0, C6 - Cd, 0, MAX_POINTS_MERGED - Pd))
+            vox, num, coords_zyx, row_valid = voxelizer.merge_points_into_voxels(
+                det_vox6, det_coords, det_num, merge_pts, merge_valid, **kw)
+            out["det_voxels"] = vox.reshape(B * merged, MAX_POINTS_MERGED, C6)
         b = torch.arange(B, device=dev, dtype=torch.int32)[:, None, None].expand(B, merged, 1)
         coords4 = torch.cat([b, coords_zyx], dim=-1)
-        out["det_voxel_coords"] = torch.where(rv, coords4, torch.full_like(coords4, -1)) \
-            .reshape(B * merged, 4)
+        out["det_voxel_coords"] = torch.where(row_valid[..., None], coords4,
+                                              torch.full_like(coords4, -1)).reshape(B * merged, 4)
         out["det_voxel_num_points"] = torch.where(row_valid, num, torch.zeros_like(num)) \
             .reshape(B * merged)

@@ -10,13 +10,15 @@ feature sources (the flagship's `FEATURES_SOURCE`):
               dense stride-8 `x_combine` volume with the trilinear
               sampler (kernel K4 on CUDA) and a small dense conv stack
               with sparse-site semantics reduces it to one vector.
-The sources are concatenated raw | occ | x_combine per grid point, and
+With OUT_FEAT_TYPE `None` the backbone makes no x_combine and the head
+pools the other sources only. The sources are concatenated raw | occ |
+x_combine per grid point, and
 the pooled grid is flattened C-major (the reference layout its first FC
 weights expect) and run through the shared / cls / reg FC trunks. In
 train mode the trunks' BNs use batch statistics, dropout at DP_RATIO
 draws its masks through `draw_dropout_keep`, and `get_loss` gives the
-BCE cls, smooth-L1 reg and corner losses
-(reference `roi_head_template.py:134-198`).
+BCE cls, smooth-L1 reg and (CORNER_LOSS_REGULARIZATION, on unless set
+False) corner losses (reference `roi_head_template.py:134-198`).
 """
 
 from __future__ import annotations
@@ -142,8 +144,12 @@ class ConvHead(nn.Module):
                  shared_fc=(256, 128), cls_fc=(128, 64), reg_fc=(128, 64), dp_ratio=0.3,
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
                  det_voxel_size=(0.05, 0.05, 0.1), compute_dtype=None, rcnn_cls_weight=1.0,
-                 rcnn_reg_weight=1.0, rcnn_corner_weight=1.0, code_weights=(1.0,) * 7):
+                 rcnn_reg_weight=1.0, rcnn_corner_weight=1.0, code_weights=(1.0,) * 7,
+                 corner_loss: bool = True):
+        """input_channels_xc: the x_combine volume's channels, None where the
+        backbone makes no x_combine (the branch is then left out)."""
         super().__init__()
+        self.corner_loss = corner_loss
         self.loss_weights = (float(rcnn_cls_weight), float(rcnn_reg_weight),
                              float(rcnn_corner_weight))
         self.code_weights = tuple(float(v) for v in code_weights)
@@ -173,7 +179,8 @@ class ConvHead(nn.Module):
                 radii=occ_radii, nsamples=occ_nsamples,
                 mlps=[[OCC_FEAT_DIM + 3, *m] for m in occ_mlps], dtype=compute_dtype)
             c_pool += sum(m[-1] for m in occ_mlps)
-        if "x_combine" in self.features_source:
+        self.use_x_combine = "x_combine" in self.features_source and input_channels_xc is not None
+        if self.use_x_combine:
             self.xc_params = list(zip(xc_kernels, xc_strides, xc_paddings))
             layers = nn.ModuleList()
             cin = input_channels_xc
@@ -197,7 +204,7 @@ class ConvHead(nn.Module):
                   self.box_coder.code_size * num_class)
 
     def forward(self, rois, roi_valid, points_xyz, points_feat, points_mask,
-                x_combine: SparseTensor, occ_xyz=None, occ_feat=None, occ_mask=None,
+                x_combine: SparseTensor | None, occ_xyz=None, occ_feat=None, occ_mask=None,
                 generator=None):
         """occ_*: the occ subnet's points (B, Q, 3), probs (B, Q, 1) and mask
         (B, Q), pooled when `occ_points` is a feature source; `generator`
@@ -222,7 +229,7 @@ class ConvHead(nn.Module):
         if "occ_points" in self.features_source:
             feats.append(self.SA_occpoints(occ_xyz, occ_mask, new_xyz, new_mask,
                                            features=occ_feat, rotate_matrix=rot))
-        if "x_combine" in self.features_source:
+        if self.use_x_combine:
             feats.append(self._x_combine_pool(rois, roi_valid, grid_pts, x_combine))
         pooled = torch.cat([f.to(cd) for f in feats], dim=-1)             # (B, N*G, C)
         C = pooled.shape[-1]
@@ -295,7 +302,7 @@ class ConvHead(nn.Module):
     def get_loss(self, rcnn_cls, rcnn_reg, targets):
         """rcnn_cls (B*R, 1), rcnn_reg (B*R, 7); targets of
         `roi_head_utils.assign_targets`. Returns (total, {rcnn_loss_cls,
-        rcnn_loss_reg, rcnn_loss_corner, rcnn_loss}); the valid and the
+        rcnn_loss_reg, [rcnn_loss_corner,] rcnn_loss}); the valid and the
         foreground counts are summed over the ranks of a data-parallel run."""
         w_cls, w_reg, w_corner = self.loss_weights
         valid = targets["roi_valid"].reshape(-1).float()
@@ -312,12 +319,15 @@ class ConvHead(nn.Module):
         reg_el = loss_utils.weighted_smooth_l1_loss(rcnn_reg[None], reg_targets[None],
                                                     code_weights=self.code_weights)[0]
         reg_loss = (reg_el.sum(-1) * reg_mask).sum() / fg_norm * w_reg
-        corner = loss_utils.get_corner_loss_lidar(
-            self._to_global(rois, rcnn_reg), targets["gt_of_rois_src"].reshape(-1, 7))
-        corner_loss = (corner * reg_mask).sum() / fg_norm * w_corner
-        total = cls_loss + reg_loss + corner_loss
-        return total, {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss,
-                       "rcnn_loss_corner": corner_loss, "rcnn_loss": total}
+        losses = {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss}
+        total = cls_loss + reg_loss
+        if self.corner_loss:
+            corner = loss_utils.get_corner_loss_lidar(
+                self._to_global(rois, rcnn_reg), targets["gt_of_rois_src"].reshape(-1, 7))
+            losses["rcnn_loss_corner"] = (corner * reg_mask).sum() / fg_norm * w_corner
+            total = total + losses["rcnn_loss_corner"]
+        losses["rcnn_loss"] = total
+        return total, losses
 
     def generate_predicted_boxes(self, rois, rcnn_cls, rcnn_reg):
         """Decode rcnn_reg in the roi frame back to global boxes

@@ -13,7 +13,10 @@ OccVFE features without ever being built. The JAX package reduces with a
 segmented scan over the key-sorted points; here a stable sort fixes the
 same kept set and index_add / scatter_reduce accumulate it, so counts,
 maxes and coords are exact and the sums differ from the JAX package's by
-float32 reassociation only.
+float32 reassociation only. `merge_points_into_voxels` builds the merged
+point table itself (OCC_PNT_UPDATE.FUSED_VFE False, or a det VFE other
+than OccVFE): the same kept set, every point copied into its slot, equal
+bit for bit to both of the JAX package's merges (`MERGE_IMPL` v1 and v2).
 """
 
 from __future__ import annotations
@@ -139,7 +142,6 @@ def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_
     ncode), num (B, Nd+extra), coords_zyx (B, Nd+extra, 3), row_valid
     (B, Nd+extra)); rows [0, Nd) are the det rows, [Nd, Nd+extra) the new
     ones."""
-    nxd, nyd, nzd = (int(v) for v in grid_size)
     B, Nd, Pd, Cd = dvox.shape
     K, C6 = opts.shape[1], opts.shape[2]
     nrf = num_raw_features
@@ -148,35 +150,14 @@ def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_
     dev = opts.device
     R = Nd + extra
 
-    dc = dcoords.long()
-    dvalid = dc[..., 0] >= 0
-    dkey = torch.where(dvalid, (dc[..., 1] * nyd + dc[..., 2]) * nxd + dc[..., 3],
-                       torch.full_like(dc[..., 0], INT32_MAX))
-    cell = torch.floor((opts[..., :3] - lo) / vs).long()
-    # out-of-range points are clamped into the edge voxels, not dropped
-    # (reference `trans_voxel_grid`)
-    cx, cy, cz = (cell[..., i].clamp(0, n - 1) for i, n in enumerate((nxd, nyd, nzd)))
-    okey = torch.where(ovalid, (cz * nyd + cy) * nxd + cx, torch.full_like(cx, INT32_MAX))
-
-    sk, order = torch.sort(okey, dim=1, stable=True)
+    dc, dvalid, dkey = _det_keys(dcoords, grid_size)
+    order, row, _, kept, ekey = _merge_plan(dkey, dnum, opts, ovalid, grid_size, lo, vs, extra,
+                                            max_points)
     sp = torch.gather(opts, 1, order[..., None].expand(B, K, C6))
-    pos = torch.arange(K, device=dev).expand(B, K)
-    first = torch.ones_like(sk, dtype=torch.bool)
-    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
-    slot = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), dim=1).values
-    live = sk != INT32_MAX
-
-    il = torch.searchsorted(dkey, sk).clamp(max=Nd - 1)
-    hit = (torch.gather(dkey, 1, il) == sk) & live
-    keep_h = hit & (torch.gather(dnum.long(), 1, il) + slot < max_points)
-    miss_head = live & ~hit & first
-    nrank = torch.cumsum(miss_head.long(), dim=1) - 1
-    keep_m = ~hit & live & (nrank >= 0) & (nrank < extra) & (slot < max_points)
-    kept = keep_h | keep_m
 
     # destination row of every kept point, flattened over frames
     frame = torch.arange(B, device=dev)[:, None] * R
-    dest = (frame + torch.where(hit, il, Nd + nrank))[kept]
+    dest = (frame + row)[kept]
     pk = sp[kept]
     is_occ = pk[:, -1] >= 0.05
     head, tail = pk[:, :nrf], pk[:, nrf:]
@@ -191,13 +172,6 @@ def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_
         0, dest, is_occ.long())
     tail_max = torch.full((B * R, ncode), NEG, device=dev).scatter_reduce_(
         0, dest[:, None].expand(-1, ncode), tail, reduce="amax")
-
-    # new rows' keys: the i-th missing cell of a frame (key order) is row Nd + i
-    new_head = miss_head & (nrank < extra)
-    ekey = torch.full((B * R,), INT32_MAX, dtype=torch.long, device=dev)
-    ekey[(frame + Nd + nrank)[new_head]] = sk[new_head]
-    ekey = ekey.reshape(B, R)[:, Nd:]
-    epad = ekey == INT32_MAX
 
     # det-side contribution: every det point is raw with a zero tail
     dn = dnum.long()
@@ -219,11 +193,107 @@ def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_
     occ_only = (cnt_occ > 0) & (raw_n < 1)
     features = torch.cat([f_raw + occ_only[..., None].float() * f_occ, occ_code], dim=-1)
 
+    coords_zyx = torch.cat([dc[..., 1:4], _decode_keys(ekey, grid_size)], dim=1).to(torch.int32)
+    row_valid = torch.cat([dvalid, ekey != INT32_MAX], dim=1)
+    return features, occ_code, raw_n + cnt_occ, coords_zyx, row_valid
+
+
+def _det_keys(dcoords, grid_size):
+    """(coords as int64, row valid, cell key with INT32_MAX on padding) of
+    det rows (..., 4) (b, z, y, x)."""
+    nxd, nyd, _ = (int(v) for v in grid_size)
+    dc = dcoords.long()
+    dvalid = dc[..., 0] >= 0
+    dkey = torch.where(dvalid, (dc[..., 1] * nyd + dc[..., 2]) * nxd + dc[..., 3],
+                       torch.full_like(dc[..., 0], INT32_MAX))
+    return dc, dvalid, dkey
+
+
+def _merge_plan(dkey, dnum, opts, ovalid, grid_size, lo, vs, extra: int, max_points: int):
+    """The kept set of a merge (the JAX package's `merge_points_into_voxels`
+    and its v2, which agree bit for bit), per frame: the points sorted by
+    det cell key (stable), and for each its destination row (a det row for
+    a hit, Nd + the cell's rank among the missing cells otherwise), its
+    slot, and whether it is kept; the new rows' keys (INT32_MAX pads).
+    dkey (B, Nd) int64 cell keys of the det rows, key-sorted valid-first."""
+    nxd, nyd, nzd = (int(v) for v in grid_size)
+    B, K = ovalid.shape
+    Nd = dkey.shape[1]
+    dev = opts.device
+    cell = torch.floor((opts[..., :3] - lo) / vs).long()
+    # out-of-range points are clamped into the edge voxels, not dropped
+    # (reference `trans_voxel_grid`)
+    cx, cy, cz = (cell[..., i].clamp(0, n - 1) for i, n in enumerate((nxd, nyd, nzd)))
+    okey = torch.where(ovalid, (cz * nyd + cy) * nxd + cx, torch.full_like(cx, INT32_MAX))
+    sk, order = torch.sort(okey, dim=1, stable=True)
+    pos = torch.arange(K, device=dev).expand(B, K)
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    slot = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), dim=1).values
+    live = sk != INT32_MAX
+    il = torch.searchsorted(dkey, sk).clamp(max=Nd - 1)
+    hit = (torch.gather(dkey, 1, il) == sk) & live
+    dest_slot = torch.gather(dnum.long(), 1, il) + slot
+    keep_h = hit & (dest_slot < max_points)
+    miss_head = live & ~hit & first
+    nrank = torch.cumsum(miss_head.long(), dim=1) - 1
+    keep_m = ~hit & live & (nrank >= 0) & (nrank < extra) & (slot < max_points)
+    row = torch.where(hit, il, Nd + nrank)
+    new_head = miss_head & (nrank < extra)
+    frame = torch.arange(B, device=dev)[:, None] * extra
+    ekey = torch.full((B * extra,), INT32_MAX, dtype=torch.long, device=dev)
+    ekey[(frame + nrank)[new_head]] = sk[new_head]
+    return (order, row, torch.where(hit, dest_slot, slot), keep_h | keep_m,
+            ekey.reshape(B, extra))
+
+
+def _decode_keys(ekey, grid_size):
+    """(B, E) cell keys -> (B, E, 3) (z, y, x), -1 where the key pads."""
+    nxd, nyd, _ = (int(v) for v in grid_size)
     ez = ekey // (nyd * nxd)
     ey = (ekey - ez * (nyd * nxd)) // nxd
     ex = ekey - ez * (nyd * nxd) - ey * nxd
-    ecoords = torch.where(epad[..., None], torch.full_like(ekey[..., None], -1),
-                          torch.stack([ez, ey, ex], dim=-1))
-    coords_zyx = torch.cat([dc[..., 1:4], ecoords], dim=1).to(torch.int32)
-    row_valid = torch.cat([dvalid, ~epad], dim=1)
-    return features, occ_code, raw_n + cnt_occ, coords_zyx, row_valid
+    return torch.where((ekey == INT32_MAX)[..., None], torch.full_like(ekey[..., None], -1),
+                       torch.stack([ez, ey, ex], dim=-1))
+
+
+def merge_points_into_voxels(dvox, dcoords, dnum, opts, ovalid, *, grid_size, lo, vs,
+                             extra: int, max_points: int):
+    """Per frame: merge points `opts` into the det voxel table and return
+    the merged point table (the JAX package's `merge_points_into_voxels`,
+    and its `merge_points_into_voxels_v2`, equal to it bit for bit).
+
+    dvox (B, Nd, max_points, C) det voxel point slots (slots past dnum
+    zero), already widened to the points' channels; dcoords (B, Nd, 4) (b,
+    z, y, x), each frame's rows key-sorted valid-first (-1 padding); dnum
+    (B, Nd); opts (B, K, C) new points (xyz leading); ovalid (B, K).
+    grid_size (nx, ny, nz); lo / vs the det grid's origin and voxel size,
+    (3,) float32 tensors on the points' device.
+
+    The kept set is `merge_points_into_voxel_features`'s: a point hitting a
+    det voxel takes slot dnum + (its rank in the cell) below `max_points`;
+    cells no det voxel holds become new rows in key order, at most `extra`
+    a frame. Every kept point is copied into its slot, so the table is
+    exact, and a gradient reaches the kept points' values.
+
+    Returns (vox (B, Nd+extra, max_points, C), num (B, Nd+extra), coords_zyx
+    (B, Nd+extra, 3) int32, row_valid (B, Nd+extra)); rows [0, Nd) are the
+    det rows, [Nd, Nd+extra) the new ones."""
+    B, Nd, P, C = dvox.shape
+    K = opts.shape[1]
+    dev = opts.device
+    R = Nd + extra
+    dc, dvalid, dkey = _det_keys(dcoords, grid_size)
+    order, row, slot, kept, ekey = _merge_plan(dkey, dnum, opts, ovalid, grid_size, lo, vs,
+                                               extra, max_points)
+    sp = torch.gather(opts, 1, order[..., None].expand(B, K, C))
+    frame = torch.arange(B, device=dev)[:, None] * R
+    dest = ((frame + row) * P + slot)[kept]
+    base = torch.cat([dvox, dvox.new_zeros((B, extra, P, C))], dim=1).reshape(B * R * P, C)
+    vox = base.index_put((dest,), sp[kept].to(dvox.dtype)).reshape(B, R, P, C)
+    num = torch.cat([dnum.long(), torch.zeros((B, extra), dtype=torch.long, device=dev)], 1)
+    num = num.reshape(-1).index_add(0, (frame + row)[kept],
+                                    torch.ones_like(dest)).reshape(B, R).to(dnum.dtype)
+    coords_zyx = torch.cat([dc[..., 1:4], _decode_keys(ekey, grid_size)], dim=1).to(torch.int32)
+    row_valid = torch.cat([dvalid, ekey != INT32_MAX], dim=1)
+    return vox, num, coords_zyx, row_valid

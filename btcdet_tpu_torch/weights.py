@@ -215,13 +215,19 @@ def det_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> 
     return sd
 
 
-def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=None) -> dict:
+def from_jax_variables(variables_np: dict, *, upsample_strides, dp_ratio: float = 0.3,
+                       layer_nums=None) -> dict:
     """JAX BtcNet variables -> this port's state dict (reference names,
     `occ_modules.` / `det_modules.` prefixes, torch tensors).
 
     `dp_ratio` is ROI_HEAD.DP_RATIO (dropout layers shift the reference
     FC indices); `layer_nums` is BACKBONE_2D.LAYER_NUMS, inferred from the
-    variables when omitted."""
+    variables when omitted; `upsample_strides` is BACKBONE_2D.UPSAMPLE_STRIDES,
+    required: a fractional one's deblock is a Conv2d, the others are
+    ConvTranspose2d, and the JAX names (`Conv_{k}` for s == 1 and s < 1)
+    cannot tell them apart. The parameter sets follow the config: no x_combine
+    branch under OUT_FEAT_TYPE `None`, `combine`'s strided down_combine,
+    per-class dense-head widths."""
     P, S = variables_np["params"], variables_np.get("batch_stats", {})
     sd: dict = {}
     pre = "det_modules."
@@ -250,7 +256,9 @@ def from_jax_variables(variables_np: dict, dp_ratio: float = 0.3, layer_nums=Non
         else:
             w = p2[f"ConvTranspose_{n_transpose}"]["kernel"]
             n_transpose += 1
-        sd[f"{pre}backbone_2d.deblocks.{b}.0.weight"] = inv_convT2d(w)
+        fractional = float(upsample_strides[b]) < 1
+        sd[f"{pre}backbone_2d.deblocks.{b}.0.weight"] = (inv_conv2d(w) if fractional
+                                                         else inv_convT2d(w))
         _bn(sd, f"{pre}backbone_2d.deblocks.{b}.1", p2[f"_BN_{up}"]["BatchNorm_0"],
             s2[f"_BN_{up}"]["BatchNorm_0"])
 

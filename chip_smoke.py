@@ -11,7 +11,11 @@ KITTI tree as a sixth, data parallelism (`btcdet_tpu_torch.parallel`:
 the occupancy subnet's options (OccTargetsPillar + OccHead2D, the residual
 and inverse occ backbones, REVERSE_VIS, USE_ABSXYZ, DB_PROJ; PASS_GRAD with
 K2's backward, the occ voxel dropout, REMAIN_PERCENTAGE, the sigmoid occ
-loss) as an eighth.
+loss) as an eighth, and the det-side options (OUT_FEAT_TYPE, CLAMP, the
+unfused merge, MeanVFE with the occ subnet, a fractional upsample stride,
+MATCH_HEIGHT without the corner loss, the adam / adam_cosine / sgd
+optimizers) with the 3-class config (`btcdet_kitti_3classes.yaml`) as a
+ninth.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
@@ -141,6 +145,23 @@ Phases (any failure raises and exits non-zero, printing no result):
      without PASS_GRAD, 3 timed steps; train step C: one counted step each
      with a sigmoid loss + OccHead2D + OccTargetsPillar, the two residual
      backbones and DB_PROJ;
+  8d. the ninth path: the 3-class yaml's eval forward + post at B=2 on a
+     relabelled synthetic batch (EVAL_LAUNCHES, detections per class, the
+     median of 5 runs, peak memory) and its train step (TRAIN_LAUNCHES,
+     finite loss terms, the gradient repeat, the median of 5 steps), with
+     MATCH_HEIGHT and no corner loss (one counted step) and the RPN target
+     assignment's peak memory with and without MATCH_HEIGHT; both CLIs on a
+     3-class KITTI tree (`tools/train_torch.py` for 4 steps and its eval,
+     then `tools/test_torch.py` on that checkpoint: finite AP keys of every
+     class, gt boxes of every class pasted); the small config's 3-class
+     variant f32 on the card against the CPU; the flagship eval with each
+     of DET_OPTIONS (launches against DET_OPTION_LAUNCHES, the MERGE_IMPL
+     v1 and v2 tables equal bit for bit; under `combine` K1's map and GEMM
+     of the spconv5 and subm5 convs and K4 on the (2, 5, 100, 88, 128)
+     volume against their plain versions); the `combine` train step (K3 of
+     spconv5, K4's volume gradient on the combine volume, one counted step,
+     the gradient repeat) and one counted step with each new optimizer;
+     each option's small f32 config on the card against the CPU;
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -867,9 +888,9 @@ def merge_repeat(net, batch, runs: int = 5):
     assert moved == 0, f"merged det voxel features move between runs ({moved} elements)"
 
 
-def check_eval_outputs(net, batch, out, post):
-    """Finite eval outputs of the expected shapes and finite detections;
-    returns the detections per frame."""
+def check_eval_outputs(net, batch, out, post, bev=(200, 176)):
+    """Finite eval outputs of the expected shapes (`bev` the BEV map's rows
+    and columns) and finite detections; returns the detections per frame."""
     import torch
 
     B = batch["points"].shape[0]
@@ -878,7 +899,7 @@ def check_eval_outputs(net, batch, out, post):
     K = net.occ_modules.eval_max_occ_pnts
     expect = {"occ_probs": (B, *occ_grid), "occ_points": (B, K, 4),
               "rpn_box_preds": (B, n_anchor, 7), "batch_box_preds": (B, 100, 7),
-              "batch_cls_preds": (B, 100, 1), "spatial_features_2d": (B, 200, 176, 256)}
+              "batch_cls_preds": (B, 100, 1), "spatial_features_2d": (B, *bev, 256)}
     for k, shp in expect.items():
         assert tuple(out[k].shape) == shp, (k, tuple(out[k].shape), shp)
         assert torch.isfinite(out[k].float()).all(), k
@@ -1134,7 +1155,12 @@ def small_input_check(cfg, label: str, spread: bool = False):
     voxel sets); the CPU's det path then reads the card's occ outputs, so
     the downstream comparison sees the same occ points in the same order.
     The order of probabilities that tie to within f32 rounding differs
-    between the devices, and it decides the ball query's first picks.
+    between the devices, and it decides the ball query's first picks. Its
+    ConvHead likewise takes the card's ball queries (`replay_ball_queries`)
+    where the query point is the same on both devices, after each has been
+    held against the CPU's own: equal but for points whose distance lies
+    within f32 rounding of a ball's radius. A query whose point moved keeps
+    the CPU's own neighbours.
     `spread`: the card's occ probabilities must also be identical over 3
     runs (the occ backbone's scoped deterministic cuDNN); the spread with
     that scope bypassed is printed beside it."""
@@ -1143,24 +1169,33 @@ def small_input_check(cfg, label: str, spread: bool = False):
     from btcdet_tpu_torch import weights
     from btcdet_tpu_torch.datasets import make_synthetic_batch
     from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import clamp_intensity
 
     full = cfg.MODEL.get("OCC") is not None
+    balls = {"calls": [], "flips": 0, "worst": 0.0, "moved": 0, "moved_differ": 0,
+             "moved_max": 0.0, "differ": []}
     with f32_everywhere():
         outs, occ = {}, {}
         for dev in ("cuda", "cpu"):
-            net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device=dev)
+            classes = list(cfg.get("CLASS_NAMES", ["Car"]))
+            net = build_network(cfg.MODEL, cfg.DATA_CONFIG, classes, device=dev)
             net.load_state_dict(weights.synth_state_dict(net))
             batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=4096,
                                          num_gt=4, seed=3, mode="test", device=dev)
+            if len(classes) > 1:
+                batch = relabel(batch, len(classes))
             hook = None
             if full and dev == "cuda":
                 hook = net.occ_modules.register_forward_hook(
                     lambda m, i, o: occ.update(cuda={k: v.cpu() if torch.is_tensor(v) else v
                                                      for k, v in o.items()}))
             elif full:
-                occ["cpu"] = net.occ_modules(batch)
+                # the occ subnet reads the batch as the forward hands it on
+                occ["cpu"] = net.occ_modules(batch if net.clamp is None
+                                             else clamp_intensity(batch, net.clamp))
                 hook = net.occ_modules.register_forward_hook(lambda m, i, o: occ["cuda"])
-            outs[dev] = {k: v.cpu() for k, v in net(batch).items() if torch.is_tensor(v)}
+            with replay_ball_queries(balls, record=dev == "cuda"):
+                outs[dev] = {k: v.cpu() for k, v in net(batch).items() if torch.is_tensor(v)}
             if hook is not None:
                 hook.remove()
             if spread and dev == "cuda":
@@ -1198,15 +1233,122 @@ def small_input_check(cfg, label: str, spread: bool = False):
         gk, ck = g[k].float(), c[k].float()
         assert gk.shape == ck.shape and torch.isfinite(gk).all(), k
         worst[k] = float((gk - ck).abs().max())
-        torch.testing.assert_close(gk, ck, rtol=1e-3, atol=1e-3, msg=lambda m, k=k: f"{k}: {m}")
-    extra = ""
+    log(f"small-input check, {label}: max abs diff by stage " + json.dumps(worst))
+    for k in keys:
+        torch.testing.assert_close(g[k].float(), c[k].float(), rtol=1e-3, atol=1e-3,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    extra = (f" (ball queries: {balls['flips']} differ between the devices, each a valid "
+             f"answer; the point that flips lies at most {balls['worst']:.2e} m^2 from its "
+             f"radius^2; {balls['moved']} query points moved more than {BALL_MOVED_M} m, at "
+             f"most {balls['moved_max']:.2e} m, and kept the CPU's neighbours, "
+             f"{balls['moved_differ']} of them with lists that differ; each differing query: "
+             f"{json.dumps(balls['differ'][:10])})")
     if full:
         n_occ = [int(v) for v in g["occ_points_mask"].sum(1)]
-        extra = f" (occ points per frame {n_occ}, merged det voxels {len(merged['cuda'])})"
-    log(f"small-input check, {label}{extra} (cuda f32 vs cpu f32, rtol=atol=1e-3): max abs diff "
-        + json.dumps(worst))
+        extra += f" (occ points per frame {n_occ}, merged det voxels {len(merged['cuda'])})"
+    log(f"small-input check, {label}{extra}: every stage within rtol=atol=1e-3 (cuda f32 vs "
+        "cpu f32)")
     if spread:
         log("card run-to-run spread of the occ probabilities over 3 runs: " + json.dumps(spreads))
+
+
+# the distance^2 (m^2) within which a ball query's neighbour may differ
+# between the card and the CPU: f32 rounding of |q|^2 + |x|^2 - 2 q.x on a
+# 16 m scene is about 3e-5, and the query points differ by f32 rounding too
+BALL_EDGE_M2 = 1e-3
+# a query point (roi grid point) that moved more than this (m, any axis)
+# between the devices keeps the CPU's own neighbours
+BALL_MOVED_M = 1e-4
+
+
+@contextlib.contextmanager
+def replay_ball_queries(balls: dict, record: bool):
+    """`group_ops.multi_ball_query` recorded (`record`, the card's run) into
+    balls["calls"], or replayed: each call computes its own result and
+    checks it against the recorded one call by call. Where the two lists of
+    a query differ, each must be a valid answer for its own query point in
+    float64: every listed point within BALL_EDGE_M2 of the ball (or shell),
+    every point deeper inside than that listed, up to the list's last index
+    where the ball holds more than it keeps (the first points in point
+    order). A query whose point lies within BALL_MOVED_M on both devices
+    then pools the card's neighbours on the CPU too, so both devices pool
+    the same points; one whose point moved further keeps the CPU's own, and
+    the downstream comparison holds it end to end. balls["flips"] counts
+    the differing queries that did not move, balls["worst"] is the largest,
+    over them, of the distance from the radius^2 of the differing point
+    nearest the edge (the one that flipped); balls["moved"] counts the
+    queries that moved, balls["moved_differ"] those of them whose lists
+    differ, balls["moved_max"] is the largest move (m), and
+    balls["differ"] describes each differing query."""
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+
+    orig = group_ops.multi_ball_query
+    calls = iter(list(balls["calls"]))
+
+    def recorded(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw):
+        out = orig(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw)
+        balls["calls"].append((new_xyz.cpu(), [(i.cpu(), e.cpu()) for i, e in out]))
+        return out
+
+    def valid_answer(lst, empty, d2, ok, lo, hi):
+        picked = set() if empty else set(lst.tolist())
+        possibly = ok & (d2 <= hi + BALL_EDGE_M2) & (d2 >= lo - BALL_EDGE_M2)
+        surely = ok & (d2 <= hi - BALL_EDGE_M2) & (d2 >= lo + BALL_EDGE_M2)
+        must = set(surely.nonzero()[:, 0].tolist())
+        if len(picked) == lst.numel():              # full: the first points only
+            must = {n for n in must if n < max(picked)}
+        return all(bool(possibly[n]) for n in picked) and must <= picked
+
+    def edge_m2(d2, differ, lo, hi):
+        """The distance from the radius^2 of the differing point nearest it."""
+        return min(min([abs(float(d2[n]) - hi)] + ([abs(float(d2[n]) - lo)] if lo > 0 else []))
+                   for n in differ)
+
+    def replayed(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw):
+        out = orig(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw)
+        card_xyz, card = next(calls)
+        q, qm = new_xyz.cpu(), new_mask.cpu()
+        move = (q - card_xyz).abs().amax(-1)
+        moved = (move > BALL_MOVED_M) & qm
+        balls["moved"] += int(moved.sum())
+        if bool(qm.any()):
+            balls["moved_max"] = max(balls["moved_max"], float(move[qm].max()))
+        pts, ok = xyz.cpu().double(), xyz_mask.cpu()
+        res = []
+        for s, ((idx, empty), (cidx, cempty), (lo, hi)) in enumerate(
+                zip(out, card, group_ops._radii2(radii))):
+            idx, empty = idx.cpu(), empty.cpu()
+            for b, m in ((idx != cidx).any(-1) | (empty != cempty)).nonzero().tolist():
+                d2_cpu = ((pts[b] - q[b, m].double()) ** 2).sum(-1)
+                d2_card = ((pts[b] - card_xyz[b, m].double()) ** 2).sum(-1)
+                for lst, emp, d2 in ((idx[b, m], empty[b, m], d2_cpu),
+                                     (cidx[b, m], cempty[b, m], d2_card)):
+                    assert valid_answer(lst, bool(emp), d2, ok[b], lo, hi), (
+                        f"ball query {m} of frame {b} (scale {s}, moved {float(move[b, m]):.2e}"
+                        f" m): {sorted(set(lst.tolist()))} is no first-in-point-order answer "
+                        f"within {BALL_EDGE_M2} m^2 of its radius")
+                differ = set(idx[b, m].tolist()) ^ set(cidx[b, m].tolist())
+                edge = edge_m2(d2_cpu, differ, lo, hi) if differ else 0.0
+                full = not bool(empty[b, m]) and len(set(idx[b, m].tolist())) == idx.shape[-1]
+                balls["differ"].append({"frame": b, "query": m, "scale": s,
+                                        "moved_m": float(move[b, m]), "full": full,
+                                        "edge_m2": edge})
+                if moved[b, m]:
+                    balls["moved_differ"] += 1
+                else:
+                    balls["flips"] += 1
+                    balls["worst"] = max(balls["worst"], edge)
+            res.append((torch.where(moved[..., None], idx, cidx).to(xyz.device),
+                        torch.where(moved, empty, cempty).to(xyz.device)))
+        return res
+
+    group_ops.multi_ball_query = recorded if record else replayed
+    try:
+        yield
+    finally:
+        group_ops.multi_ball_query = orig
 
 
 def backbone_module_check():
@@ -1396,8 +1538,10 @@ def k3_step_table(dw_calls):
 
 def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
                 batch_size: int = 2):
-    """A flagship-layout net in train mode with synthetic weights, its dual
-    optimizer and a `mode="train"` synthetic batch of `batch_size` frames."""
+    """A flagship-layout net of `cfg`'s CLASS_NAMES in train mode with
+    synthetic weights, its dual optimizer and a `mode="train"` synthetic
+    batch of `batch_size` frames (its gt boxes `relabel`led over the
+    classes where there are several)."""
     import torch
 
     from btcdet_tpu_torch import weights
@@ -1406,7 +1550,8 @@ def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
     from btcdet_tpu_torch.train import trainer
 
     torch.manual_seed(seed)
-    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device=device)
+    classes = list(cfg.get("CLASS_NAMES", ["Car"]))
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, classes, device=device)
     # synthetic weights by name, but the output projections keep the
     # model's own init (the JAX package's: cls prior bias, std-0.001 box
     # and rcnn weights); synthetic box weights decode to boxes of up to
@@ -1423,6 +1568,8 @@ def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
     opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 1000)
     batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=batch_size, num_points=num_points,
                                  num_gt=num_gt, seed=seed, mode="train", device=device)
+    if len(classes) > 1:
+        batch = relabel(batch, len(classes))
     return net, opt, batch
 
 
@@ -2426,6 +2573,458 @@ def occ_options_path():
     return entries
 
 
+# ------------------------------- ninth path: det options and the 3-class config
+
+# the det-side options of the ninth path: name -> edit of the flagship config
+def _out_feat(kind):
+    return lambda cfg: set_options(cfg, {"MODEL.BACKBONE_3D.OUT_FEAT_TYPE": ["None"] * 4 + [kind]})
+
+
+def _fractional_upsample(cfg):
+    """UPSAMPLE_STRIDES [0.5, 1]: both deblocks at the coarser stride-16 map
+    (a 1x1 conv of stride 2, then the stride-1 one), the anchors with it."""
+    cfg.MODEL.BACKBONE_2D.UPSAMPLE_STRIDES = [0.5, 1]
+    for a in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG:
+        a["feature_map_stride"] = 16
+    return cfg
+
+
+def _combine(cfg):
+    """OUT_FEAT_TYPE `combine` with ConvHead's x_combine sampler at its
+    grid's stride: (16, 16, 8) det voxels in x, y, z (spconv5 halves the
+    conv4 grid's rows and columns); the yaml's (8, 8, 8) would sample the
+    strided volume at twice the distance."""
+    set_options(_out_feat("combine")(cfg), {
+        "MODEL.ROI_HEAD.CONV_GRID_POOL.CONV_LAYER.x_combine.DOWNSAMPLE_FACTOR": [16, 16, 8]})
+    return cfg
+
+
+DET_OPTIONS = {
+    "out_none": _out_feat("None"),
+    "combine": _combine,
+    "big_combine": _out_feat("big_combine"),
+    "clamp_tanh": lambda cfg: set_options(cfg, {"DATA_CONFIG.CLAMP": "tanh"}),
+    "clamp_max": lambda cfg: set_options(cfg, {"DATA_CONFIG.CLAMP": 1.0}),
+    "unfused_v1": lambda cfg: set_options(cfg, {"MODEL.OCC.OCC_PNT_UPDATE.FUSED_VFE": False,
+                                                "MODEL.OCC.OCC_PNT_UPDATE.MERGE_IMPL": "v1"}),
+    "unfused_v2": lambda cfg: set_options(cfg, {"MODEL.OCC.OCC_PNT_UPDATE.FUSED_VFE": False,
+                                                "MODEL.OCC.OCC_PNT_UPDATE.MERGE_IMPL": "v2"}),
+    "mean_vfe": lambda cfg: set_options(cfg, {"MODEL.VFE.NAME": "MeanVFE"}),
+    "fractional_upsample": _fractional_upsample,
+}
+# kernel launches of one eval forward + post-processing per option, where
+# they differ from EVAL_LAUNCHES: `None` has no down2 / down3 / squeezeBev /
+# down_combine convs (12 GEMMs; the spconv3 / spconv4 maps serve the trunk
+# only, subm_down2's goes) and no x_combine to sample; `combine` drops
+# squeezeBev (and the subm_down2 map) and adds the strided spconv5 conv and
+# the subm5 conv, each on a map of its own (10 maps, 18 GEMMs);
+# `big_combine` drops squeezeBev and its map; MeanVFE passes no occ code,
+# so the side branch's max-pool goes
+DET_OPTION_LAUNCHES = {
+    "out_none": dict(EVAL_LAUNCHES, neighbor_map=8, sparse_conv=12, trilinear_pool=0),
+    "combine": dict(EVAL_LAUNCHES, neighbor_map=10),
+    "big_combine": dict(EVAL_LAUNCHES, neighbor_map=8, sparse_conv=17),
+    "mean_vfe": dict(EVAL_LAUNCHES, sparse_pool=0),
+}
+# a `combine` train step: the 10 forward maps and the transpose-query maps
+# of its 8 strided convs (spconv5 for squeezeBev)
+COMBINE_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, neighbor_map=18)
+
+
+def det_grid(cfg):
+    """(nz, ny, nx) of the sparse det grid of `cfg` (z padded by one)."""
+    from btcdet_tpu_torch.ops.voxelizer import compute_grid_size
+
+    vs = next(p.VOXEL_SIZE for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+              if p.NAME == "det_transform_points_to_voxels")
+    nx, ny, nz = compute_grid_size(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, vs)
+    return nz + 1, ny, nx
+
+
+def combine_grid(cfg):
+    """(D, H, W) of `combine`'s x_combine: the conv4 grid (three stride-2
+    convs, the third without z padding) through spconv5's stride (1, 2, 2);
+    (5, 100, 88) on the flagship."""
+    def down(n, pad):
+        return (n + 2 * pad - 3) // 2 + 1
+    z, y, x = det_grid(cfg)
+    for pz in (1, 1, 0):
+        z, y, x = down(z, pz), down(y, 1), down(x, 1)
+    return z, down(y, 1), down(x, 1)
+
+
+def bev_shape(cfg):
+    """(H, W) of the BEV head's map: the stride-8 grid, or the stride-16
+    one where an upsample stride is fractional."""
+    _, ny, nx = det_grid(cfg)
+    h, w = ny // 8, nx // 8
+    if min(cfg.MODEL.BACKBONE_2D.UPSAMPLE_STRIDES) < 1:
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return h, w
+
+
+def relabel(batch, num_class: int):
+    """The batch with its gt boxes' class ids cycled over 1..num_class, box
+    by box (0 stays on padding)."""
+    import torch
+
+    gt = batch["gt_boxes"].clone()
+    ids = torch.arange(gt.shape[1], device=gt.device) % num_class + 1
+    gt[..., 7] = torch.where(gt[..., 7] > 0, ids[None].to(gt.dtype), torch.zeros_like(gt[..., 7]))
+    return dict(batch, gt_boxes=gt)
+
+
+def det_net(cfg):
+    """The model of `cfg` for its CLASS_NAMES on the card, synthetic
+    weights by name, eval mode."""
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.models import build_network
+
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, list(cfg.CLASS_NAMES))
+    net.load_state_dict(weights.synth_state_dict(net))
+    return net
+
+
+def per_class(post, num_class: int) -> list:
+    """Kept detections of each class (labels 1..num_class), over the batch."""
+    labels = post["pred_labels"][post["pred_valid"]]
+    return [int((labels == c).sum()) for c in range(1, num_class + 1)]
+
+
+def three_class_eval():
+    """The 3-class yaml's eval forward + post at B=2 on a relabelled
+    synthetic batch: launches = EVAL_LAUNCHES, finite outputs, detections
+    per class, the median of 5 runs after 2 warm-ups and the peak memory."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    cfg = config.three_class()
+    net = det_net(cfg)
+    batch = relabel(make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384,
+                                         num_gt=10, seed=0, mode="test"), 3)
+    reset_launches()
+    out = net(batch)
+    post = post_processing(out, cfg.MODEL.POST_PROCESSING, 3)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == EVAL_LAUNCHES, launches
+    n_det = check_eval_outputs(net, batch, out, post)
+    rois = out["roi_labels"][out["roi_valid"]]
+    log(f"3-class eval (B=2): launches = EVAL_LAUNCHES; anchors {out['rpn_box_preds'].shape[1]}, "
+        f"rois per class {[int((rois == c).sum()) for c in (1, 2, 3)]}, detections per frame "
+        f"{n_det}, per class {per_class(post, 3)}")
+    med, times = timed_median(lambda: forward_post(net, batch, cfg))
+    log(f"forward+post ms, 3-class yaml (B=2, 5 runs after 2 warm-ups): median {med:.2f} all "
+        f"{[round(t, 2) for t in times]}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def assign_peak_mib(net, gt) -> float:
+    """Peak device memory (MiB above what was allocated) of the RPN's target
+    assignment of `gt`."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net.det_modules.dense_head.assign_targets(gt)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def counted_step(net, opt, batch, want: dict, label: str) -> dict:
+    """One train step with the launch counts reset before and read after:
+    asserts they equal `want` and the metrics are finite; returns them."""
+    import torch
+
+    from btcdet_tpu_torch.train import trainer
+
+    reset_launches()
+    m = trainer.train_step(net, opt, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == want, (label, launches, want)
+    vals = {k: float(v) for k, v in m.items()}
+    assert all(math.isfinite(v) for v in vals.values()), (label, vals)
+    log(f"{label} train step: launches as asserted; metrics "
+        + json.dumps({k: round(v, 6) for k, v in vals.items()}))
+    return vals
+
+
+def three_class_train():
+    """The 3-class yaml's train step at the train caps on a relabelled
+    synthetic batch: launches = TRAIN_LAUNCHES, finite loss terms, the
+    gradient repeat (0 elements may differ), the median of 5 steps; then
+    MATCH_HEIGHT with the corner loss off at 3 classes (one counted step,
+    no corner term) and the RPN target assignment's peak memory with and
+    without MATCH_HEIGHT."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = config.three_class()
+    net, opt, batch = train_setup(cfg, 16384, 10, 0)
+    vals = counted_step(net, opt, batch, TRAIN_LAUNCHES, "3-class")
+    assert vals["rpn_loss_loc"] > 0, vals
+    gradient_repeat(net, batch, "3-class yaml, relabelled synthetic batch")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"train step ms, 3-class yaml (B=2, train caps, 5 steps): median "
+        f"{statistics.median(times):.2f} all {[round(v, 2) for v in times]}")
+    peak = {"nearest BEV": assign_peak_mib(net, batch["gt_boxes"])}
+    del net, opt
+    mh = set_options(config.three_class(), {
+        "MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT": True,
+        "MODEL.ROI_HEAD.LOSS_CONFIG.CORNER_LOSS_REGULARIZATION": False})
+    net, opt, batch = train_setup(mh, 16384, 10, 0)
+    vals = counted_step(net, opt, batch, TRAIN_LAUNCHES, "3-class, MATCH_HEIGHT, no corner loss")
+    assert "rcnn_loss_corner" not in vals and vals["rpn_loss_loc"] > 0, vals
+    peak["MATCH_HEIGHT (rotated 3-D IoU)"] = assign_peak_mib(net, batch["gt_boxes"])
+    log(f"RPN target assignment at 3 classes ({net.det_modules.dense_head.anchors.shape[0]} "
+        f"anchors, gt boxes {tuple(batch['gt_boxes'].shape)}): peak MiB above the allocated "
+        + json.dumps({k: round(v, 1) for k, v in peak.items()}))
+
+
+def three_class_clis(card: str):
+    """The 3-class yaml through both entry points on a 3-class KITTI tree
+    (12 frames, 8 in train, 2 cars, 2 pedestrians and 2 cyclists a frame,
+    about 20 000 background points): infos, gt database and the best-match
+    database of each class by the port; `tools/train_torch.py` for one
+    epoch of 4 steps (each step's launches TRAIN_LAUNCHES, finite losses,
+    gt boxes of every class pasted) with its trailing eval; then
+    `tools/test_torch.py` on that checkpoint: every val frame, finite AP
+    keys for each class."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import bestmatch
+    from btcdet_tpu_torch.datasets.kitti import kitti_infos
+    from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
+    from btcdet_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    clis = {}
+    for name in ("train_torch", "test_torch"):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_cli_3class", os.path.join(REPO, "tools", f"{name}.py"))
+        clis[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(clis[name])
+    classes = ("Car", "Pedestrian", "Cyclist")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3class_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti"
+        objects = {c: 2 for c in classes}
+        frames = make_raw_kitti(root, n_frames=12, n_train=8, seed=1, n_background=20000,
+                                objects_per_frame=objects)
+        kitti_infos.create_kitti_infos(root, workers=4)
+        bestmatch.create_best_match_db(root, class_names=classes, splits=("train",))
+        sets = ["--set", "MODEL.ROI_HEAD.APPROX_QUERY", "False", "DATA_CONFIG.DATA_PATH",
+                str(root)]
+        seen = []
+
+        def on_step(gstep, batch, metrics):
+            launches = read_launches()
+            reset_launches()
+            vals = {k: float(v) for k, v in metrics.items()}
+            assert launches == TRAIN_LAUNCHES, (gstep, launches)
+            assert all(math.isfinite(v) for v in vals.values()), (gstep, vals)
+            gt = np.asarray(batch["gt_boxes"])
+            live = np.abs(gt[..., 3:6]).sum(-1) > 0
+            seen.append((gstep, round(vals["loss"], 5), live.sum(1).tolist(),
+                         sorted({int(c) for c in gt[..., 7][live]})))
+
+        out = tmp / "train"
+        reset_launches()
+        res = clis["train_torch"].main(
+            ["--cfg_file", str(config.THREE_CLASS_CFG), "--batch_size", "2", "--workers", "2",
+             "--epochs", "1", "--output_dir", str(out), "--num_epochs_to_eval", "1", *sets],
+            on_step=on_step)
+        torch.cuda.synchronize()
+        assert res["steps_run"] == 4, res["steps_run"]
+        assert all(c == [1, 2, 3] for *_, c in seen), seen
+        assert max(max(n) for _, _, n, _ in seen) > sum(objects.values()), "no gt box pasted"
+        log(f"[{card}] 3-class train CLI steps (global step, loss, gt boxes a frame, classes): "
+            + json.dumps(seen))
+        (step, result), = res["eval"]
+        ckpt = checkpoint.CheckpointManager(out / "ckpt").path(step)
+        reset_launches()
+        (run,) = clis["test_torch"].main(
+            ["--cfg_file", str(config.THREE_CLASS_CFG), "--ckpt", str(ckpt), "--batch_size", "2",
+             "--workers", "2", "--output_dir", str(tmp / "eval"), *sets])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        _, _, result, annos = run
+        assert [a["frame_id"] for a in annos] == frames[8:], [a["frame_id"] for a in annos]
+        assert launches == {k: v * 2 for k, v in EVAL_LAUNCHES.items()}, launches
+        ap = {k: float(v) for k, v in result.items() if k.split("_")[0] in classes
+              and "/" in k}
+        for c in classes:
+            keys = [k for k in ap if k.startswith(f"{c}_")]
+            assert len(keys) >= 18 and all(math.isfinite(ap[k]) for k in keys), (c, keys)
+        log(f"[{card}] 3-class test CLI on the step-{step} checkpoint: {len(annos)} frames, "
+            f"detections a frame {[len(a['name']) for a in annos]}, {len(ap)} finite AP keys; "
+            + json.dumps({k: round(v, 4) for k, v in ap.items() if k.endswith("3d/moderate_R40")}))
+    log(f"[{card}] 3-class CLI phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def det_options_eval():
+    """The flagship eval forward + post at B=2 with each of DET_OPTIONS:
+    launches against DET_OPTION_LAUNCHES (EVAL_LAUNCHES where unlisted),
+    finite outputs, detections; the two MERGE_IMPL versions' materialized
+    tables equal bit for bit. Under `combine`, the spconv5 and subm5 convs
+    (K1 map and GEMM) and K4 on the (B, 5, 100, 88, 128) volume against
+    their plain versions, timed with their bounds. Returns those entries."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    entries, tables = [], {}
+    batch = make_synthetic_batch(config.flagship().DATA_CONFIG, batch_size=2, num_points=16384,
+                                 num_gt=10, seed=0, mode="test")
+    for option, edit in DET_OPTIONS.items():
+        cfg = edit(config.flagship())
+        net = det_net(cfg)
+        if option == "combine":
+            captured = capture_kernel_inputs(lambda: net(batch))
+            convs = [a for a, _ in captured["sparse_conv"]]
+            i5 = next(i for i, a in enumerate(convs) if a[7] == (1, 2, 2))
+            # subm5 runs on spconv5's output sites
+            assert convs[i5 + 1][7] == (1, 1, 1) and convs[i5 + 1][2].shape == convs[i5][2].shape
+            entries += k1_case("combine spconv5(3^3 s(1,2,2) 128->128)", convs[i5])
+            entries += k1_case("combine subm5(subm 128->128)", convs[i5 + 1])
+            (vol, zyx, roi_b, valid), = [a for a, _ in captured["trilinear_pool"]]
+            assert tuple(vol.shape[:4]) == (2, *combine_grid(cfg)), tuple(vol.shape)
+            entries.append(k4_case((vol, zyx, roi_b, valid), "combine"))
+            del captured, convs, vol, zyx, roi_b, valid
+        seen = {}
+        hook = None
+        if option.startswith("unfused"):
+            hook = net.occ_modules.register_forward_hook(
+                lambda m, i, o: seen.update(vox=o["det_voxels"].clone()))
+        reset_launches()
+        out = net(batch)
+        post = post_processing(out, cfg.MODEL.POST_PROCESSING, 1)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if hook is not None:
+            hook.remove()
+            tables[option] = seen["vox"]
+        want = DET_OPTION_LAUNCHES.get(option, EVAL_LAUNCHES)
+        assert launches == want, (option, launches, want)
+        if option == "combine":
+            for e in entries:
+                e["launches"] = launches[e["name"].split(":")[0]]
+        n_det = check_eval_outputs(net, batch, out, post, bev=bev_shape(cfg))
+        log(f"det option {option!r} eval (B=2): launches {json.dumps(launches)}; nnz "
+            f"{json.dumps(out['nnz'])}; detections per frame {n_det}")
+        if option in ("out_none", "combine", "fractional_upsample"):
+            med, times = timed_median(lambda: forward_post(net, batch, cfg))
+            log(f"forward+post ms, det option {option!r} (B=2, 5 runs after 2 warm-ups): median "
+                f"{med:.2f} all {[round(t, 2) for t in times]}")
+        del net, out, post
+    a, b = tables["unfused_v1"], tables["unfused_v2"]
+    assert torch.equal(a, b), "MERGE_IMPL v1 and v2 tables differ"
+    log(f"det options: the materialized merged tables of MERGE_IMPL v1 and v2 equal bit for bit "
+        f"({tuple(a.shape)}, {int((a.abs().sum(-1) > 0).sum())} filled point slots)")
+    return entries
+
+
+def det_options_train():
+    """Train steps of the flagship at the train caps: `combine` (K3 of the
+    spconv5 conv and K4's volume gradient on the combine volume against
+    their plain versions on a captured step, then one counted step,
+    COMBINE_TRAIN_LAUNCHES), and one counted step with each of `adam`,
+    `adam_cosine` (both with LR_WARMUP) and `sgd`. Returns the entries."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = DET_OPTIONS["combine"](config.flagship())
+    net, opt, batch = train_setup(cfg, 16384, 10, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = capture_kernel_inputs(lambda: trainer.train_step(net, opt, batch, gen))
+    dw = next(c for c in calls["sparse_conv_dw"] if c[0][7] == (1, 2, 2))
+    entries = k3_case("combine spconv5(3^3 s(1,2,2) 128->128)", dw)
+    (g_args,) = [a for a, _ in calls["trilinear_pool_grad"]]
+    assert tuple(g_args[1][:4]) == (2, *combine_grid(cfg)), g_args[1]
+    entries.append(k4_grad_case(g_args, "combine"))
+    del calls, dw, g_args
+    reset_launches()
+    trainer.train_step(net, opt, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == COMBINE_TRAIN_LAUNCHES, (launches, COMBINE_TRAIN_LAUNCHES)
+    for e in entries:
+        e["launches"] = launches[e["name"].split(":")[0]]
+    log(f"det option 'combine' train step: launches {json.dumps(launches)}")
+    gradient_repeat(net, batch, "OUT_FEAT_TYPE combine")
+    del net, opt
+    for name in ("adam", "adam_cosine", "sgd"):
+        cfg = config.flagship()
+        for blk in (cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION):
+            blk.OPTIMIZER = name
+            blk.LR_WARMUP = name != "sgd"
+        net, opt, batch = train_setup(cfg, 16384, 10, 0)
+        vals = counted_step(net, opt, batch, TRAIN_LAUNCHES, f"optimizer {name!r}")
+        assert vals["grad_norm_det"] > 0 and vals["grad_norm_occ"] > 0, vals
+        del net, opt
+    return entries
+
+
+def det_option_small_check(option: str):
+    """`small_config(full=True)` with a det option, f32 on the card against
+    the CPU (small_input_check); `combine` / `big_combine` / fractional
+    strides on its 16 m grid."""
+    small_input_check(DET_OPTIONS[option](small_config(full=True)), f"det option {option!r}")
+
+
+def det_options_path(card: str):
+    """The ninth path (module docstring, 8d); returns its kernels-line
+    entries."""
+    import torch
+
+    t0 = time.perf_counter()
+    three_class_eval()
+    three_class_train()
+    three_class_clis(card)
+    small_input_check(small_three_class(), "3-class config")
+    entries = det_options_eval()
+    entries += det_options_train()
+    for option in DET_OPTIONS:
+        det_option_small_check(option)
+    torch.cuda.synchronize()
+    log(f"ninth path (det options, 3-class config): {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def small_three_class():
+    """`small_config(full=True)` with the 3-class yaml's classes and anchors."""
+    from btcdet_tpu_torch import config
+
+    cfg = small_config(full=True)
+    three = config.three_class()
+    cfg.CLASS_NAMES = list(three.CLASS_NAMES)
+    cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG = three.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
+    return cfg
+
+
 # ------------------------------------------ seventh path: data parallelism
 #
 # The card machine has one card. NCCL refuses two ranks on one device, so
@@ -3186,6 +3785,9 @@ def main() -> int:
 
     # 8c. eighth path: the occupancy subnet's options
     kernels += occ_options_path()
+
+    # 8d. ninth path: the det-side options and the 3-class config
+    kernels += det_options_path(card)
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

@@ -906,12 +906,14 @@ def test_dp_step_matches_jax_data_parallel_step(tmp_path):
         finally:
             JRH.assign_targets = orig_assign
     ref_grads = W.from_jax_variables({"params": to_np_tree(seen["grads"]),
-                                      "batch_stats": variables["batch_stats"]}, dp_ratio=0.0)
+                                      "batch_stats": variables["batch_stats"]}, dp_ratio=0.0,
+                                     upsample_strides=model_cfg.BACKBONE_2D.UPSAMPLE_STRIDES)
     N = int(model_cfg.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
     R = int(model_cfg.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE)
     cfg = {"CLASS_NAMES": ["Car"], "DATA_CONFIG": _plain(data_cfg), "MODEL": _plain(model_cfg),
            "OPTIMIZATION": _plain(det_cfg), "OCC_OPTIMIZATION": _plain(occ_cfg)}
-    inputs = {"cfg": cfg, "sd": W.from_jax_variables(variables, dp_ratio=0.0),
+    inputs = {"cfg": cfg, "sd": W.from_jax_variables(
+                  variables, dp_ratio=0.0, upsample_strides=model_cfg.BACKBONE_2D.UPSAMPLE_STRIDES),
               "batch": batch_np, "draws": [np.asarray(d) for d in jax_roi_draws(ROI_KEY, 2, N, R)]}
     ranks = spawn_ranks("jax_parity", inputs, tmp_path / "io")
     for res in ranks:

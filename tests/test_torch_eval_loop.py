@@ -85,7 +85,8 @@ def runs(root):
         tds = KittiDataset(tdcfg, ["Car"], training=False, root_path=root)
         port = build_network(tmcfg, tdcfg, ["Car"], device="cpu")
         port.load_state_dict(weights.from_jax_variables(
-            jax.tree_util.tree_map(np.asarray, variables), dp_ratio=tmcfg.ROI_HEAD.DP_RATIO),
+            jax.tree_util.tree_map(np.asarray, variables), dp_ratio=tmcfg.ROI_HEAD.DP_RATIO,
+            upsample_strides=tmcfg.BACKBONE_2D.UPSAMPLE_STRIDES),
             strict=True)
         tl = make_loader(tds, BATCH, collate_fn=tds.collate_batch)
         res = TU.eval_one_epoch(port, tl, tds, tcfg.EasyDict(post_cfg), ["Car"],

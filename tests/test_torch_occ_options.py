@@ -549,16 +549,16 @@ def test_real_drop_det_points_matches(coord_type):
 
 @pytest.mark.parametrize("path,value,error", [
     (("data", "OCC", "COORD_TYPE"), "cartesian", NotImplementedError),
-    (("model", "OCC", "OCC_PNT_UPDATE", "FUSED_VFE"), False, NotImplementedError),
-    (("model", "OCC", "OCC_PNT_UPDATE", "MERGE_IMPL"), "v2", NotImplementedError),
+    (("model", "OCC", "OCC_PNT_UPDATE", "MERGE_IMPL"), "v3", KeyError),
     (("model", "OCC", "TARGETS", "NAME"), "OccTargets2D", KeyError),
     (("model", "OCC", "OCC_DENSE_HEAD", "NAME"), "OccHead1D", KeyError),
     (("model", "OCC", "BACKBONE_3D", "NAME"), "VoxelBackBone", KeyError),
 ], ids=lambda v: v[-1] if isinstance(v, tuple) else None)
 def test_still_refused(path, value, error):
     """What the port still refuses: a cartesian occ grid (the host
-    processor refuses it too, as the JAX package's does), the unfused
-    merge; unknown module names raise KeyError, as in the JAX package."""
+    processor refuses it too, as the JAX package's does); unknown module
+    and merge names raise KeyError, as in the JAX package. The unfused
+    merge runs (tests/test_torch_det_vfe.py)."""
     from btcdet_tpu_torch import config as tcfg
     from btcdet_tpu_torch.models.occ import occ_subnet as TOS
 

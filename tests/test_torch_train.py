@@ -448,26 +448,53 @@ def test_dual_optimizer_matches_optax(frozen):
         assert moved == (frozen is None or not name.startswith(f"{frozen}_modules")), name
 
 
+@functools.cache
+def match_height_step():
+    """One micro train step in both packages with MATCH_HEIGHT on and the
+    corner loss off (`train_step_both`)."""
+    data_cfg, model_cfg = full_micro_cfgs(DP_RATIO=0.0)
+    model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT = True
+    model_cfg.ROI_HEAD.LOSS_CONFIG.CORNER_LOSS_REGULARIZATION = False
+    return train_step_both(data_cfg, model_cfg, 2048, 4)
+
+
+def assert_step_gradients_match(res, prefix="", nonzero=0.9):
+    """Every gradient under `prefix` within 1e-3 of its tensor's max of the
+    JAX package's; more than a `nonzero` share of them nonzero."""
+    grads = {k: g for k, g in res["grads"].items() if k.startswith(prefix)}
+    assert grads and set(grads) <= set(res["ref_grads"])
+    for k, g in grads.items():
+        r = res["ref_grads"][k].numpy()
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-3 * np.abs(r).max() + 1e-8, err_msg=k)
+    assert sum(np.abs(g).max() > 0 for g in grads.values()) > nonzero * len(grads)
+
+
 @pytest.mark.parametrize("path,value", [
     (("model", "DENSE_HEAD", "TARGET_ASSIGNER_CONFIG", "MATCH_HEIGHT"), True),
     (("model", "ROI_HEAD", "LOSS_CONFIG", "CORNER_LOSS_REGULARIZATION"), False),
 ], ids=lambda v: v[-1] if isinstance(v, tuple) else None)
 def test_train_refuses_unported_options(path, value):
-    """Train options that no config of the repo sets are refused at the
-    first train forward, not run untested."""
-    from btcdet_tpu_torch.datasets import make_synthetic_batch, mini_config
-    from btcdet_tpu_torch.models import build_network
-
-    cfgs = {"data": mini_config.micro_data_cfg(with_occ=True),
-            "model": mini_config.micro_model_cfg(with_occ=True)}
-    cfgs["model"].ROI_HEAD.APPROX_QUERY = False
-    node = functools.reduce(lambda d, k: d[k], path[1:-1], cfgs[path[0]])
-    node[path[-1]] = value
-    net = build_network(cfgs["model"], cfgs["data"], ["Car"], device="cpu").train()
-    batch = make_synthetic_batch(cfgs["data"], batch_size=2, num_points=512, num_gt=2, seed=0,
-                                 mode="train", device="cpu")
-    with pytest.raises(NotImplementedError, match=path[-1]):
-        net(batch, torch.Generator().manual_seed(0))
+    """Named for the refusals these two train options had; both now run,
+    and each case holds one micro train step with both set against the JAX
+    package's. MATCH_HEIGHT (the rotated 3-D IoU assignment): the RPN loss
+    terms to 1e-4 and the dense head's gradients to 1e-3 of each tensor's
+    max. CORNER_LOSS_REGULARIZATION False: no `rcnn_loss_corner` term on
+    either side, the rcnn terms to 1e-4 and the roi head's gradients to
+    1e-3 of each tensor's max (the micro step samples no foreground roi, so
+    the reg trunk's output layers get none)."""
+    res = match_height_step()
+    ref, out = res["ref_metrics"], res["metrics"]
+    if path[-1] == "MATCH_HEIGHT":
+        keys, prefix, nonzero = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"), \
+            "det_modules.dense_head.", 0.9
+        assert ref["rpn_loss_loc"] > 0
+    else:
+        keys, prefix, nonzero = ("rcnn_loss_cls", "rcnn_loss_reg", "rcnn_loss"), \
+            "det_modules.roi_head.", 0.8
+        assert "rcnn_loss_corner" not in ref and "rcnn_loss_corner" not in out
+    for k in keys + ("loss",):
+        assert_close(out[k], float(np.asarray(ref[k])), err_msg=k)
+    assert_step_gradients_match(res, prefix, nonzero)
 
 
 # ------------------------------------------------------------- whole step
@@ -494,11 +521,12 @@ ROI_KEY = jax.random.PRNGKey(7)
 
 
 def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_steps: int = 50,
-                    batch_np=None):
+                    batch_np=None, class_names=("Car",)):
     """One JAX train step (`trainer.make_train_step`, XLA engine) and one
     port step (`trainer.train_step`) from the same weights (JAX init, BN
     moved off identity, occupancy bias 0 so occ points exist) on the same
-    `mode="train"` batch (seed 0, B=2; or `batch_np`, numpy arrays). Roi sampling uses PRNGKey(7) in
+    `mode="train"` batch (seed 0, B=2; or `batch_np`, numpy arrays) for
+    `class_names`. Roi sampling uses PRNGKey(7) in
     both: the JAX `assign_targets` is given that key, the port
     `draw_roi_sampling_uniforms` returns its draws. The JAX occ targets and
     sampled rois come back through debug callbacks, beside the JAX
@@ -531,7 +559,7 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
         if batch_np is None:
             batch_np = jax_batch(data_cfg, batch_size=2, num_points=num_points, num_gt=num_gt,
                                  seed=0, mode="train")
-        net = jax_build(model_cfg, data_cfg, ["Car"])
+        net = jax_build(model_cfg, data_cfg, list(class_names))
         variables = perturb_variables(init_jax(net, batch_np))
         cls = variables["params"]["occ_subnet"]["conv_cls"]
         cls["bias"] = np.zeros_like(cls["bias"])
@@ -553,19 +581,20 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
             jax.effects_barrier()
         finally:
             JRH.assign_targets, JOS.OccSubnet._make_targets = orig_assign, orig_targets
-        dp = float(model_cfg.ROI_HEAD.DP_RATIO)
+        mapping = dict(dp_ratio=float(model_cfg.ROI_HEAD.DP_RATIO),
+                       upsample_strides=model_cfg.BACKBONE_2D.UPSAMPLE_STRIDES)
         res["ref_metrics"] = to_np_tree(metrics)
         res["ref_grads"] = W.from_jax_variables(
-            {"params": to_np_tree(grads), "batch_stats": variables["batch_stats"]}, dp_ratio=dp)
+            {"params": to_np_tree(grads), "batch_stats": variables["batch_stats"]}, **mapping)
         res["ref_after"] = W.from_jax_variables(
             {"params": to_np_tree(new.params), "batch_stats": to_np_tree(new.batch_stats)},
-            dp_ratio=dp)
+            **mapping)
         res["ref_rois"], res["ref_occ"] = seen["rois"], seen["occ"]
         res["variables"], res["batch"] = variables, batch_np
 
         tc = tcfg.EasyDict({"DATA_CONFIG": data_cfg, "MODEL": model_cfg})
-        port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")
-        port.load_state_dict(W.from_jax_variables(variables, dp_ratio=dp), strict=True)
+        port = build_network(tc.MODEL, tc.DATA_CONFIG, list(class_names), device="cpu")
+        port.load_state_dict(W.from_jax_variables(variables, **mapping), strict=True)
         opt = TT.create_train_state(port, tcfg.EasyDict(det_cfg), tcfg.EasyDict(occ_cfg),
                                     total_steps)
         N = int(tc.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)

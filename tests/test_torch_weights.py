@@ -9,6 +9,7 @@ package's golden ones."""
 import json
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -99,7 +100,9 @@ def roundtrip_variables(request):
 
 def test_from_jax_variables_inverts_ref_import(roundtrip_variables, monkeypatch):
     v, model_cfg, _, grid = roundtrip_variables
-    sd = weights.from_jax_variables(v, dp_ratio=model_cfg.ROI_HEAD.DP_RATIO)
+    sd = weights.from_jax_variables(
+        v, dp_ratio=model_cfg.ROI_HEAD.DP_RATIO,
+        upsample_strides=model_cfg.BACKBONE_2D.UPSAMPLE_STRIDES)
     monkeypatch.setattr(ref_import, "ROI_GRID_NUM", grid)
     back, report = ref_import.map_reference_state(
         {k: x.numpy() for k, x in sd.items()}, v,
@@ -121,7 +124,9 @@ def test_from_jax_variables_loads_strictly(roundtrip_variables):
     tc = tcfg.EasyDict(JaxEasyDict({"MODEL": model_cfg, "DATA_CONFIG": data_cfg}))
     with f32_mode():
         port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")
-    sd = weights.from_jax_variables(v, dp_ratio=model_cfg.ROI_HEAD.DP_RATIO)
+    sd = weights.from_jax_variables(
+        v, dp_ratio=model_cfg.ROI_HEAD.DP_RATIO,
+        upsample_strides=model_cfg.BACKBONE_2D.UPSAMPLE_STRIDES)
     res = port.load_state_dict(sd, strict=True)
     assert not res.missing_keys and not res.unexpected_keys
     prefixes = {k.split(".")[0] for k in sd}
@@ -280,3 +285,71 @@ def test_occ_option_weights_map_and_reach_the_output(option, edit):
             assert not res.missing_keys and not res.unexpected_keys
             probs.append(port(batch)["probs"])
     assert probs[0].max() > 0 and not torch.equal(probs[0], probs[1])
+
+
+def _det_option(option, model_cfg):
+    """The micro model config edited for a det-side option of the weights
+    cases below."""
+    bb, b2 = model_cfg.BACKBONE_3D, model_cfg.BACKBONE_2D
+    if option in ("None", "combine"):
+        bb.OUT_FEAT_TYPE = ["None"] * 4 + [option]
+    elif option == "mean_vfe":
+        model_cfg.VFE.NAME = "MeanVFE"
+    elif option == "fractional_upsample":
+        b2.UPSAMPLE_STRIDES = [0.5, 1]
+        for a in model_cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG:
+            a["feature_map_stride"] = 16
+    elif option == "three_class":
+        y = tcfg.cfg_from_yaml_file(tcfg.REPO_ROOT / "tools" / "cfgs" / "model_configs"
+                                    / "btcdet_kitti_3classes.yaml")
+        model_cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG = json.loads(json.dumps(
+            y.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG))
+    return ["Car", "Pedestrian", "Cyclist"] if option == "three_class" else ["Car"]
+
+
+@pytest.mark.parametrize("option", ["None", "combine", "mean_vfe", "fractional_upsample",
+                                    "three_class"])
+def test_det_option_weights_map_strictly(option):
+    """The JAX micro model of a det-side option through
+    `from_jax_variables`: OUT_FEAT_TYPE `None` (no down2 / down3 /
+    squeezeBev / down_combine, no x_combine conv stack, a narrower first
+    rcnn FC), `combine` (the strided down_combine.1 and subm down_combine.2),
+    MeanVFE with the occ subnet (no occ side branch, conv1 over the merged
+    points' 6 channels), a fractional upsample stride (its deblock a
+    Conv2d) and the 3-class dense head. The port loads it strictly, and
+    `synth_state_dict` covers the same names and shapes."""
+    from btcdet_tpu.models import build_network as jax_build
+
+    from btcdet_tpu_torch.models import build_network
+
+    data_cfg, model_cfg = full_micro_cfgs()
+    classes = _det_option(option, model_cfg)
+    with f32_mode():
+        batch = jax_batch(data_cfg, batch_size=2, num_points=2048, num_gt=4, mode="test")
+        v = init_jax(jax_build(model_cfg, data_cfg, classes), batch)
+    v = {"params": v["params"], "batch_stats": v["batch_stats"]}
+    tc = tcfg.EasyDict(JaxEasyDict({"MODEL": model_cfg, "DATA_CONFIG": data_cfg}))
+    sd = weights.from_jax_variables(
+        jax.tree_util.tree_map(np.asarray, v), dp_ratio=tc.MODEL.ROI_HEAD.DP_RATIO,
+        upsample_strides=tc.MODEL.BACKBONE_2D.UPSAMPLE_STRIDES)
+    port = build_network(tc.MODEL, tc.DATA_CONFIG, classes, device="cpu")
+    res = port.load_state_dict(sd, strict=True)
+    assert not res.missing_keys and not res.unexpected_keys
+    synth = weights.synth_state_dict(port)
+    assert {k: tuple(x.shape) for k, x in sd.items()} == {
+        k: tuple(x.shape) for k, x in synth.items()}
+    bb = "det_modules.backbone_3d."
+    if option == "None":
+        assert not any(k.startswith(bb + "down") or ".conv_layers." in k for k in sd)
+    if option == "combine":
+        assert sd[bb + "down_combine.1.0.weight"].shape[:3] == (3, 3, 3)
+    if option == "mean_vfe":
+        assert sd[bb + "conv1.0.weight"].shape[3] == 6
+        assert not any(".att_conv" in k or ".occ_conv" in k for k in sd)
+        assert sd[bb + "conv2_combine.0.0.weight"].shape[3] == model_cfg.BACKBONE_3D.CHANNELS[1]
+    if option == "fractional_upsample":
+        w = sd["det_modules.backbone_2d.deblocks.0.0.weight"]
+        assert tuple(w.shape[2:]) == (1, 1)
+        assert w.shape[0] == model_cfg.BACKBONE_2D.NUM_UPSAMPLE_FILTERS[0]
+    if option == "three_class":
+        assert sd["det_modules.dense_head.conv_cls.weight"].shape[0] == 6 * 3

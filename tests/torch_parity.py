@@ -106,10 +106,20 @@ def init_jax(net, batch_np):
     return jax.jit(lambda b: net.init(rngs, b, train=False))(batch)
 
 
-def run_both(cfg, num_points: int, num_gt: int) -> dict:
+def relabel(batch_np, num_class: int):
+    """The synthetic batch with its gt boxes' class ids (`gt_boxes[..., 7]`,
+    0 on padding) cycled over 1..num_class, box by box."""
+    gt = batch_np["gt_boxes"].copy()
+    ids = np.arange(gt.shape[1]) % num_class + 1
+    gt[..., 7] = np.where(gt[..., 7] > 0, ids[None, :], 0).astype(gt.dtype)
+    return dict(batch_np, gt_boxes=gt)
+
+
+def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",)) -> dict:
     """One JAX BtcNet eval forward + post-processing and the port's on the
-    same synthetic batch (seed 0, B=2) and the same weights (JAX init, BN
-    moved off identity, carried across with `weights.from_jax_variables`).
+    same synthetic batch (seed 0, B=2; with several `class_names` its gt
+    boxes `relabel`led) and the same weights (JAX init, BN moved off
+    identity, carried across with `weights.from_jax_variables`).
     cfg: {"DATA_CONFIG", "MODEL"} of the JAX package.
 
     With MODEL.OCC the occupancy bias moves off its logit(0.01) prior, so
@@ -133,7 +143,10 @@ def run_both(cfg, num_points: int, num_gt: int) -> dict:
     with f32_mode():
         batch_np = jax_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
                              num_gt=num_gt, seed=0, mode="test")
-        net = jax_build(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
+        if len(class_names) > 1:
+            batch_np = relabel(batch_np, len(class_names))
+        res["batch"] = batch_np
+        net = jax_build(cfg.MODEL, cfg.DATA_CONFIG, list(class_names))
         variables = perturb_variables(init_jax(net, batch_np))
         if use_occ:
             cls = variables["params"]["occ_subnet"]["conv_cls"]
@@ -144,7 +157,8 @@ def run_both(cfg, num_points: int, num_gt: int) -> dict:
             return net.apply(v, b, train=False, mutable=["intermediates"],
                              capture_intermediates=lambda mdl, name: name == "__call__")
         ref, inter = jax.jit(run)(variables, jb)
-        res["ref_post"] = to_np_tree(jax_post(ref, cfg.MODEL.POST_PROCESSING, 1))
+        res["ref_post"] = to_np_tree(jax_post(ref, cfg.MODEL.POST_PROCESSING,
+                                              len(class_names)))
         res["ref"] = {k: np.asarray(v) for k, v in ref.items() if not isinstance(v, dict)}
         if use_occ:
             occ_node = inter["intermediates"]["occ_subnet"]
@@ -152,8 +166,9 @@ def run_both(cfg, num_points: int, num_gt: int) -> dict:
             res["ref_bb"] = to_np_tree(occ_node["backbone_3d"]["__call__"][0])
 
         tc = tcfg.EasyDict(cfg)
-        port = build_network(tc.MODEL, tc.DATA_CONFIG, ["Car"], device="cpu")
-        sd = weights.from_jax_variables(variables, dp_ratio=tc.MODEL.ROI_HEAD.DP_RATIO)
+        port = build_network(tc.MODEL, tc.DATA_CONFIG, list(class_names), device="cpu")
+        sd = weights.from_jax_variables(variables, dp_ratio=tc.MODEL.ROI_HEAD.DP_RATIO,
+                                        upsample_strides=tc.MODEL.BACKBONE_2D.UPSAMPLE_STRIDES)
         res["missing"] = port.load_state_dict(sd, strict=True)
         tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch_np.items()}
         seen = {}
@@ -164,7 +179,7 @@ def run_both(cfg, num_points: int, num_gt: int) -> dict:
         out = port(tb)
         for h in hooks:
             h.remove()
-        post = post_processing(out, tc.MODEL.POST_PROCESSING, 1, device="cpu")
+        post = post_processing(out, tc.MODEL.POST_PROCESSING, len(class_names), device="cpu")
     res["out"] = {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
     res["post"] = {k: v.numpy() for k, v in post.items()}
     if use_occ:
