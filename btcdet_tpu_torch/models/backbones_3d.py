@@ -9,6 +9,11 @@ with the OCC_ATT attention blocks) and the multi-scale fusion
 (OUT_FEAT_TYPE `combine`, `big_combine`, `big_bev_combine`) whose output
 feeds ConvHead's `x_combine` branch.
 
+`VoxelResBackBone8x` -- the plain residual 8x backbone (reference
+`spconv_backbone.py:531-627`, the JAX package's `VoxelResBackBone8x`; no
+config names it): a residual pair of subm convs a level between the
+strided convs.
+
 `VoxelBackBoneDeconv` -- the occupancy backbone (reference
 `spconv_backbone.py:91-224`) on the small cylinder occ grid, run as dense
 cuDNN conv3d / conv_transpose3d that reproduce the sparse semantics: the
@@ -41,8 +46,10 @@ class SparseConvBlock(nn.Module):
     """conv or pool (`0`) + masked BN (`1`) + activation on a SparseTensor
     (reference `post_act_block`). With `use_norm` False (the occ-code
     downsamplers) the block is the bare conv or pool: no BN, no
-    activation. conv_type: subm | spconv | maxpool | fixspconv (the
-    constant-weight sum, `default_value` per tap)."""
+    activation. conv_type: subm | spconv | spdeconv (transpose conv) |
+    inverseconv (restores the input sites of the strided conv under
+    `indice_key`, whose `stride` / `padding` it takes) | maxpool |
+    fixspconv (the constant-weight sum, `default_value` per tap)."""
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, padding=0, conv_type="subm",
                  indice_key=None, frame_capacity=None, use_norm: bool = True,
@@ -53,6 +60,13 @@ class SparseConvBlock(nn.Module):
         elif conv_type == "spconv":
             conv = sparse.SparseConv3d(cin, cout, kernel_size, stride, padding,
                                        indice_key=indice_key, frame_capacity=frame_capacity)
+        elif conv_type == "spdeconv":
+            conv = sparse.SparseConvTranspose3d(cin, cout, kernel_size, stride, padding,
+                                                indice_key=indice_key,
+                                                frame_capacity=frame_capacity)
+        elif conv_type == "inverseconv":
+            conv = sparse.SparseInverseConv3d(cin, cout, kernel_size, indice_key=indice_key,
+                                              stride=stride, padding=padding)
         elif conv_type == "maxpool":
             conv = sparse.SparseMaxPool3d(kernel_size, stride, padding, indice_key=indice_key)
         elif conv_type == "fixspconv":
@@ -254,6 +268,68 @@ class VoxelBackBone8xOcc(nn.Module):
         for b in self.down_combine:
             x = b(x, cache)
         return x
+
+
+class SparseBasicBlock(nn.Module):
+    """The residual pair of `VoxelResBackBone8x`: two subm convs sharing
+    `indice_key`, each followed by masked BN and ReLU, then the input
+    added (the JAX package's `_res`: the add comes after the second ReLU
+    and no ReLU follows it, and the convs have no bias, where the
+    reference's `SparseBasicBlock` adds before its last ReLU). Names
+    follow the reference block: conv1, bn1, conv2, bn2."""
+
+    def __init__(self, channels: int, indice_key: str):
+        super().__init__()
+        self.conv1 = sparse.SubMConv3d(channels, channels, 3, indice_key=indice_key)
+        self.bn1 = sparse.MaskedBatchNorm(channels)
+        self.conv2 = sparse.SubMConv3d(channels, channels, 3, indice_key=indice_key)
+        self.bn2 = sparse.MaskedBatchNorm(channels)
+
+    def forward(self, st: sparse.SparseTensor, cache: dict) -> sparse.SparseTensor:
+        h = st
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
+            h = conv(h, cache)
+            valid = h.valid
+            f = torch.relu(bn(h.features, valid))
+            h = h.replace(features=torch.where(valid[:, None], f, torch.zeros_like(f)))
+        return h.replace(features=h.features + st.features)
+
+
+class VoxelResBackBone8x(nn.Module):
+    """The plain residual 8x backbone (module docstring): conv_input, a
+    residual pair at each level (`res1`..`res4`), strided conv2 / conv3 /
+    conv4 (conv4 padded (0, 1, 1)) and conv_out (k (3, 1, 1), s (2, 1, 1)).
+    Every strided conv keeps its input's capacity. Returns {"encoded",
+    "encoded_stride": 8, "x_conv1".."x_conv4", "x_combine": None}. Names
+    follow the reference: `conv_input.0.weight`, `conv1.0.conv1.weight`,
+    `conv2.0.0.weight`, `conv2.1.bn2.running_var`, `conv_out.1.weight`."""
+
+    def __init__(self, input_channels: int, channels=(16, 32, 64, 128, 128)):
+        super().__init__()
+        ch = list(channels)
+        blk = SparseConvBlock
+        self.conv_input = blk(input_channels, ch[0], 3, indice_key="subm1")
+        self.conv1 = _seq(SparseBasicBlock(ch[0], "res1"))
+        self.conv2 = _seq(blk(ch[0], ch[1], 3, 2, 1, "spconv", "spconv2"),
+                          SparseBasicBlock(ch[1], "res2"))
+        self.conv3 = _seq(blk(ch[1], ch[2], 3, 2, 1, "spconv", "spconv3"),
+                          SparseBasicBlock(ch[2], "res3"))
+        self.conv4 = _seq(blk(ch[2], ch[3], 3, 2, (0, 1, 1), "spconv", "spconv4"),
+                          SparseBasicBlock(ch[3], "res4"))
+        self.conv_out = blk(ch[3], ch[4], (3, 1, 1), (2, 1, 1), 0, "spconv", "down2")
+
+    def forward(self, st: sparse.SparseTensor, cache: dict | None = None) -> dict:
+        """`cache`: the forward's site and map cache (a new one when None);
+        pass one to run inverse convs on the levels afterwards."""
+        cache = {} if cache is None else cache
+        x = self.conv_input(st, cache)
+        levels = []
+        for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
+            for b in stage:
+                x = b(x, cache)
+            levels.append(x)
+        return {"encoded": self.conv_out(x, cache), "encoded_stride": 8,
+                **{f"x_conv{i + 1}": lv for i, lv in enumerate(levels)}, "x_combine": None}
 
 
 # ------------------------------------------------------- occ backbone

@@ -19,12 +19,19 @@ geometry), and the gather-GEMM (`sparse_conv`, bf16 on the tensor cores,
 f32 on exact FMAs) reads it. `sparse.neighbor_map_cached` shares one map
 between the convs of a forward that pair alike.
 
+A transpose conv (and an inverse conv, which restores recorded sites)
+runs the same gather-GEMM over a transpose-query map: output site o reads
+input (o + pad - tap_k) / stride where it divides exactly, with the
+weights as stored.
+
 The backward (`SparseConvFunction`) is:
   df  K1 again (`sparse_conv_df`): for a submanifold conv over the
       forward's own map with tap-reversed, transposed weights; for a
       strided conv over a transpose-query map of the forward's output
       table, input site s reading output (s + pad - tap_k) / stride where
-      it divides exactly;
+      it divides exactly; for a transpose conv over a forward-query map of
+      its output table, input site s reading output s * stride - pad +
+      tap_k, with the transposed weights;
   dW  K3 (`sparse_conv_dw`): dW[k] = sum_m features[nbr[k, m]]^T g[m] over
       the forward's map, compacted per tap into its matched pairs
       (`tap_pairs`); bf16 features round g to bf16 first, as the TPU
@@ -466,11 +473,12 @@ class SparseConvFunction(torch.autograd.Function):
 
     apply(features, weights, in_keys, in_coords, out_keys, out_coords, geo, nbr)
     with geo = (in_shape, out_shape, batch_size, kernel, stride, padding,
-    subm) and nbr the forward's (K, M) neighbour map (`neighbor_map`);
+    mode), mode "subm", "strided" or "transpose", and nbr the forward's
+    (K, M) neighbour map (`neighbor_map`; transpose-query for "transpose");
     `weights` (K, Cin, Cout) in any float dtype (the forward runs in the
     features' dtype, dW comes back in the weights' dtype). The df is
     skipped when the features need no gradient; a submanifold conv's df
-    reads the forward's map."""
+    reads the forward's map, dW reads it in every mode."""
 
     @staticmethod
     def forward(ctx, features, weights, in_keys, in_coords, out_keys, out_coords, geo, nbr):
@@ -483,19 +491,21 @@ class SparseConvFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         features, weights, in_keys, in_coords, out_keys, out_coords, nbr = ctx.saved_tensors
-        in_shape, out_shape, batch, kernel, stride, padding, subm = ctx.geo
+        in_shape, out_shape, batch, kernel, stride, padding, mode = ctx.geo
         g = g.float().contiguous()
         df = dw = None
         dt = features.dtype
         if ctx.needs_input_grad[0]:
-            if subm:
+            if mode == "subm":
                 df = sparse_conv_df(g.to(dt), in_keys, in_coords,
                                     weights.flip(0).transpose(1, 2).to(dt), in_shape, batch,
                                     kernel, 1, padding, transpose=False, nbr=nbr)
             else:
+                # a strided conv's input s feeds output (s + pad - tap) / stride,
+                # a transpose conv's feeds output s * stride - pad + tap
                 df = sparse_conv_df(g.to(dt), out_keys, in_coords,
                                     weights.transpose(1, 2).to(dt), out_shape, batch, kernel,
-                                    stride, padding, transpose=True)
+                                    stride, padding, transpose=mode == "strided")
             df = df.to(dt)
         if ctx.needs_input_grad[1]:
             dw = sparse_conv_dw(features, in_keys, out_coords, g, in_shape, batch, kernel,

@@ -1,11 +1,15 @@
-"""Ball query, grouping and the multi-scale PointNet SA module
-(counterpart of the exact path of `btcdet_tpu/ops/group_ops.py`).
+"""Ball query, grouping, the multi-scale PointNet SA module and the
+pointnet2 surface (`gather_points`, `grouping_operation`, `three_nn`,
+`three_interpolate`, `furthest_point_sample`) (counterpart of the exact
+path of `btcdet_tpu/ops/group_ops.py`).
 
 Dense padded layout `[B, N, ...]` with validity masks. The query is the
 reference CUDA ball query's "first nsample points within the radius, in
 point order", computed exactly per scale (top-k over a descending-index
 score). The JAX package's approximate shared-candidate query is not
 ported (it picks other neighbours once a ball holds more than k points).
+Ties go to the lowest index everywhere, as `lax.top_k` and `argmax` give
+them in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ def multi_ball_query(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, chunk: i
 
     xyz (B, N, 3), xyz_mask (B, N), new_xyz (B, M, 3), new_mask (B, M).
     Distances come from one |q|^2 + |x|^2 - 2 q.x matrix per chunk of
-    queries, shared by the scales. Returns per scale (idx (B, M, k_s)
-    int64, empty (B, M) bool); slots past a ball's count repeat its first
-    index, empty balls give index 0."""
+    queries, shared by the scales, clamped at 0: a point at the query's
+    own place is at 0 and inside every ball that starts at 0, however the
+    difference rounds (a VSA keypoint is such a point). Returns per scale
+    (idx (B, M, k_s) int64, empty (B, M) bool); slots past a ball's count
+    repeat its first index, empty balls give index 0."""
     r2 = _radii2(radii)
     k_max = max(int(k) for k in nsamples)
     B, M, _ = new_xyz.shape
@@ -45,7 +51,7 @@ def multi_ball_query(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, chunk: i
         qc = new_xyz[:, q0:q0 + chunk]
         qmc = new_mask[:, q0:q0 + chunk]
         cross = torch.einsum("bqc,bnc->bqn", qc, xyz)
-        dist2 = (qc * qc).sum(-1)[..., None] + xyz_sq[:, None, :] - 2.0 * cross
+        dist2 = ((qc * qc).sum(-1)[..., None] + xyz_sq[:, None, :] - 2.0 * cross).clamp(min=0.0)
         scores = torch.stack([
             torch.where((dist2 <= hi) & (dist2 >= lo) & xyz_mask[:, None, :],
                         order_score, torch.full_like(dist2, -1.0))
@@ -199,11 +205,17 @@ class GroupMLP(nn.Module):
 
 class PointSAModuleMSG(nn.Module):
     """Multi-scale grouping SA module (reference `StackSAModuleMSG`), exact
-    ball query, max pooling over each ball."""
+    ball query, each ball pooled by `pool_method`: "max_pool" (the
+    default) or "avg_pool" (the mean over the nsample slots, repeated
+    slots included)."""
 
-    def __init__(self, radii, nsamples, mlps, use_xyz: bool = True, dtype=None):
+    def __init__(self, radii, nsamples, mlps, use_xyz: bool = True, dtype=None,
+                 pool_method: str = "max_pool"):
         super().__init__()
+        if pool_method not in ("max_pool", "avg_pool"):
+            raise NotImplementedError(f"pool_method {pool_method!r}")
         self.radii, self.nsamples, self.use_xyz = list(radii), list(nsamples), use_xyz
+        self.pool_method = pool_method
         self.mlps = nn.ModuleList([GroupMLP(m, dtype=dtype) for m in mlps])
 
     def forward(self, xyz, xyz_mask, new_xyz, new_mask, features=None,
@@ -214,6 +226,68 @@ class PointSAModuleMSG(nn.Module):
             grouped = group_from_idx(xyz, new_xyz, idx, empty, features=features,
                                      use_xyz=self.use_xyz, rotate_matrix=rotate_matrix,
                                      xy_scale=xy_scale, z_scale=z_scale)
-            outs.append(mlp(grouped, new_mask).max(dim=2).values)
+            h = mlp(grouped, new_mask)
+            outs.append(h.max(dim=2).values if self.pool_method == "max_pool" else h.mean(dim=2))
         out = torch.cat(outs, -1)
         return torch.where(new_mask[..., None], out, torch.zeros_like(out))
+
+
+def _sq_dist3(d):
+    """sum(d ** 2) over the last axis of 3, added in order (x, y, z)."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def gather_points(features, idx):
+    """Row gather (reference `pointnet2_batch` gather_points, channels
+    last): features (B, N, C), idx (B, M) -> (B, M, C)."""
+    return torch.gather(features, 1, idx.long()[..., None].expand(-1, -1, features.shape[-1]))
+
+
+def grouping_operation(features, idx):
+    """Grouped gather (reference `pointnet2_batch` grouping_operation):
+    features (B, N, C), idx (B, M, S) -> (B, M, S, C)."""
+    B, M, S = idx.shape
+    return gather_points(features, idx.reshape(B, M * S)).reshape(B, M, S, -1)
+
+
+def three_nn(unknown, unknown_mask, known, known_mask):
+    """The 3 nearest known points of each unknown one (reference
+    `pointnet2_batch` three_nn): unknown (B, N, 3), known (B, M, 3) ->
+    (dist (B, N, 3), idx (B, N, 3) int64), nearest first, ties to the
+    lower index (a stable sort); masked known points are at inf.
+    `unknown_mask` is unused, as in the JAX package."""
+    dist2 = _sq_dist3(unknown[:, :, None, :] - known[:, None, :, :])
+    dist2 = torch.where(known_mask[:, None, :], dist2, torch.full_like(dist2, float("inf")))
+    vals, idx = torch.sort(dist2, dim=-1, stable=True)
+    return torch.sqrt(vals[..., :3].clamp(min=0.0)), idx[..., :3]
+
+
+def three_interpolate(features, idx, weight):
+    """features (B, M, C); idx, weight (B, N, 3) -> (B, N, C): the three
+    gathered rows weighted and added in order."""
+    g = grouping_operation(features, idx)                           # (B, N, 3, C)
+    w = weight[..., None]
+    return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+
+
+def furthest_point_sample(xyz, mask, npoint: int):
+    """Furthest point sampling (reference `pointnet2_batch`
+    furthest_point_sampling): xyz (B, N, 3), mask (B, N) -> (B, npoint)
+    int64. Starts at each frame's first valid point; every step takes the
+    point furthest (squared distance, summed x, y, z) from those taken,
+    the first of equals; masked points sit at -1 and are never taken
+    while a valid one is left."""
+    B = xyz.shape[0]
+    m = mask.bool()
+    dist = torch.where(m, torch.full_like(xyz[..., 0], 1e10), torch.full_like(xyz[..., 0], -1.0))
+    out = torch.zeros((B, npoint), dtype=torch.int64, device=xyz.device)
+    last = torch.argmax(m.to(torch.uint8), dim=1)
+    out[:, 0] = last
+    rows = torch.arange(B, device=xyz.device)
+    neg = torch.full_like(dist, -1.0)
+    for i in range(1, npoint):
+        d = _sq_dist3(xyz - xyz[rows, last][:, None, :])
+        dist = torch.minimum(dist, torch.where(m, d, neg))
+        last = torch.argmax(dist, dim=1)
+        out[:, i] = last
+    return out

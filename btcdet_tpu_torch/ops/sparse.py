@@ -15,7 +15,11 @@ and the fixed-weight sum-pool through `cuda_pool.sparse_pool` /
 
 `indice_key` semantics follow spconv: layers sharing a key reuse the
 cached output-site set, and a layer whose kernel equals that of the conv
-that made the set also reuses its stride and padding (`shared_sites`).
+that made the set also reuses its stride and padding (`shared_sites`); a
+strided conv also records its input sites under the key, which
+`SparseInverseConv3d` restores. The transpose conv
+(`SparseConvTranspose3d`) and the inverse conv run K1 over a
+transpose-query map (`transpose_map_cached`).
 Conventions: coords (b, z, y, x) int32; features channels-last (N, C).
 """
 
@@ -139,6 +143,11 @@ def _unique_capped(cand_keys, capacity: int, cells_per_batch: int, batch_size: i
     return out.to(torch.int32), keep.sum()
 
 
+def transpose_out_shape(spatial_shape, kernel_size, stride, padding):
+    k, s, p = triple(kernel_size), triple(stride), triple(padding)
+    return tuple((int(spatial_shape[i]) - 1) * s[i] - 2 * p[i] + k[i] for i in range(3))
+
+
 def conv_output_sites(st: SparseTensor, kernel_size, stride, padding, out_capacity: int):
     """Output site set of a strided sparse conv: every output site whose
     receptive field holds >= 1 active input, enumerated per axis as the
@@ -167,6 +176,27 @@ def conv_output_sites(st: SparseTensor, kernel_size, stride, padding, out_capaci
         ry[None, :, None, :].expand(shp), rx[None, None, :, :].expand(shp),
     ], dim=-1).reshape(-1, 4)
     cand = torch.where(ok.reshape(-1)[:, None], cand, torch.full_like(cand, -1))
+    cand_keys = linear_key(cand, out_shape, st.batch_size)
+    cells = out_shape[0] * out_shape[1] * out_shape[2]
+    keys, nnz = _unique_capped(cand_keys, out_capacity, cells, st.batch_size)
+    return keys, key_to_coords(keys, out_shape), nnz, out_shape
+
+
+def transpose_output_sites(st: SparseTensor, kernel_size, stride, padding, out_capacity: int):
+    """Output site set of a transpose conv: every in * stride - pad + tap
+    on the output grid (`transpose_out_shape`), sorted, unique, capped per
+    frame as `conv_output_sites` is. Returns (keys, coords, nnz, out_shape)."""
+    s, p = triple(stride), triple(padding)
+    out_shape = transpose_out_shape(st.spatial_shape, kernel_size, stride, padding)
+    dev = st.coords.device
+    offs = torch.from_numpy(cuda_conv.kernel_offsets(kernel_size)).to(dev)
+    out_zyx = (st.coords[None, :, 1:4].long() * torch.tensor(s, device=dev)
+               - torch.tensor(p, device=dev) + offs[:, None, :])             # (K, N, 3)
+    inb = (((out_zyx >= 0) & (out_zyx < torch.tensor(out_shape, device=dev))).all(-1)
+           & st.valid[None, :])
+    b = st.coords[:, 0].long()[None, :, None].expand(out_zyx.shape[0], -1, 1)
+    cand = torch.cat([b, out_zyx], -1).reshape(-1, 4)
+    cand = torch.where(inb.reshape(-1)[:, None], cand, torch.full_like(cand, -1))
     cand_keys = linear_key(cand, out_shape, st.batch_size)
     cells = out_shape[0] * out_shape[1] * out_shape[2]
     keys, nnz = _unique_capped(cand_keys, out_capacity, cells, st.batch_size)
@@ -229,16 +259,19 @@ class MaskedBatchNorm(nn.BatchNorm1d):
 
 class _SparseConv(nn.Module):
     """Sparse conv with the reference spconv weight layout
-    (kz, ky, kx, Cin, Cout) stored as `weight`; no bias."""
+    (kz, ky, kx, Cin, Cout) stored as `weight`; no bias. `mode` is the
+    pairing `cuda_conv.SparseConvFunction` runs: "subm", "strided" or
+    "transpose"."""
 
-    subm = False
+    mode = "strided"
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=0,
                  indice_key=None, frame_capacity=None):
         super().__init__()
         self.kernel_size = triple(kernel_size)
-        self.stride = triple(stride) if not self.subm else (1, 1, 1)
-        self.padding = (tuple(k // 2 for k in self.kernel_size) if self.subm
+        subm = self.mode == "subm"
+        self.stride = (1, 1, 1) if subm else triple(stride)
+        self.padding = (tuple(k // 2 for k in self.kernel_size) if subm
                         else triple(padding))
         self.indice_key = indice_key
         self.frame_capacity = tuple(frame_capacity) if frame_capacity else (None, None)
@@ -250,7 +283,7 @@ class _SparseConv(nn.Module):
     def _sites(self, st, cache):
         """(keys, coords, nnz, out_shape, stride, padding) of the output
         sites and the geometry that pairs inputs with them."""
-        if self.subm:
+        if self.mode == "subm":
             return st.keys, st.coords, st.nnz, st.spatial_shape, self.stride, self.padding
         if self.indice_key and ("sites", self.indice_key) in cache:
             return shared_sites(cache, self.indice_key, self.kernel_size, self.stride,
@@ -262,26 +295,33 @@ class _SparseConv(nn.Module):
             cache[("sites", self.indice_key)] = sites
             cache[("sites_geometry", self.indice_key)] = (self.kernel_size, self.stride,
                                                           self.padding)
+            # the input sites, which an inverse conv under the key restores
+            cache[("pre", self.indice_key)] = (st.keys, st.coords, st.nnz, st.spatial_shape)
         return (*sites, self.stride, self.padding)
+
+    def _map(self, cache, st, keys, coords, stride, padding):
+        """The (K, M) map pairing the rows of `st` with the output sites."""
+        return neighbor_map_cached(cache, st, keys, coords, self.kernel_size, stride, padding)
 
     def forward(self, st: SparseTensor, cache: dict) -> SparseTensor:
         keys, coords, nnz, out_shape, stride, padding = self._sites(st, cache)
+        out_shape = tuple(int(v) for v in out_shape)
         K = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
-        nbr = neighbor_map_cached(cache, st, keys, coords, self.kernel_size, stride, padding)
+        nbr = self._map(cache, st, keys, coords, stride, padding)
         out = cuda_conv.SparseConvFunction.apply(
             st.features.to(activation_dtype()),
             self.weight.reshape(K, self.in_channels, self.out_channels), st.keys, st.coords,
-            keys, coords, (st.spatial_shape, tuple(int(v) for v in out_shape), st.batch_size,
-                           self.kernel_size, stride, padding, self.subm), nbr)
+            keys, coords, (st.spatial_shape, out_shape, st.batch_size, self.kernel_size, stride,
+                           padding, self.mode), nbr)
         out = torch.where((keys != INT32_MAX)[:, None], out, torch.zeros_like(out))
-        return SparseTensor(out.to(st.features.dtype), coords, keys, nnz,
-                            tuple(int(v) for v in out_shape), st.batch_size)
+        return SparseTensor(out.to(st.features.dtype), coords, keys, nnz, out_shape,
+                            st.batch_size)
 
 
 class SubMConv3d(_SparseConv):
     """Submanifold sparse conv: output sites == input sites."""
 
-    subm = True
+    mode = "subm"
 
 
 class SparseConv3d(_SparseConv):
@@ -289,6 +329,50 @@ class SparseConv3d(_SparseConv):
     `frame_capacity` = (train capacity, eval capacity), picked by the
     module's mode (None: the input capacity), and cached under
     `indice_key`."""
+
+
+class _TransposeConv(_SparseConv):
+    """A conv whose tap k reads input site (out + pad - tap_k) / stride
+    (where it divides exactly): K1 over the transpose-query map of the
+    input table (`transpose_map_cached`), weights as stored."""
+
+    mode = "transpose"
+
+    def _map(self, cache, st, keys, coords, stride, padding):
+        return transpose_map_cached(cache, st.keys, coords, st.spatial_shape, st.batch_size,
+                                    self.kernel_size, stride, padding)
+
+
+class SparseConvTranspose3d(_TransposeConv):
+    """Transpose sparse conv (spconv `SparseConvTranspose3d`, the JAX
+    package's): output sites in * stride - pad + tap on the grid
+    (in - 1) * stride - 2 * pad + k (`transpose_output_sites`), capped per
+    frame at `frame_capacity` = (train, eval) (None: the input capacity);
+    out[o] = sum_k in[(o + pad - tap_k) / stride] @ W_k."""
+
+    def _sites(self, st, cache):
+        per_frame = self.frame_capacity[0 if self.training else 1]
+        cap = per_frame * st.batch_size if per_frame else st.capacity
+        sites = transpose_output_sites(st, self.kernel_size, self.stride, self.padding, cap)
+        return (*sites, self.stride, self.padding)
+
+
+class SparseInverseConv3d(_TransposeConv):
+    """Inverse conv (spconv `SparseInverseConv3d`): restores the input
+    sites that the strided conv under `indice_key` recorded, each fine
+    site f reading the coarse site (f + pad - tap) / stride, with
+    `stride` / `padding` those of that conv."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, indice_key: str = "",
+                 stride=1, padding=0):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         indice_key=indice_key)
+
+    def _sites(self, st, cache):
+        if ("pre", self.indice_key) not in cache:
+            raise RuntimeError(f"no input sites recorded under {self.indice_key!r}; run the "
+                               "strided conv that makes them first")
+        return (*cache[("pre", self.indice_key)], self.stride, self.padding)
 
 
 def shared_sites(cache: dict, indice_key: str, kernel_size, stride, padding):
@@ -344,7 +428,8 @@ def transpose_map_cached(cache: dict, out_keys, in_coords, out_shape, batch_size
     the row of the output key table `out_keys` that reads it, or -1. Built
     once per forward `cache` and (output table, input sites, geometry),
     keyed by the tables' identity like `neighbor_map_cached`; a pool's
-    backward reads it."""
+    backward reads it, and so do the forwards of the transpose and inverse
+    convs (the table is then their input, the sites their output)."""
     geo = (triple(kernel_size), triple(stride), triple(padding))
     key = ("tnbr", id(out_keys), id(in_coords), geo)
     hit = cache.get(key)

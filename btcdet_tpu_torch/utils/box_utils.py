@@ -63,6 +63,12 @@ def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([gx, gy], dim=-1)
 
 
+def enlarge_box3d(boxes3d: torch.Tensor, extra_width=(0, 0, 0)) -> torch.Tensor:
+    """(N, 7 + C) boxes with their dims grown by extra_width (dx, dy, dz)."""
+    grow = torch.tensor(extra_width, dtype=boxes3d.dtype, device=boxes3d.device)
+    return torch.cat([boxes3d[:, 0:3], boxes3d[:, 3:6] + grow[None, :], boxes3d[:, 6:]], dim=1)
+
+
 def points_in_boxes_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """points (..., N, 3), boxes (..., M, 7) -> bool (..., N, M): inside when
     the box-frame coordinates lie within the half dims (z from the box

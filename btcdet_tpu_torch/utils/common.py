@@ -93,6 +93,34 @@ def trilinear_interpolate_dense(vol: torch.Tensor, zyx: torch.Tensor) -> torch.T
     return out
 
 
+def get_voxel_centers(voxel_coords: torch.Tensor, downsample_times, voxel_size,
+                      point_cloud_range) -> torch.Tensor:
+    """voxel_coords (..., 3) int (z, y, x) -> (..., 3) float32 xyz centres:
+    (c + 0.5) * (voxel_size * downsample_times) + the range's origin."""
+    dev = voxel_coords.device
+    xyz = voxel_coords.flip(-1).float()
+    vsz = (torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+           * torch.tensor(downsample_times, dtype=torch.float32, device=dev))
+    origin = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
+    return (xyz + 0.5) * vsz + origin
+
+
+def bilinear_interpolate(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """im (H, W, C); x, y (N,) float pixel coords -> (N, C): the four
+    neighbours clamped into the image, weighted by their distances
+    (reference `common_utils.bilinear_interpolate_torch`)."""
+    H, W = im.shape[0], im.shape[1]
+    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+    x1, y1 = x0 + 1, y0 + 1
+    x0c, x1c = x0.clamp(0, W - 1), x1.clamp(0, W - 1)
+    y0c, y1c = y0.clamp(0, H - 1), y1.clamp(0, H - 1)
+    wa = ((x1 - x) * (y1 - y))[:, None]
+    wb = ((x1 - x) * (y - y0))[:, None]
+    wc = ((x - x0) * (y1 - y))[:, None]
+    wd = ((x - x0) * (y - y0))[:, None]
+    return im[y0c, x0c] * wa + im[y1c, x0c] * wb + im[y0c, x1c] * wc + im[y1c, x1c] * wd
+
+
 # ------------------------------------------------------ numpy host helpers
 
 def limit_period_np(val, offset: float = 0.5, period: float = np.pi):

@@ -33,6 +33,15 @@ _DET3D = {
     "occ_conv2": ("occ_conv2", 0), "occ_conv3": ("occ_conv3", 0), "occ_conv4": ("occ_conv4", 0),
 }
 _DET3D_KERNEL = {"conv_out": (3, 1, 1), "squeezeBev": (2, 1, 1)}
+# VoxelResBackBone8x: ours -> (reference block, None for a conv + BN block,
+# else the conv / bn index inside the reference's SparseBasicBlock)
+_RES3D = {"conv_input": ("conv_input", None), "conv_out": ("conv_out", None),
+          "conv1_0": ("conv1.0", 1), "conv1_1": ("conv1.0", 2),
+          **{f"conv{lv}": (f"conv{lv}.0", None) for lv in (2, 3, 4)},
+          **{f"conv{lv}b_{j}": (f"conv{lv}.1", j + 1) for lv in (2, 3, 4) for j in (0, 1)}}
+# the sparse conv a JAX SparseConvBlock holds, by its conv_type
+_SPARSE_CONVS = ("SubMConv3d_0", "SparseConv3d_0", "SparseConvTranspose3d_0",
+                 "SparseInverseConv3d_0")
 # occ backbone: ours -> (reference block, sub-block); deconv*_0 and inv* are
 # transpose convs. The residual backbones' blocks (res1-5, each two blocks
 # conv1 / conv2) and their 1x1 lateral conv lat1 keep the JAX package's
@@ -199,6 +208,84 @@ def occ_subnet_state(params: dict, batch_stats: dict, prefix: str = "occ_modules
     return sd
 
 
+def _sparse_kernel(block: dict, kernel) -> np.ndarray:
+    """The spconv-layout kernel of a JAX SparseConvBlock's conv, whichever
+    of subm, strided, transpose or inverse it is."""
+    (name,) = [k for k in _SPARSE_CONVS if k in block]
+    return inv_sparse3d(block[name]["kernel"], kernel)
+
+
+def sparse_block_state(params: dict, batch_stats: dict, prefix: str, kernel=(3, 3, 3)) -> dict:
+    """One JAX `SparseConvBlock` (any conv type: subm, spconv, spdeconv,
+    inverseconv) -> the port's block state: `{prefix}0.weight`
+    (kz, ky, kx, Cin, Cout) and the BN under `{prefix}1` when the block has
+    one. numpy arrays."""
+    sd = {f"{prefix}0.weight": _sparse_kernel(params, kernel)}
+    if "MaskedBatchNorm_0" in params:
+        _bn(sd, f"{prefix}1", params["MaskedBatchNorm_0"], batch_stats["MaskedBatchNorm_0"])
+    return sd
+
+
+def res_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> dict:
+    """The JAX `VoxelResBackBone8x`'s `params` / `batch_stats` trees -> the
+    port's `VoxelResBackBone8x` state dict under `prefix` (the reference's
+    names: `conv_input.0.weight`, `conv2.0.1.running_mean`, the residual
+    pairs as `conv{l}.{i}.conv1` / `bn1` / `conv2` / `bn2`), numpy arrays."""
+    sd: dict = {}
+    for ours, sub in params.items():
+        ref, i = _RES3D[ours]
+        kernel = (3, 1, 1) if ours == "conv_out" else (3, 3, 3)
+        if i is None:
+            sd.update(sparse_block_state(sub, batch_stats[ours], f"{prefix}{ref}.", kernel))
+            continue
+        sd[f"{prefix}{ref}.conv{i}.weight"] = _sparse_kernel(sub, kernel)
+        _bn(sd, f"{prefix}{ref}.bn{i}", sub["MaskedBatchNorm_0"],
+            batch_stats[ours]["MaskedBatchNorm_0"])
+    return sd
+
+
+def _sa_state(sd: dict, prefix: str, params: dict, batch_stats: dict) -> int:
+    """A JAX `PointSAModuleMSG`'s GroupMLPs -> `{prefix}mlps.{i}.{3k}.weight`
+    (Conv2d) and `{prefix}mlps.{i}.{3k + 1}` (BN); returns the module's
+    output width (the last widths of its MLPs, summed)."""
+    width = 0
+    for mlp in _sorted_children(params, "mlp_"):
+        i = int(mlp[4:])
+        pm, sm = params[mlp], batch_stats[mlp]
+        dense = _sorted_children(pm, "Dense_")
+        for d in dense:
+            k = int(d[6:])
+            sd[f"{prefix}mlps.{i}.{3 * k}.weight"] = inv_fc(pm[d]["kernel"], 4)
+            _bn(sd, f"{prefix}mlps.{i}.{3 * k + 1}", pm[f"MaskedBatchNorm_{k}"],
+                sm[f"MaskedBatchNorm_{k}"])
+        width += pm[dense[-1]]["kernel"].shape[-1]
+    return width
+
+
+def sa_module_state(params: dict, batch_stats: dict, prefix: str = "") -> dict:
+    """One JAX `PointSAModuleMSG` -> the port's `PointSAModuleMSG` state
+    under `prefix` (`mlps.{i}.{3k}.weight`, `mlps.{i}.{3k + 1}.*`)."""
+    sd: dict = {}
+    _sa_state(sd, prefix, params, batch_stats)
+    return sd
+
+
+def pfe_state(params: dict, batch_stats: dict, features_source, prefix: str = "") -> dict:
+    """The JAX `VoxelSetAbstraction`'s `params` / `batch_stats` trees ->
+    the port's state dict under `prefix`: `sa_raw` -> `SA_rawpoints`, each
+    `sa_{level}` -> `SA_layers.{j}` (j the level's place among the sparse
+    levels of `features_source`), the final Dense ->
+    `vsa_point_feature_fusion.0.weight`. numpy arrays."""
+    sd: dict = {}
+    if "sa_raw" in params:
+        _sa_state(sd, f"{prefix}SA_rawpoints.", params["sa_raw"], batch_stats["sa_raw"])
+    levels = [n for n in features_source if n not in ("bev", "raw_points")]
+    for j, name in enumerate(levels):
+        _sa_state(sd, f"{prefix}SA_layers.{j}.", params[f"sa_{name}"], batch_stats[f"sa_{name}"])
+    sd[f"{prefix}vsa_point_feature_fusion.0.weight"] = np.asarray(params["Dense_0"]["kernel"]).T
+    return sd
+
+
 def det_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> dict:
     """The JAX det backbone's `params` / `batch_stats` trees (a
     `VoxelBackBone8xOcc`'s, the `det_backbone_3d` subtrees of BtcNet) ->
@@ -208,10 +295,8 @@ def det_backbone_3d_state(params: dict, batch_stats: dict, prefix: str = "") -> 
     for ours, sub in params.items():
         ref, blk = _DET3D[ours]
         base = f"{prefix}{ref}" + ("" if blk is None else f".{blk}")
-        conv = sub.get("SubMConv3d_0") or sub.get("SparseConv3d_0")
-        sd[f"{base}.0.weight"] = inv_sparse3d(conv["kernel"], _DET3D_KERNEL.get(ours, (3, 3, 3)))
-        if "MaskedBatchNorm_0" in sub:
-            _bn(sd, f"{base}.1", sub["MaskedBatchNorm_0"], batch_stats[ours]["MaskedBatchNorm_0"])
+        sd.update(sparse_block_state(sub, batch_stats.get(ours, {}), f"{base}.",
+                                     _DET3D_KERNEL.get(ours, (3, 3, 3))))
     return sd
 
 
@@ -272,18 +357,8 @@ def from_jax_variables(variables_np: dict, *, upsample_strides, dp_ratio: float 
     rh = f"{pre}roi_head."
     c_pool = 0
     for sa in ("SA_rawpoints", "SA_occpoints"):
-        if sa not in pr:
-            continue
-        for mlp in _sorted_children(pr[sa], "mlp_"):
-            i = int(mlp[4:])
-            pm, sm = pr[sa][mlp], sr[sa][mlp]
-            dense = _sorted_children(pm, "Dense_")
-            for d in dense:
-                k = int(d[6:])
-                sd[f"{rh}{sa}.mlps.{i}.{3 * k}.weight"] = inv_fc(pm[d]["kernel"], 4)
-                _bn(sd, f"{rh}{sa}.mlps.{i}.{3 * k + 1}", pm[f"MaskedBatchNorm_{k}"],
-                    sm[f"MaskedBatchNorm_{k}"])
-            c_pool += pm[dense[-1]]["kernel"].shape[-1]
+        if sa in pr:
+            c_pool += _sa_state(sd, f"{rh}{sa}.", pr[sa], sr[sa])
     xcs = _sorted_children(pr, "xc_conv_")
     for x in xcs:
         j = int(x[8:])

@@ -15,10 +15,13 @@ loss) as an eighth, and the det-side options (OUT_FEAT_TYPE, CLAMP, the
 unfused merge, MeanVFE with the occ subnet, a fractional upsample stride,
 MATCH_HEIGHT without the corner loss, the adam / adam_cosine / sgd
 optimizers) with the 3-class config (`btcdet_kitti_3classes.yaml`) as a
-ninth.
+ninth, and the side modules that no config names (VoxelResBackBone8x, the
+inverse and transpose sparse convs, VoxelSetAbstraction, ATSS, the roi
+pools, chamfer, PointPillarScatter, the NMS functions) as a tenth.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
+    python3 chip_smoke.py --side      # only the tenth path (side modules)
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
@@ -162,6 +165,24 @@ Phases (any failure raises and exits non-zero, printing no result):
      spconv5, K4's volume gradient on the combine volume, one counted step,
      the gradient repeat) and one counted step with each new optimizer;
      each option's small f32 config on the card against the CPU;
+  8e. the tenth path, at B=2 on the flagship det voxel table after
+     MeanVFE: VoxelResBackBone8x at channels (16, 32, 64, 128, 128), its
+     eval forward's launches (RES_EVAL_LAUNCHES: 13 K1 GEMMs over 8 maps)
+     with all 13 timed; one counted run (SIDE_LAUNCHES) of the backbone,
+     the inverse convs 128->64 / 64->32 / 32->16 (keys spconv4 / 3 / 2) and
+     a k (2, 2, 2) stride-2 transpose conv 128->64 on x_conv4, forward and
+     backward of a fixed random projection of every output; every K1 / K3
+     call of it against its plain version (maps bit for bit), the new
+     geometries timed (the transpose-query forwards, the forward-query
+     dfs, K3 over a transpose map), the gradients twice (0 elements may
+     differ); VoxelSetAbstraction at its default widths (2048 keypoints):
+     FPS, ball-query and module ms, and its card run against the CPU's
+     (keypoints equal, each differing ball list proven valid); atss_assign
+     on 70 400 anchors x 10 gt a frame with and without MATCH_HEIGHT (peak
+     memory), roiaware_pool3d max / avg and roipoint_pool3d with 128 rois,
+     chamfer_distance on 16 pairs of 2048 points, PointPillarScatter on the
+     PointPillars KITTI canvas, multi_classes_nms with the 3-class yaml's
+     NMS_CONFIG, each against the CPU on the same inputs, with its ms;
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -384,8 +405,10 @@ def k1_case(name, args, df: bool = False, transpose: bool = False):
     tap-reversed weights, or with `transpose` a strided conv's in
     transpose-query mode, where the table is the output gradient keyed by
     the forward's output sites and the queries are its input sites),
-    against its plain version to TOL and bit for bit on a repeat. Returns
-    the entries of the map and of the GEMM."""
+    against its plain version to TOL and bit for bit on a repeat. A
+    forward with `transpose` is that of a transpose or inverse conv, over
+    the transpose-query map of its input table. Returns the entries of the
+    map and of the GEMM."""
     import torch
 
     from btcdet_tpu_torch.ops import cuda_conv
@@ -412,7 +435,7 @@ def k1_case(name, args, df: bool = False, transpose: bool = False):
             return cuda_conv.sparse_conv(*cargs, nbr=nbr)
 
         def plain():
-            return cuda_conv.sparse_conv_plain(*cargs)
+            return cuda_conv.sparse_conv_plain(*cargs, transpose=transpose)
     out, again, ref = kern(), kern(), plain()
     torch.cuda.synchronize()
     assert torch.equal(out, again), f"K1 {name}: two bf16 runs differ"
@@ -3024,6 +3047,526 @@ def small_three_class():
     cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG = three.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
     return cfg
 
+# --------------------------------------------- tenth path: side modules
+#
+# The modules no config names, at the flagship's widths and sizes:
+# VoxelResBackBone8x, the inverse and transpose convs (K1 and K3 at new
+# geometries), VoxelSetAbstraction, and the plain functions ATSS, the roi
+# pools, chamfer, PointPillarScatter and the NMS functions, each against the
+# port's CPU run on the same inputs.
+
+SIDE_CHANNELS = (16, 32, 64, 128, 128)
+SIDE_LEVELS = ("encoded", "x_conv1", "x_conv2", "x_conv3", "x_conv4")
+# one eval forward of VoxelResBackBone8x: 13 gather-GEMMs over 8 maps
+# (conv_input and res1's pair read the input table's map, each later
+# residual pair its level's, each strided conv its own)
+RES_EVAL_LAUNCHES = dict(dict.fromkeys(TRAIN_LAUNCHES, 0), neighbor_map=8, sparse_conv=13)
+# the tenth path's counted run: that forward with its backward (12 dfs:
+# conv_input's input needs no gradient; the 4 strided dfs build a
+# transpose-query map each), then the 3 inverse convs and the transpose
+# conv, each with a transpose-query map for its forward and a
+# forward-query map for its df; 17 weight gradients, each compacted
+SIDE_LAUNCHES = dict(dict.fromkeys(TRAIN_LAUNCHES, 0), neighbor_map=8 + 4 + 2 * 4,
+                     sparse_conv=13 + 4, sparse_conv_df=12 + 4, tap_pairs=17,
+                     sparse_conv_dw=17)
+# the forward calls of the counted run, in order
+SIDE_CONVS = ("conv_input", "res1_0", "res1_1", "conv2", "res2_0", "res2_1", "conv3", "res3_0",
+              "res3_1", "conv4", "res4_0", "res4_1", "conv_out", "inv4", "inv3", "inv2", "deconv")
+
+
+def side_setup():
+    """VoxelResBackBone8x at SIDE_CHANNELS on the flagship det voxel table
+    (make_synthetic_batch: 16 384 points, 10 gt, test caps) after MeanVFE,
+    eval mode, and the side convs: inverse convs 128->64 (key spconv4),
+    64->32 (spconv3), 32->16 (spconv2), and a k (2, 2, 2) stride-2
+    transpose conv 128->64 on x_conv4 whose output capacity (8 rows an
+    input row) cuts nothing. Synthetic weights by name. Returns (backbone,
+    convs, input tensor, batch, cfg)."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import backbones_3d, vfe
+    from btcdet_tpu_torch.ops import sparse
+
+    cfg = config.flagship_det_only()
+    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                 seed=0, mode="test")
+    feats = vfe.MeanVFE()(batch["voxels"], batch["voxel_num_points"])
+    st = sparse.from_coords(feats, batch["voxel_coords"], det_grid(cfg), 2)
+    net = backbones_3d.VoxelResBackBone8x(feats.shape[1], SIDE_CHANNELS).cuda().eval()
+    net.load_state_dict(weights.synth_state_dict(net))
+    per_frame = 8 * st.capacity // st.batch_size
+    convs = torch.nn.ModuleDict({
+        "inv4": sparse.SparseInverseConv3d(128, 64, 3, "spconv4", 2, (0, 1, 1)),
+        "inv3": sparse.SparseInverseConv3d(64, 32, 3, "spconv3", 2, 1),
+        "inv2": sparse.SparseInverseConv3d(32, 16, 3, "spconv2", 2, 1),
+        "deconv": sparse.SparseConvTranspose3d(128, 64, 2, 2, 0,
+                                               frame_capacity=(per_frame, per_frame)),
+    }).cuda().eval()
+    convs.load_state_dict(weights.synth_state_dict(convs))
+    return net, convs, st, batch, cfg
+
+
+def side_step(net, convs, st, proj: list):
+    """The backbone, the inverse convs (levels 3, 2, 1 from 4, 3, 2) and the
+    transpose conv forward, then the backward of a fixed random projection
+    of every output (`proj`, filled on the first call). Returns the
+    outputs."""
+    import torch
+
+    cache = {}
+    out = net(st, cache)
+    outs = [out[k] for k in SIDE_LEVELS]
+    outs += [convs[f"inv{lv}"](out[f"x_conv{lv}"], cache) for lv in (4, 3, 2)]
+    outs.append(convs["deconv"](out["x_conv4"], cache))
+    if not proj:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        proj += [torch.randn(o.features.shape, generator=gen, device="cuda")
+                 * o.valid[:, None] for o in outs]
+    sum((o.features.float() * p).sum() for o, p in zip(outs, proj)).backward()
+    return outs
+
+
+def side_grads(net, convs, st, proj) -> dict:
+    for p in list(net.parameters()) + list(convs.parameters()):
+        p.grad = None
+    side_step(net, convs, st, proj)
+    return {n: p.grad.clone() for mod in (net, convs) for n, p in mod.named_parameters()}
+
+
+def side_light_checks(calls):
+    """Every K1 and K3 call of the counted run against its plain version:
+    the forwards' maps bit for bit (transpose-query for the inverse and
+    transpose convs), the bf16 gather-GEMMs and dfs to TOL of the plain
+    max, the weight gradients to rtol 1e-3 / atol 1e-4 of the plain max.
+    Returns the number of calls checked."""
+    import torch
+
+    from btcdet_tpu_torch.ops import cuda_conv
+
+    fwd = calls["sparse_conv"]
+    assert len(fwd) == len(SIDE_CONVS), len(fwd)
+    torch.set_grad_enabled(False)
+    for name, (a, kw) in zip(SIDE_CONVS, fwd):
+        feats, keys, coords, w, shape, bsz, k, s, p = a[:9]
+        transpose = name.startswith(("inv", "deconv"))
+        ref_map = cuda_conv.neighbor_map_plain(keys, coords, shape, k, s, p, transpose)
+        assert torch.equal(kw["nbr"], ref_map), f"K1 map {name}: kernel and plain version differ"
+        out = cuda_conv.sparse_conv(*a[:9], nbr=kw["nbr"])
+        ref = cuda_conv.apply_map_matmul(feats.detach(), ref_map, w)
+        scale = float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= TOL * max(scale, 1e-6), f"K1 {name}"
+    for a, kw in calls["sparse_conv_df"]:
+        out = cuda_conv.sparse_conv_df(*a[:9], transpose=kw["transpose"], nbr=kw.get("nbr"))
+        ref = cuda_conv.sparse_conv_plain(*a[:9], transpose=kw["transpose"])
+        scale = float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= TOL * max(scale, 1e-6), (
+            f"K1 df kernel={a[6]} stride={a[7]} transpose={kw['transpose']}")
+    for a, kw in calls["sparse_conv_dw"]:
+        out = cuda_conv.sparse_conv_dw(a[0].detach(), *a[1:9], nbr=kw["nbr"])
+        ref = cuda_conv.sparse_conv_dw_plain(a[0].detach(), *a[1:9], nbr=kw["nbr"])
+        torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m, a=a: f"K3 kernel={a[6]} stride={a[7]}: {m}")
+    torch.set_grad_enabled(True)
+    torch.cuda.synchronize()
+    return len(fwd) + len(calls["sparse_conv_df"]) + len(calls["sparse_conv_dw"])
+
+
+def side_sparse_phase():
+    """The residual backbone's eval forward (RES_EVAL_LAUNCHES, its 13
+    launches timed), then the counted run (SIDE_LAUNCHES): every K1 / K3
+    call against its plain version, the new geometries timed with their
+    bounds, and the run's gradients twice from the same state (0 elements
+    may differ). Returns (kernels-line entries, backbone, st, batch, cfg)."""
+    import torch
+
+    net, convs, st, batch, cfg = side_setup()
+    reset_launches()
+    with torch.no_grad():
+        out = net(st)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == RES_EVAL_LAUNCHES, (launches, RES_EVAL_LAUNCHES)
+    log(f"VoxelResBackBone8x {SIDE_CHANNELS} eval forward (B=2, flagship det table): launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; nnz "
+        f"{json.dumps({k: int(out[k].nnz) for k in SIDE_LEVELS})}; grids "
+        f"{json.dumps({k: out[k].spatial_shape for k in SIDE_LEVELS})}")
+    with torch.no_grad():
+        captured = capture_kernel_inputs(lambda: net(st))
+    k1_eval_table(captured["sparse_conv"], captured["neighbor_map"])
+    med, times = timed_median(lambda: (net(st), torch.cuda.synchronize()))
+    log(f"VoxelResBackBone8x eval forward ms (5 runs after 2 warm-ups): median {med:.2f} all "
+        f"{[round(t, 2) for t in times]}")
+    del captured, out
+
+    proj = []
+    side_grads(net, convs, st, proj)                 # fills proj
+    reset_launches()
+    outs = side_step(net, convs, st, proj)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == SIDE_LAUNCHES, (launches, SIDE_LAUNCHES)
+    log(f"tenth path counted run (backbone + 3 inverse convs + transpose conv, forward and "
+        f"backward): launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    inv = dict(zip(("inv4", "inv3", "inv2", "deconv"), outs[5:]))
+    # every tap of a k=2 stride-2 transpose conv lands on the grid, on a site
+    # of its own: 8 candidates an input row, all distinct
+    n_cand = 8 * int(outs[4].nnz)
+    log(f"inverse convs restore nnz {[int(inv[k].nnz) for k in ('inv4', 'inv3', 'inv2')]} (levels "
+        f"3, 2, 1: {[int(outs[k].nnz) for k in (3, 2, 1)]}); transpose conv 2^3 s2 on x_conv4: "
+        f"{n_cand} candidates, nnz {int(inv['deconv'].nnz)} of capacity "
+        f"{inv['deconv'].capacity}, grid {inv['deconv'].spatial_shape}")
+    assert [int(inv[k].nnz) for k in ("inv4", "inv3", "inv2")] == [
+        int(outs[k].nnz) for k in (3, 2, 1)]
+    assert int(inv["deconv"].nnz) == n_cand <= inv["deconv"].capacity
+    for o in outs:
+        assert bool(torch.isfinite(o.features).all())
+    del outs, inv
+
+    calls = capture_kernel_inputs(lambda: side_step(net, convs, st, proj))
+    n = side_light_checks(calls)
+    log(f"tenth path: {n} K1 / K3 calls of the counted run against their plain versions "
+        f"(maps bit for bit)")
+    fwd = dict(zip(SIDE_CONVS, calls["sparse_conv"]))
+    entries = []
+    for name, label, transpose in (
+            ("conv4", "res conv4(3^3 s2 p(0,1,1) 64->128)", False),
+            ("res4_0", "res4 subm(128->128)", False),
+            ("conv_out", "res conv_out(3x1x1 s(2,1,1) 128->128)", False),
+            ("inv4", "inv4(3^3 s2 p(0,1,1) 128->64, transpose map)", True),
+            ("inv2", "inv2(3^3 s2 32->16, transpose map)", True),
+            ("deconv", "deconv(2^3 s2 128->64, transpose map)", True)):
+        entries += k1_case(label, fwd[name][0], transpose=transpose)
+
+    def pick(kind, cin, cout, kernel):
+        return next(c for c in calls[kind]
+                    if c[0][6] == kernel and c[0][0].shape[1] == cin
+                    and (c[0][3].shape[1] if kind == "sparse_conv_dw" else c[0][3].shape[2])
+                    == cout)
+
+    for label, (cin, cout, kernel) in (("inv4 df(64->128, forward-query map)",
+                                        (64, 128, (3, 3, 3))),
+                                       ("deconv df(64->128, forward-query map)",
+                                        (64, 128, (2, 2, 2)))):
+        call = pick("sparse_conv_df", cin, cout, kernel)
+        assert call[1]["transpose"] is False
+        entries += k1_case(label, call[0], df=True)
+    for label, (cin, cout, kernel) in (("res conv4(3^3 s2 64->128)", (64, 128, (3, 3, 3))),
+                                       ("inv4(128->64, transpose map)", (128, 64, (3, 3, 3))),
+                                       ("deconv(2^3 128->64, transpose map)",
+                                        (128, 64, (2, 2, 2)))):
+        entries += k3_case(label, pick("sparse_conv_dw", cin, cout, kernel))
+    del calls, fwd
+    for e in entries:
+        e["launches"] = launches[e["name"].split(":")[0]]
+
+    g1 = side_grads(net, convs, st, proj)
+    g2 = side_grads(net, convs, st, proj)
+    differ = sum(int((g1[k] != g2[k]).sum()) for k in g1)
+    total = sum(g.numel() for g in g1.values())
+    log(f"tenth path gradient repeat: {differ} of {total} elements differ over "
+        f"{len(g1)} tensors")
+    assert differ == 0
+    assert all(float(g.abs().max()) > 0 for g in g1.values())
+    del g1, g2, convs, proj
+    return entries, net, st, batch, cfg
+
+
+
+def ball_list_valid(idx, empty, xyz64, mask, q64, r2: float, eps: float) -> bool:
+    """Whether a ball query's list `idx` (k,) is a valid answer for the
+    query point q: the first k points in point order among a set that
+    holds every point with d^2 < r2 - eps and only points with d^2 <=
+    r2 + eps (distances in float64), the slots past its count repeating
+    its first entry; an empty ball holds no point below r2 - eps."""
+    d2 = ((xyz64 - q64) ** 2).sum(-1)
+    sure = mask & (d2 < r2 - eps)
+    maybe = mask & (d2 <= r2 + eps)
+    if empty:
+        return not sure.any()
+    idx = [int(i) for i in idx]
+    count = next((j for j in range(1, len(idx)) if idx[j] <= idx[j - 1]), len(idx))
+    listed, fill = idx[:count], idx[count:]
+    if any(i != listed[0] for i in fill) or not all(maybe[i] for i in listed):
+        return False
+    last = listed[-1] if count == len(idx) else len(d2) - 1
+    return all(i in listed for i in sure[:last + 1].nonzero()[0].tolist())
+
+
+def vsa_queries(xyz, mask, kp, kp_mask, levels, vsa):
+    """Every ball query of `vsa` on its inputs: {(SA, scale): (idx, empty,
+    support xyz, support mask, r^2)}."""
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+    from btcdet_tpu_torch.utils import common
+
+    sas = [("raw", vsa.SA_rawpoints, xyz, mask)]
+    for name, sa in zip(vsa.levels, vsa.SA_layers):
+        st = levels[name]
+        c = common.get_voxel_centers(st.coords[:, 1:4], 2 ** (int(name[-1]) - 1), vsa.voxel_size,
+                                     vsa.point_cloud_range)
+        frames = torch.arange(xyz.shape[0], device=c.device)[:, None]
+        sas.append((name, sa, c[None].expand(xyz.shape[0], -1, -1),
+                    (st.coords[None, :, 0] == frames) & st.valid[None]))
+    out = {}
+    for name, sa, sxyz, smask in sas:
+        qs = group_ops.multi_ball_query(sxyz, smask, kp, kp_mask, sa.radii, sa.nsamples)
+        for s, ((idx, empty), r) in enumerate(zip(qs, sa.radii)):
+            out[(name, s)] = (idx, empty, sxyz, smask, float(r) ** 2)
+    return out
+
+
+def vsa_phase(net, st, batch, cfg):
+    """VoxelSetAbstraction at its own default widths (2048 keypoints,
+    FEATURES_SOURCE bev, x_conv3, x_conv4, raw_points, 128 features) on the
+    residual backbone's levels and the HeightCompression of its `encoded`,
+    synthetic weights, eval: the ms of FPS, of the ball queries and of the
+    module; then the card's run against the CPU's on the same inputs, f32:
+    the keypoints exact, the features within rtol = atol = 1e-3 but for
+    keypoints whose ball lists differ, each differing card list proven a
+    valid answer (its flipped points within f32 rounding of the radius)."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch import weights
+    from btcdet_tpu_torch.models import map_to_bev, pfe
+    from btcdet_tpu_torch.ops import group_ops
+
+    with torch.no_grad():
+        lv = net(st)
+        _, bev = map_to_bev.HeightCompression()(lv["encoded"])
+    levels = {k: lv[k] for k in ("x_conv3", "x_conv4")}
+    xyz = batch["points"][..., :3].contiguous()
+    mask = batch["points_mask"]
+    inten = batch["points"][..., 3:4].contiguous()
+    det_vs = next(p.VOXEL_SIZE for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+                  if p.NAME == "det_transform_points_to_voxels")
+    vsa = pfe.VoxelSetAbstraction({"x_conv3": SIDE_CHANNELS[2], "x_conv4": SIDE_CHANNELS[3]},
+                                  raw_channels=1, bev_channels=bev.shape[-1],
+                                  point_cloud_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                  voxel_size=det_vs).cuda().eval()
+    vsa.load_state_dict(weights.synth_state_dict(vsa))
+    with torch.no_grad():
+        fps_ms = cuda_ms(lambda: group_ops.furthest_point_sample(xyz, mask, vsa.num_keypoints),
+                         reps=3, warmup=1)
+        kp_idx = group_ops.furthest_point_sample(xyz, mask, vsa.num_keypoints)
+        kp = group_ops.gather_points(xyz, kp_idx)
+        kp_mask = torch.gather(mask, 1, kp_idx)
+        q_ms = cuda_ms(lambda: vsa_queries(xyz, mask, kp, kp_mask, levels, vsa), reps=3,
+                       warmup=1)
+        vsa_ms = cuda_ms(lambda: vsa(xyz, mask, inten, levels, bev), reps=3, warmup=1)
+    log(f"VoxelSetAbstraction (B=2, {vsa.num_keypoints} keypoints, sources "
+        f"{list(vsa.features_source)}, support rows: raw {xyz.shape[1]}, "
+        f"{ {k: v.capacity for k, v in levels.items()} }, BEV {tuple(bev.shape)}): FPS "
+        f"{fps_ms:.2f} ms, ball queries {q_ms:.2f} ms, module {vsa_ms:.2f} ms")
+
+    res = {}
+    with f32_everywhere(), torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            m = vsa.to(dev)
+            lvd = {k: v.replace(features=v.features.float().to(dev), coords=v.coords.to(dev),
+                                keys=v.keys.to(dev), nnz=v.nnz.to(dev))
+                   for k, v in levels.items()}
+            args = (xyz.to(dev), mask.to(dev), inten.to(dev), lvd, bev.float().to(dev))
+            kp_, f_, km_ = m(*args)
+            res[dev] = (kp_.cpu(), f_.cpu(), km_.cpu(), vsa_queries(
+                args[0], args[1], kp_, km_, lvd, m))
+    (kp_g, f_g, km_g, q_g), (kp_c, f_c, km_c, q_c) = res["cuda"], res["cpu"]
+    assert torch.equal(kp_g, kp_c) and torch.equal(km_g, km_c), "FPS: card and CPU differ"
+    differ = set()
+    flips = 0
+    for key, (gi, ge, sxyz, smask, r2) in q_g.items():
+        ci, ce = q_c[key][0].cpu(), q_c[key][1].cpu()
+        gi, ge = gi.cpu(), ge.cpu()
+        rows = ((gi != ci).any(-1) | (ge != ce)).nonzero().tolist()
+        sx = sxyz.double().cpu().numpy()
+        sm = smask.cpu().numpy()
+        for b, m_ in rows:
+            q64 = kp_g[b, m_].double().numpy()
+            assert ball_list_valid(gi[b, m_].numpy(), bool(ge[b, m_]), sx[b], sm[b], q64, r2,
+                                   1e-5 * max(r2, 1.0)), (key, b, m_)
+            differ.add((b, m_))
+            flips += 1
+    keep = torch.ones(km_g.shape, dtype=torch.bool)
+    for b, m_ in differ:
+        keep[b, m_] = False
+    torch.testing.assert_close(f_g[keep], f_c[keep], rtol=1e-3, atol=1e-3)
+    log(f"VoxelSetAbstraction card vs CPU (f32): keypoints equal ({int(km_g.sum())} valid), "
+        f"{flips} ball lists differ on {len(differ)} keypoints, each card list valid; the other "
+        f"keypoints' features within 1e-3 (max abs diff "
+        f"{float((f_g[keep] - f_c[keep]).abs().max()):.3e}, max {float(f_c.abs().max()):.3f})")
+    assert len(differ) <= 0.02 * km_g.numel(), len(differ)
+    assert float(f_c.abs().max()) > 0
+    vsa.cuda()
+
+
+def roi_edge_points(rois, points, out_size=None, tol=1e-5):
+    """(P,) bool numpy: points within `tol` (float64) of some roi's box
+    face, or with `out_size` of one of its cell edges, where the card and
+    the CPU may round a point to either side."""
+    import numpy as np
+
+    r, p = rois.double().cpu().numpy(), points.double().cpu().numpy()
+    local = p[None, :, :3] - r[:, None, :3]
+    c, s = np.cos(-r[:, 6])[:, None], np.sin(-r[:, 6])[:, None]
+    local = np.stack([local[..., 0] * c + local[..., 1] * s,
+                      -local[..., 0] * s + local[..., 1] * c, local[..., 2]], -1)
+    half = r[:, None, 3:6] / 2
+    edge = (np.abs(np.abs(local) - half) < tol).any(-1)
+    if out_size is not None:
+        oz, oy, ox = out_size
+        q = (local + half) / (r[:, None, 3:6] / np.array([ox, oy, oz]))
+        inside = (np.abs(local) <= half + tol).all(-1)
+        edge |= inside & (np.abs(q - np.round(q)) < tol).any(-1)
+    return edge.any(0)
+
+
+def on_both(fn, *args, **kw):
+    """fn on the card's tensors and on their CPU copies: (card result,
+    CPU result, card ms), results on the CPU."""
+    import torch
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def host(out):
+        if isinstance(out, (tuple, list)):
+            return type(out)(host(o) for o in out)
+        return cpu(out)
+
+    g = host(fn(*args, **kw))
+    c = host(fn(*(cpu(a) for a in args), **kw))
+    return g, c, cuda_ms(lambda: fn(*args, **kw), reps=3, warmup=1)
+
+
+def side_functions_phase(batch, cfg):
+    """ATSS, the roi pools, chamfer, PointPillarScatter and the NMS
+    functions at realistic sizes on the card against the port's CPU run on
+    the same inputs, with their card ms (and ATSS's peak memory). Index
+    outputs exact (roi points on a face or cell edge left out of both
+    runs, after asserting they lie there); f32 outputs within rtol = atol
+    = 1e-3."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.models import map_to_bev, model_nms_utils
+    from btcdet_tpu_torch.models.dense_heads import anchor_head, atss_assigner
+    from btcdet_tpu_torch.ops import chamfer, roiaware_pool
+
+    rng = np.random.RandomState(17)
+    nz, ny, nx = det_grid(cfg)
+    anchors = torch.from_numpy(anchor_head.generate_anchors(
+        cfg.DATA_CONFIG.POINT_CLOUD_RANGE, (nx, ny),
+        cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG)[0]).cuda()
+    for b in range(2):
+        gt = batch["gt_boxes"][b]
+        for mh in (True, False):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            args = (anchors, gt[:, :7].contiguous(), gt[:, 7] > 0, gt[:, 7].long())
+            (gl, gr, gp), (cl, cr, cp), ms = on_both(atss_assigner.atss_assign, *args,
+                                                    match_height=mh)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            assert torch.equal(gl, cl) and torch.equal(gp, cp), ("ATSS labels", b, mh)
+            torch.testing.assert_close(gr, cr, rtol=1e-3, atol=1e-3)
+            log(f"atss_assign frame {b} match_height={mh}: {anchors.shape[0]} anchors x "
+                f"{int((gt[:, 7] > 0).sum())} gt, {int(gp.sum())} positive, labels equal to the "
+                f"CPU's; {ms:.2f} ms, peak {peak:.1f} MiB above the allocated")
+            assert int(gp.sum()) > 0
+
+    pts = batch["points"][0][batch["points_mask"][0]][:, :3].contiguous()
+    gt = batch["gt_boxes"][0][:, :7].cpu().numpy()
+    pick = rng.randint(0, len(gt), 128)
+    rois = gt[pick] + np.concatenate([rng.normal(0, 0.3, (128, 3)), rng.normal(0, 0.1, (128, 3)),
+                                      rng.normal(0, 0.2, (128, 1))], 1)
+    rois[:len(gt)] = gt
+    rois = torch.from_numpy(rois.astype(np.float32)).cuda()
+    pfeat = torch.from_numpy(rng.randn(len(pts), 16).astype(np.float32)).cuda()
+    for method in ("max", "avg"):
+        edge = torch.from_numpy(roi_edge_points(rois, pts, (6, 6, 6))).cuda()
+        pmask = ~edge
+        g, c, ms = on_both(roiaware_pool.roiaware_pool3d, rois, pts, pfeat, pmask,
+                           pool_method=method)
+        if method == "max":
+            assert torch.equal(g, c), "roiaware_pool3d max: card and CPU differ"
+        else:
+            torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-3)
+        log(f"roiaware_pool3d {method} (6,6,6), 128 rois, {len(pts)} points x 16: "
+            f"{int((g != 0).any(-1).sum())} filled cells, {int(edge.sum())} points on a face or "
+            f"cell edge left out, {'equal' if method == 'max' else 'within 1e-3'}; {ms:.2f} ms")
+    edge = torch.from_numpy(roi_edge_points(
+        torch.cat([rois[:, :3], rois[:, 3:6] + 0.2, rois[:, 6:]], 1), pts)).cuda()
+    (gp_, ge), (cp_, ce), ms = on_both(roiaware_pool.roipoint_pool3d, rois, pts, pfeat, ~edge,
+                                       num_sampled_points=512, extra_width=(0.2, 0.2, 0.2))
+    assert torch.equal(gp_, cp_) and torch.equal(ge, ce), "roipoint_pool3d: card and CPU differ"
+    log(f"roipoint_pool3d 128 rois x 512 samples: {int((~ge).sum())} non-empty rois, "
+        f"{int(edge.sum())} points on a face left out, equal; {ms:.2f} ms")
+
+    a = torch.from_numpy((rng.randn(16, 2048, 3) * 5).astype(np.float32)).cuda()
+    bb = torch.from_numpy((rng.randn(16, 2048, 3) * 5).astype(np.float32)).cuda()
+    m1 = torch.from_numpy(rng.rand(16, 2048) > 0.1).cuda()
+    m2 = torch.from_numpy(rng.rand(16, 2048) > 0.1).cuda()
+    (g1, g2), (c1, c2), ms = on_both(chamfer.chamfer_distance, a, bb, m1, m2)
+    for g, c in ((g1, c1), (g2, c2)):
+        assert torch.equal(torch.isinf(g), torch.isinf(c))
+        fin = torch.isfinite(c)
+        torch.testing.assert_close(g[fin], c[fin], rtol=1e-3, atol=1e-3)
+    log(f"chamfer_distance 16 pairs of 2048 points: within 1e-3 of the CPU's (max abs diff "
+        f"{float((g1[torch.isfinite(c1)] - c1[torch.isfinite(c1)]).abs().max()):.3e}); "
+        f"{ms:.2f} ms")
+
+    pp_nx, pp_ny, C, per = 432, 496, 64, 12000
+    coords = []
+    for fb in range(2):
+        cells = rng.choice(pp_ny * pp_nx, per, replace=False)
+        y, x = np.divmod(cells, pp_nx)
+        coords.append(np.stack([np.full(per, fb), np.zeros(per, int), y, x], 1))
+    coords = torch.from_numpy(np.concatenate(coords).astype(np.int32)).cuda()
+    pf = torch.from_numpy(rng.randn(len(coords), C).astype(np.float32)).cuda()
+    scatter = map_to_bev.PointPillarScatter(C, (pp_nx, pp_ny, 1))
+    (gn, gh), (cn, ch), ms = on_both(scatter, pf, coords, 2)
+    assert torch.equal(gh, ch) and torch.equal(gn, cn) and tuple(gn.shape) == (2, C, pp_ny, pp_nx)
+    log(f"PointPillarScatter {per} pillars a frame onto ({pp_ny}, {pp_nx}) x {C}: equal; "
+        f"{ms:.2f} ms")
+
+    post = config.three_class().MODEL.POST_PROCESSING
+    n = 4000
+    boxes = np.zeros((n, 7), np.float32)
+    boxes[:, :2] = rng.uniform([0, -40], [70.4, 40], (n, 2))
+    boxes[:, 2] = rng.uniform(-2, 0, n)
+    boxes[:, 3:6] = rng.uniform([0.6, 0.5, 1.4], [4.5, 1.9, 1.9], (n, 3))
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    boxes[:n // 2, :2] = boxes[n // 2:, :2] + rng.normal(0, 0.5, (n // 2, 2))   # overlaps
+    scores = torch.from_numpy(rng.rand(n, 3).astype(np.float32)).cuda()
+    gres, cres, ms = on_both(model_nms_utils.multi_classes_nms, scores,
+                             torch.from_numpy(boxes).cuda(), post.NMS_CONFIG,
+                             float(post.SCORE_THRESH))
+    kept = []
+    for (gi, gv, gl), (ci, cv, cl) in zip(gres, cres):
+        assert torch.equal(gv, cv) and torch.equal(gi[gv], ci[cv]) and torch.equal(gl, cl)
+        kept.append(int(gv.sum()))
+    log(f"multi_classes_nms (3 classes, {n} boxes, NMS_CONFIG of the 3-class yaml: thresh "
+        f"{post.NMS_CONFIG.NMS_THRESH}, pre {post.NMS_CONFIG.NMS_PRE_MAXSIZE}, post "
+        f"{post.NMS_CONFIG.NMS_POST_MAXSIZE}): kept {kept} per class, equal to the CPU's; "
+        f"{ms:.2f} ms")
+
+
+def side_modules_path(card: str):
+    """The tenth path (module docstring, 8e); returns its kernels-line
+    entries."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries, net, st, batch, cfg = side_sparse_phase()
+    vsa_phase(net, st, batch, cfg)
+    side_functions_phase(batch, cfg)
+    torch.cuda.synchronize()
+    log(f"tenth path (side modules): {time.perf_counter() - t0:.1f} s ({card})")
+    return entries
+
 
 # ------------------------------------------ seventh path: data parallelism
 #
@@ -3621,6 +4164,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     kernels_only = sys.argv[1:] == ["--kernels"]
+    side_only = sys.argv[1:] == ["--side"]
     sys.path.insert(0, REPO)
     try:
         import btcdet_tpu_torch  # noqa: F401
@@ -3654,6 +4198,12 @@ def main() -> int:
     if kernels_only:
         kernel_bench()
         log(f"chip_smoke --kernels: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if side_only:
+        keys = ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        entries = side_modules_path(card)
+        log(f"chip_smoke --side: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
         return 0
 
     # 3. full flagship model, synthetic weights by name, capture run
@@ -3788,6 +4338,9 @@ def main() -> int:
 
     # 8d. ninth path: the det-side options and the 3-class config
     kernels += det_options_path(card)
+
+    # 8e. tenth path: the side modules no config names
+    kernels += side_modules_path(card)
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

@@ -6,7 +6,10 @@ compaction `tap_pairs`, over the map), K2 max and sum over the map
 (`ops/cuda_pool.sparse_pool` / `sparse_sum_pool`) and their backward
 (`sparse_pool_grad` / `sparse_sum_pool_grad`, bit for bit), K4
 (`ops/cuda_interp.trilinear_pool`) and K4's volume gradient
-(`ops/cuda_interp.trilinear_pool_grad`). Tests marked `cuda` skip where no
+(`ops/cuda_interp.trilinear_pool_grad`); K1 and K3 at the transpose and
+inverse convs' geometries (a forward over a transpose-query map, a df over
+a forward-query map, dW over a transpose map), alone and through the
+modules. Tests marked `cuda` skip where no
 card is present; run them on a GPU machine with
 `python -m pytest tests/test_torch_kernels.py -m cuda`."""
 
@@ -719,3 +722,81 @@ def test_sparse_pools_over_a_given_map(cuda, mode):
     assert torch.equal(out, ref) and float(ref.max()) > 0
     with pytest.raises(ValueError):
         wrapper(feats, st.keys, coords, st.spatial_shape, st.batch_size, 3, 2, 1, nbr=nbr[:8])
+
+
+TRANSPOSE_CASES = [((2, 2, 2), 2, 0, 128, 64), (3, 2, 1, 32, 16), (3, 2, (0, 1, 1), 128, 64),
+                   ((3, 1, 1), (2, 1, 1), 0, 16, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout", TRANSPOSE_CASES)
+def test_transpose_conv_kernels_match_plain(cuda, kernel, stride, padding, cin, cout, dtype):
+    """A transpose conv's three launches: K1 over the transpose-query map of
+    its input table (the map bit for bit), K1's df over the forward-query
+    map of its output table, K3 over the transpose map; each against its
+    plain version, each counted once."""
+    st = _sparse_case(cuda, cin, seed=4, n=6000, shape=(21, 80, 70))
+    keys, coords, _, shape = TS.transpose_output_sites(st, kernel, stride, padding,
+                                                       8 * st.capacity)
+    K = int(np.prod(cuda_conv.triple(kernel)))
+    w = (torch.randn(K, cin, cout, generator=torch.Generator().manual_seed(5))
+         / np.sqrt(K * cin)).to(cuda)
+    geo = (st.spatial_shape, st.batch_size, kernel, stride, padding)
+    nbr = cuda_conv.neighbor_map(st.keys, coords, *geo, transpose=True)
+    assert torch.equal(nbr, cuda_conv.neighbor_map_plain(st.keys, coords, st.spatial_shape,
+                                                         kernel, stride, padding, True))
+    before = (cuda_conv.launches, cuda_conv.df_launches, cuda_conv.dw_launches)
+    f, wd = st.features.to(dtype), w.to(dtype)
+    out = cuda_conv.sparse_conv(f, st.keys, coords, wd, *geo, nbr=nbr)
+    ref = cuda_conv.apply_map_matmul(f, nbr, wd)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
+    g = torch.randn(coords.shape[0], cout, device=cuda) * (keys != TS.INT32_MAX)[:, None]
+    wt = wd.transpose(1, 2).contiguous()
+    df = cuda_conv.sparse_conv_df(g.to(dtype), keys, st.coords, wt, shape, st.batch_size,
+                                  kernel, stride, padding, transpose=False)
+    dref = cuda_conv.sparse_conv_plain(g.to(dtype), keys, st.coords, wt, shape, st.batch_size,
+                                       kernel, stride, padding)
+    torch.testing.assert_close(df, dref, rtol=0, atol=1e-2 * float(dref.abs().max()))
+    dw = cuda_conv.sparse_conv_dw(f, st.keys, coords, g, *geo, nbr=nbr)
+    wref = cuda_conv.apply_map_dw(f, nbr, g)
+    torch.testing.assert_close(dw, wref, rtol=1e-3, atol=1e-4 * float(wref.abs().max()))
+    after = (cuda_conv.launches, cuda_conv.df_launches, cuda_conv.dw_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert int((nbr >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_inverse_and_transpose_modules_run_the_kernels(cuda):
+    """`SparseInverseConv3d` after the strided conv that records its sites
+    and `SparseConvTranspose3d`, forward and backward on the card: their
+    outputs and gradients equal the same modules' on the CPU (plain
+    versions) within 1e-3, and the transpose maps, K1 forward and df and K3
+    launched."""
+    st = _sparse_case(cuda, 16, seed=6, n=6000, shape=(21, 80, 70))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        torch.manual_seed(0)
+        conv = TS.SparseConv3d(16, 32, 3, 2, 1, indice_key="sp").to(dev)
+        inv = TS.SparseInverseConv3d(32, 16, 3, indice_key="sp", stride=2, padding=1).to(dev)
+        up = TS.SparseConvTranspose3d(32, 8, 2, 2, 0).to(dev)
+        x = st.replace(features=st.features.to(dev).requires_grad_(), coords=st.coords.to(dev),
+                       keys=st.keys.to(dev), nnz=st.nnz.to(dev))
+        counts = (cuda_conv.nbr_launches, cuda_conv.launches, cuda_conv.df_launches,
+                  cuda_conv.dw_launches)
+        cache = {}
+        mid = conv(x, cache)
+        a, b = inv(mid, cache), up(mid, cache)
+        assert a.keys is x.keys
+        ((a.features.float() ** 2).sum() + (b.features.float() ** 2).sum()).backward()
+        after = (cuda_conv.nbr_launches, cuda_conv.launches, cuda_conv.df_launches,
+                 cuda_conv.dw_launches)
+        res[dev.type] = ([a.features.detach().cpu(), b.features.detach().cpu(),
+                          x.features.grad.cpu()]
+                         + [m.weight.grad.cpu() for m in (conv, inv, up)],
+                         [y - z for y, z in zip(after, counts)])
+    for got, want in zip(res["cuda"][0], res["cpu"][0]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2 * float(want.abs().max()))
+    # maps: conv forward, its df's transpose query, inv and up forward and df
+    assert res["cuda"][1] == [6, 3, 3, 3], res["cuda"][1]
