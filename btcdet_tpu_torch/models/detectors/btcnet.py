@@ -21,6 +21,15 @@ or reduces the materialized merged table: OccVFE (the occ code then feeds
 the backbone's side branch) or MeanVFE (no occ code, no side branch).
 DATA_CONFIG.CLAMP ("tanh", or a positive max) clamps the intensity channel
 of the points and of every voxel table before anything reads them.
+
+`bev_sharding=True` (the JAX package's `bev_sharding=NamedSharding(mesh,
+P('dp', 'sp'))`) splits the BEV pyramid by rows over the run's spatial
+group (`parallel.init_dist(..., sp=)`): each rank takes its row slab of
+the HeightCompression map (`parallel.take_rows`), runs the row-sharded
+BaseBEVBackbone on it, and the slabs of its output are gathered
+(`parallel.gather_rows`) before the dense head, which, like every stage
+before the BEV and after it, runs the same on each rank of the group.
+Without a spatial group it changes nothing.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from torch.profiler import record_function
 
 from ...ops import iou3d, sparse
 from ...ops.voxelizer import compute_grid_size
-from ...parallel import global_rows
+from ...parallel import gather_rows, get_sp_info, global_rows, take_rows
 from ...utils.common import activation_dtype, resolve_device
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head
@@ -86,7 +95,7 @@ def _level_caps(bb_cfg, mode: str):
 
 class BtcNet(nn.Module):
     def __init__(self, model_cfg, data_cfg, class_names, det_grid_size, point_cloud_range,
-                 det_voxel_size, num_point_features: int = 4):
+                 det_voxel_size, num_point_features: int = 4, bev_sharding: bool = False):
         super().__init__()
         mc = model_cfg
         self.use_occ = mc.get("OCC") is not None
@@ -130,9 +139,12 @@ class BtcNet(nn.Module):
             out_att=tuple(bb.get("OCC_ATT", [])))
         nz_bev = self._bev_depth(channels)
         b2 = mc.BACKBONE_2D
+        self.bev_sharding = bool(bev_sharding)
         det.backbone_2d = backbones_2d.BaseBEVBackbone(
             channels[4] * nz_bev, b2.LAYER_NUMS, b2.LAYER_STRIDES, b2.NUM_FILTERS,
-            b2.UPSAMPLE_STRIDES, b2.NUM_UPSAMPLE_FILTERS)
+            b2.UPSAMPLE_STRIDES, b2.NUM_UPSAMPLE_FILTERS, row_sharded=self.bev_sharding)
+        if self.bev_sharding:
+            det.backbone_2d.check_rows(self._bev_rows(), get_sp_info()[1])
         c2d = sum(b2.NUM_UPSAMPLE_FILTERS)
         dh = mc.DENSE_HEAD
         anchors, anchor_class, per_loc = anchor_head.generate_anchors(
@@ -204,6 +216,14 @@ class BtcNet(nn.Module):
         self.useocc_percentage = float(occ_data.get("USEOCC_PERCENTAGE", 1.0)) if occ_data else 1.0
         self.det_modules = det
         self.stage_ms = None  # a dict here collects synchronised ms per stage
+
+    def _bev_rows(self):
+        """H of the BEV map: the grid's ny after the three stride-2 convs
+        of the sparse backbone (conv_out strides z only)."""
+        ny = self.det_grid_size[1]
+        for _ in range(3):
+            ny = (ny + 2 - 3) // 2 + 1
+        return ny
 
     def _bev_depth(self, channels):
         """z extent of the encoded tensor: the sparse grid pads z by +1
@@ -278,7 +298,10 @@ class BtcNet(nn.Module):
         out["nnz"] = {k: int(v.nnz) for k, v in bb_out.items() if v is not None}
         with stage("bev", self.stage_ms):
             bev, out["spatial_features"] = self.map_to_bev(bb_out["encoded"])
-            spatial_2d = det.backbone_2d(bev)
+            if self.bev_sharding:
+                spatial_2d = gather_rows(det.backbone_2d(take_rows(bev)))
+            else:
+                spatial_2d = det.backbone_2d(bev)
         out["spatial_features_2d"] = spatial_2d.permute(0, 2, 3, 1)
         with stage("dense_head", self.stage_ms):
             head = det.dense_head(spatial_2d)
@@ -378,10 +401,13 @@ def _post_processing(out, post_cfg, dev):
     return {k: torch.stack(v) for k, v in res.items()}
 
 
-def build_network(model_cfg, data_cfg, class_names, device=None) -> BtcNet:
+def build_network(model_cfg, data_cfg, class_names, device=None,
+                  bev_sharding: bool = False) -> BtcNet:
     """BtcNet from reference-schema configs, in eval mode on `device`
     (CUDA unless the caller passes another); `.train()` switches it to
-    the train forward."""
+    the train forward. `bev_sharding` splits the BEV pyramid by rows over
+    the spatial group of the run (`parallel.init_dist(..., sp=)`); a
+    split the pyramid cannot run is refused here."""
     dev = resolve_device(device)
     pcr = tuple(data_cfg.POINT_CLOUD_RANGE)
     det_vox = None
@@ -390,5 +416,6 @@ def build_network(model_cfg, data_cfg, class_names, device=None) -> BtcNet:
             det_vox = tuple(proc.VOXEL_SIZE)
     assert det_vox is not None, "no det voxelization in DATA_PROCESSOR"
     net = BtcNet(model_cfg, data_cfg, class_names, compute_grid_size(pcr, det_vox), pcr,
-                 det_vox, len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"]))
+                 det_vox, len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"]),
+                 bev_sharding=bev_sharding)
     return net.to(dev).eval()

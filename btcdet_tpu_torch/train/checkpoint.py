@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from ..parallel import barrier, broadcast_object, get_dist_info
+from ..parallel import barrier, broadcast_object, is_lead
 from .optim import OCC_PREFIX
 
 _NAME = re.compile(r"checkpoint_step_(\d+)\.pth$")
@@ -53,7 +53,7 @@ class CheckpointManager:
         beyond `max_to_keep`; in a data-parallel run rank 0 writes, and
         every rank returns once it has."""
         out = self.path(step)
-        if get_dist_info()[0] == 0:
+        if is_lead():
             self.ckpt_dir.mkdir(parents=True, exist_ok=True)
             state = {"model_state": {k: v.detach().cpu() for k, v in net.state_dict().items()},
                      "optimizer_state": None if opt is None else _to_cpu(opt.state_dict()),

@@ -14,7 +14,9 @@ In a data-parallel run each rank evaluates its `datasets.ShardSampler`
 shard; the per-frame results (annos, recall records, coverage counts, and
 each batch's occupancy statistics with its first frame) are merged in
 dataset order without the shard padding (`parallel.merge_results_dist`),
-the AP is computed on rank 0 and broadcast.
+the AP is computed on rank 0 and broadcast. With BEV row sharding the
+ranks of a spatial group infer the same frames and return the same
+detections: their first rank's results go into the merge.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 from ..datasets.kitti.kitti_dataset import to_device
 from ..models.detectors.btcnet import post_processing
-from ..parallel import broadcast_object, get_dist_info, merge_results_dist
+from ..parallel import (broadcast_object, get_dist_info, get_sp_info, is_lead,
+                        merge_results_dist)
 from ..ops import iou3d
 from ..utils import box_utils
 
@@ -159,7 +162,8 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
     `on_batch(batch_idx, batch, host_outputs)` is called after each batch."""
     dev = next(net.parameters()).device
     num_class = len(class_names)
-    rank, world = get_dist_info()
+    world = get_dist_info()[1]
+    lead = is_lead()
     sampler = getattr(dataloader, "sampler", None)
     order = list(sampler) if sampler is not None else list(range(len(dataset)))
     # the shard's padding (`ShardSampler`) follows its real frames
@@ -182,7 +186,7 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
         time_ms["infer"] += (t_dev - t_got) * 1e3
         if on_batch is not None:
             on_batch(batch_idx, batch, post)
-        if cloud_dir is not None and vis_stride > 0 and batch_idx % vis_stride == 0 and rank == 0:
+        if cloud_dir is not None and vis_stride > 0 and batch_idx % vis_stride == 0 and lead:
             _dump_cloud(Path(cloud_dir), batch_idx, batch, post)
         B = post["pred_boxes"].shape[0]
         real = min(B, n_real - n_frames)
@@ -211,8 +215,8 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
         time_ms["host"] += (t_mark - t_dev) * 1e3
 
     sec_per_example = (time.time() - t_start) / max(n_frames, 1)
-    frames = ([r for _, r in records] if world == 1
-              else merge_results_dist(records, len(dataset)))
+    frames = ([r for _, r in records] if world == 1 else
+              merge_results_dist(records if get_sp_info()[0] == 0 else [], len(dataset)))
     det_annos = [r["anno"] for r in frames]
     recall_dict, cov_acc, occ_stats_acc = {}, {}, {}
     for r in frames:
@@ -233,7 +237,7 @@ def eval_one_epoch(net, dataloader, dataset, post_cfg, class_names, logger=None,
             logger.info(f"recall_roi_{t}: {recall_dict.get(f'roi_{t}', 0) / gt_cnt:.4f}  "
                         f"recall_rcnn_{t}: {recall_dict.get(f'rcnn_{t}', 0) / gt_cnt:.4f}")
     result_str, result_dict = "", {}
-    if rank == 0:
+    if lead:
         if result_dir is not None:
             for anno in det_annos:
                 dataset.write_kitti_txt(anno, anno["frame_id"], result_dir)

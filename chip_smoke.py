@@ -17,11 +17,15 @@ MATCH_HEIGHT without the corner loss, the adam / adam_cosine / sgd
 optimizers) with the 3-class config (`btcdet_kitti_3classes.yaml`) as a
 ninth, and the side modules that no config names (VoxelResBackBone8x, the
 inverse and transpose sparse convs, VoxelSetAbstraction, ATSS, the roi
-pools, chamfer, PointPillarScatter, the NMS functions) as a tenth.
+pools, chamfer, PointPillarScatter, the NMS functions) as a tenth, and
+BEV row sharding (`build_network(..., bev_sharding=True)` under
+`parallel.init_dist(..., sp=)`: the BEV pyramid split by rows over the
+ranks of a spatial group) as an eleventh.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
     python3 chip_smoke.py --side      # only the tenth path (side modules)
+    python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
@@ -183,6 +187,18 @@ Phases (any failure raises and exits non-zero, printing no result):
      chamfer_distance on 16 pairs of 2048 points, PointPillarScatter on the
      PointPillars KITTI canvas, multi_classes_nms with the 3-class yaml's
      NMS_CONFIG, each against the CPU on the same inputs, with its ms;
+  8f. the eleventh path, 2 ranks over gloo on cuda:0 (dp 1 x sp 2): the
+     full flagship at B=2 with the BEV pyramid split by rows, its train
+     step (train caps) and its eval forward + post-processing (test caps),
+     each rank's launches counted (TRAIN_LAUNCHES / EVAL_LAUNCHES: every
+     kernel runs on every rank), both ranks bit-equal, held against the
+     one-process run on the card from the same weights (gradients within
+     1e-3 of each tensor's max, loss terms within 1e-4, BEV BN running
+     statistics within 1e-5, the same detections within 1e-5); the BEV
+     stage's ms on a rank and in one process, the halo exchange's and the
+     row gathers' ms a step, the step and eval medians, the peak MiB a
+     rank; then the micro config on 4 ranks (dp 2 x sp 2) in float32
+     against one process at the global batch;
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -1560,11 +1576,12 @@ def k3_step_table(dw_calls):
 
 
 def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
-                batch_size: int = 2):
+                batch_size: int = 2, bev_sharding: bool = False):
     """A flagship-layout net of `cfg`'s CLASS_NAMES in train mode with
-    synthetic weights, its dual optimizer and a `mode="train"` synthetic
-    batch of `batch_size` frames (its gt boxes `relabel`led over the
-    classes where there are several)."""
+    synthetic weights (`bev_sharding` as `build_network`'s), its dual
+    optimizer and a `mode="train"` synthetic batch of `batch_size` frames
+    (its gt boxes `relabel`led over the classes where there are
+    several)."""
     import torch
 
     from btcdet_tpu_torch import weights
@@ -1574,7 +1591,8 @@ def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
 
     torch.manual_seed(seed)
     classes = list(cfg.get("CLASS_NAMES", ["Car"]))
-    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, classes, device=device)
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, classes, device=device,
+                        bev_sharding=bev_sharding)
     # synthetic weights by name, but the output projections keep the
     # model's own init (the JAX package's: cls prior bias, std-0.001 box
     # and rcnn weights); synthetic box weights decode to boxes of up to
@@ -4117,6 +4135,354 @@ def dp_eval_cli(card: str, root, pth, tmp, annos, result):
         f"launches EVAL_LAUNCHES each; {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------- eleventh path: BEV row sharding
+
+SP_WORLD = 2                 # the flagship's grid on the card: dp 1 x sp 2
+SP_MICRO_GRID = (2, 2)       # the micro config's grid: dp 2 x sp 2
+BEV_BN = "det_modules.backbone_2d."
+# the parameters the BEV pyramid's backward reaches
+BEV_UPSTREAM = ("det_modules.backbone_2d.", "det_modules.backbone_3d.")
+# the float32 train forward's outputs the row-sharded step is compared on
+SP_KEPT = ("spatial_features_2d", "rois")
+# kernels every rank of a row-sharded train step launches
+SP_LAUNCHED = ("neighbor_map", "sparse_conv", "sparse_conv_df", "sparse_conv_dw",
+               "sparse_pool", "trilinear_pool", "trilinear_pool_grad")
+
+
+def sp_flagship_worker(io: str):
+    """A rank of the flagship's dp 1 x sp 2 grid (see `sp_path`): the
+    row-sharded flagship's bf16 train step and eval forward + post (the
+    main path: counted, then timed with the BEV stage and the collectives
+    broken out), then its train step in float32."""
+    import torch
+
+    from btcdet_tpu_torch import config, parallel, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+    from btcdet_tpu_torch.parallel import spatial
+    from btcdet_tpu_torch.train import trainer
+    from btcdet_tpu_torch.utils.common import resolve_device
+
+    local = parallel.init_dist("pytorch", "gloo", timeout_s=DP_TIMEOUT_S, sp=SP_WORLD)
+    try:
+        dev = resolve_device("cuda", local)
+        torch.cuda.set_device(dev)
+        rank = parallel.get_sp_info()[0]
+        cfg = config.flagship()
+        net, opt, batch = train_setup(cfg, 16384, 10, 0, device=dev, batch_size=2,
+                                      bev_sharding=True)
+        parallel.broadcast_state(net)
+        if rank == 0:
+            torch.save(host_state(net), os.path.join(io, "init.pt"))
+
+        def step():
+            m = trainer.train_step(net, opt, batch, trainer.step_generator(0, 0, dev))
+            torch.cuda.synchronize()
+            return m
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = {"metrics": {k: float(v) for k, v in step().items()},
+               "train_launches": read_launches()}
+        out.update(grads=host_grads(net), state=host_state(net),
+                   train_peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        times = []
+        for _ in range(5):
+            parallel.barrier()
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = times
+        spatial.COMM_MS, net.stage_ms = {}, {}
+        step()
+        out["train_comm_ms"], out["train_stage_ms"] = spatial.COMM_MS, net.stage_ms
+
+        net.load_state_dict(weights.synth_state_dict(net))   # the main path's weights
+        net.eval()
+        spatial.COMM_MS, net.stage_ms = None, None
+        ebatch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384,
+                                      num_gt=10, seed=0, mode="test", device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        post = post_processing(net(ebatch), cfg.MODEL.POST_PROCESSING, 1, device=dev)
+        torch.cuda.synchronize()
+        out["eval_launches"] = read_launches()
+        out["post"] = {k: v.cpu() for k, v in post.items()}
+        out["eval_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        parallel.barrier()
+        out["eval_ms"] = timed_median(lambda: forward_post(net, ebatch, cfg))
+        spatial.COMM_MS, net.stage_ms = {}, {}
+        forward_post(net, ebatch, cfg)
+        out["eval_comm_ms"], out["eval_stage_ms"] = spatial.COMM_MS, net.stage_ms
+        spatial.COMM_MS = None
+        del net, opt, batch, ebatch
+        torch.cuda.empty_cache()
+
+        with f32_everywhere():
+            net, opt, batch = train_setup(cfg, 16384, 10, 0, device=dev, batch_size=2,
+                                          bev_sharding=True)
+            net.load_state_dict(torch.load(os.path.join(io, "init.pt"), map_location=dev,
+                                           weights_only=True))
+            kept = dict.fromkeys(SP_KEPT)
+            m = trainer.train_step(net, opt, batch, trainer.step_generator(0, 0, dev),
+                                   keep=kept)
+            torch.cuda.synchronize()
+        out["f32"] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "grads": host_grads(net), "state": host_state(net),
+                      "kept": {k: v.cpu() for k, v in kept.items()}}
+        torch.save(out, os.path.join(io, f"rank{rank}.pt"))
+    finally:
+        parallel.destroy()
+
+
+def sp_micro_worker(io: str):
+    """A rank of the micro config's dp 2 x sp 2 grid: one float32 train
+    step of 2 frames a dp rank (see `sp_path`)."""
+    import torch
+    import torch.distributed as tdist
+
+    from btcdet_tpu_torch import parallel
+    from btcdet_tpu_torch.train import trainer
+    from btcdet_tpu_torch.utils.common import resolve_device
+
+    local = parallel.init_dist("pytorch", "gloo", timeout_s=DP_TIMEOUT_S, sp=SP_MICRO_GRID[1])
+    try:
+        dev = resolve_device("cuda", local)
+        torch.cuda.set_device(dev)
+        rank, (d, dp) = tdist.get_rank(), parallel.get_dist_info()
+        with f32_everywhere():
+            net, opt, batch = train_setup(micro_train_config(), 2048, 4, 3, device=dev,
+                                          batch_size=2 * dp, bev_sharding=True)
+            batch = trainer.split_batch(batch, d, dp)
+            parallel.broadcast_state(net)
+            if rank == 0:
+                torch.save(host_state(net), os.path.join(io, "init_micro.pt"))
+            picked, undo = record_picks()
+            reset_launches()
+            try:
+                m = trainer.train_step(net, opt, batch,
+                                       torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+            finally:
+                undo()
+        torch.save({"metrics": {k: float(v) for k, v in m.items()}, "launches": read_launches(),
+                    "grads": host_grads(net), "state": host_state(net), "picked": picked,
+                    "grid": (d, parallel.get_sp_info()[0])},
+                   os.path.join(io, f"micro{rank}.pt"))
+    finally:
+        parallel.destroy()
+
+
+def bev_bn_distance(state, ref) -> float:
+    return max(float((state[k] - v).abs().max()) for k, v in ref.items()
+               if k.startswith(BEV_BN) and "running_" in k)
+
+
+def one_flagship_run(init: str, f32: bool, perturb: float = 0.0) -> dict:
+    """The one-process flagship on the card: its train step from the
+    weights at `init` (each float parameter times 1 + `perturb` * N(0, 1)
+    when given; metrics, gradients, state; f32: the SP_KEPT outputs;
+    bf16: the step's median ms and the BEV stage's ms) and, in bf16, its
+    eval forward + post from the main path's synthetic weights
+    (detections, median ms, BEV stage ms)."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+    from btcdet_tpu_torch.train import trainer
+
+    cfg = config.flagship()
+    out = {}
+    with f32_everywhere() if f32 else contextlib.nullcontext():
+        net, opt, batch = train_setup(cfg, 16384, 10, 0, device=DP_DEVICE, batch_size=2)
+        net.load_state_dict(torch.load(init, map_location=DP_DEVICE, weights_only=True))
+        if perturb:
+            g = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=g).to(p.device))
+        kept = dict.fromkeys(SP_KEPT)
+
+        def step():
+            m = trainer.train_step(net, opt, batch, trainer.step_generator(0, 0, DP_DEVICE),
+                                   keep=kept)
+            torch.cuda.synchronize()
+            return m
+
+        out["metrics"] = {k: float(v) for k, v in step().items()}
+        out["grads"], out["state"] = host_grads(net), host_state(net)
+        out["kept"] = {k: v.cpu() for k, v in kept.items()}
+    if f32:
+        return out
+    out["step_ms"] = timed_median(step)[0]
+    net.stage_ms = {}
+    step()
+    out["train_bev_ms"] = net.stage_ms["bev"]
+    net.load_state_dict(weights.synth_state_dict(net))
+    net.eval()
+    net.stage_ms = None
+    ebatch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                  seed=0, mode="test")
+    out["post"] = {k: v.cpu() for k, v in post_processing(
+        net(ebatch), cfg.MODEL.POST_PROCESSING, 1).items()}
+    out["eval_ms"] = timed_median(lambda: forward_post(net, ebatch, cfg))[0]
+    net.stage_ms = {}
+    forward_post(net, ebatch, cfg)
+    out["eval_bev_ms"] = net.stage_ms["bev"]
+    return out
+
+
+def bev_bn_distance(state, ref) -> float:
+    return max(float((state[k] - v).abs().max()) for k, v in ref.items()
+               if k.startswith(BEV_BN) and "running_" in k)
+
+
+def step_distance(res: dict, one: dict) -> tuple:
+    """(largest loss-term relative difference, {tensor: gradient
+    difference relative to its max}, BEV BN running-statistic difference)
+    of a rank's step from the one-process step."""
+    metric = max(abs(res["metrics"][k] - v) / max(abs(v), 1e-30)
+                 for k, v in one["metrics"].items() if not k.startswith("grad_norm"))
+    return metric, grad_distance(res["grads"], one["grads"]), bev_bn_distance(res["state"],
+                                                                               one["state"])
+
+
+def sp_path(card: str):
+    """Eleventh path: BEV row sharding on the card (see the module
+    docstring, 8f). Two ranks on one card give no scaling figure."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as io:
+        port = free_port()
+        run_group([(SELF + ["--dp-worker", "sp", io], rank_env(r, SP_WORLD, port))
+                   for r in range(SP_WORLD)], "row-sharded flagship ranks")
+        ranks = [torch.load(os.path.join(io, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SP_WORLD)]
+        a = ranks[0]
+        for r, res in enumerate(ranks):
+            assert res["train_launches"] == TRAIN_LAUNCHES, (r, res["train_launches"])
+            assert res["eval_launches"] == EVAL_LAUNCHES, (r, res["eval_launches"])
+            assert all(math.isfinite(v) for v in res["metrics"].values()), res["metrics"]
+            assert res["metrics"] == a["metrics"], r
+            for part in ("grads", "state", "post"):
+                differ = sum(int((res[part][k] != a[part][k]).sum()) for k in a[part])
+                assert res[part].keys() == a[part].keys() and differ == 0, (r, part, differ)
+        log(f"[{card}] row-sharded flagship (dp 1 x sp 2: 2 ranks over gloo on cuda:0, each "
+            f"rank half the BEV rows of both frames), launches a rank: train step "
+            f"{json.dumps(a['train_launches'])} (TRAIN_LAUNCHES), eval forward + post "
+            f"{json.dumps(a['eval_launches'])} (EVAL_LAUNCHES); gradients, state and "
+            f"detections equal on both ranks bit for bit")
+
+        init = os.path.join(io, "init.pt")
+        one = one_flagship_run(init, f32=False)
+        metric, rel, bn = step_distance(a, one)
+        post = one["post"]
+        same_kept = torch.equal(a["post"]["pred_valid"], post["pred_valid"])
+        labels = torch.equal(a["post"]["pred_labels"], post["pred_labels"])
+        det = max(float((a["post"][k] - post[k]).abs().max())
+                  for k in ("pred_boxes", "pred_scores"))
+        log(f"[{card}] row-sharded flagship (bf16, the main path) against one process on the "
+            f"card (B=2, same weights, batch and generator): train step loss "
+            f"{one['metrics']['loss']:.6f}, loss terms' largest relative difference "
+            f"{metric:.3e} (bound 1e-4); BEV BN running statistics largest difference "
+            f"{bn:.3e} (bound 1e-5); gradient difference relative to each tensor's max by "
+            f"group {json.dumps(group_distance(a['grads'], one['grads']))} (0 outside the "
+            f"pyramid's backward; inside it the slabs' dW and the halo rows' dX are bf16 "
+            f"partial sums rounded apart, held in float32 below); eval detections: "
+            f"kept slots equal {same_kept}, labels equal {labels}, largest box / score "
+            f"difference {det:.3e} (bound 1e-5), {int(post['pred_valid'].sum())} detections")
+        comm = {k: round(v, 3) for k, v in a["train_comm_ms"].items()}
+        ecomm = {k: round(v, 3) for k, v in a["eval_comm_ms"].items()}
+        log(f"[{card}] 2 ranks sharing one H100 over gloo (no scaling figure): train step ms "
+            f"median {statistics.median(a['step_ms']):.2f} (rank 0 "
+            f"{[round(v, 2) for v in a['step_ms']]}, rank 1 "
+            f"{[round(v, 2) for v in ranks[1]['step_ms']]}) against one process "
+            f"{one['step_ms']:.2f}; eval forward + post ms median {a['eval_ms'][0]:.2f} "
+            f"against one process {one['eval_ms']:.2f}; BEV stage ms (synchronised, forward) "
+            f"a rank: train {[round(r['train_stage_ms']['bev'], 3) for r in ranks]}, eval "
+            f"{[round(r['eval_stage_ms']['bev'], 3) for r in ranks]}, one process: train "
+            f"{one['train_bev_ms']:.3f}, eval {one['eval_bev_ms']:.3f}; collectives a step "
+            f"(rank 0, synchronised ms by kind: halo exchange, the row take's backward "
+            f"gather, the output gather): train {json.dumps(comm)}, eval {json.dumps(ecomm)}; "
+            f"peak MiB a rank: train {[round(r['train_peak_mib'], 1) for r in ranks]}, eval "
+            f"{[round(r['eval_peak_mib'], 1) for r in ranks]}")
+        assert metric <= 1e-4 and bn <= 1e-5, (metric, bn)
+        assert same_kept and labels and det <= 1e-5, (same_kept, labels, det)
+        assert int(post["pred_valid"].sum()) > 0
+        # the forward is the one process's bit for bit, so every gradient the
+        # BEV backward does not reach is too
+        outside = {n: v for n, v in rel.items() if not n.startswith(BEV_UPSTREAM)}
+        assert max(outside.values()) == 0.0, worst_of(outside)
+        del one
+
+        one = one_flagship_run(init, f32=True)
+        again = one_flagship_run(init, f32=True)
+        ctrl = one_flagship_run(init, f32=True, perturb=1e-7)
+        b = ranks[1]["f32"]
+        log(f"[{card}] float32 flagship steps, run to run: rank 1 against rank 0, loss "
+            f"terms' largest relative difference {step_distance(b, a['f32'])[0]:.3e}, "
+            f"gradients by group {json.dumps(group_distance(b['grads'], a['f32']['grads']))}; "
+            f"the one-process step repeated, {step_distance(again, one)[0]:.3e}, by group "
+            f"{json.dumps(group_distance(again['grads'], one['grads']))}")
+        metric, rel, bn = step_distance(a["f32"], one)
+        kept = {k: float((a["f32"]["kept"][k] - v).abs().max()) / max(float(v.abs().max()),
+                                                                      1e-30)
+                for k, v in one["kept"].items()}
+        groups = group_distance(a["f32"]["grads"], one["grads"])
+        control = grad_distance(ctrl["grads"], one["grads"])
+        log(f"[{card}] row-sharded flagship in float32 against one process on the card: loss "
+            f"terms' largest relative difference {metric:.3e} (bound 1e-4); BEV map and rois, "
+            f"largest difference relative to their max "
+            f"{json.dumps({k: f'{v:.3e}' for k, v in kept.items()})}; gradient difference "
+            f"relative to the group's max {json.dumps(groups)} (bound 1e-3), relative to each "
+            f"tensor's max: worst 8 {json.dumps(worst_of(rel))}; control, the one-process "
+            f"step from weights moved by 1e-7 relative: by group "
+            f"{json.dumps(group_distance(ctrl['grads'], one['grads']))}, worst 8 "
+            f"{json.dumps(worst_of(control))}; BEV BN running statistics largest difference "
+            f"{bn:.3e} (bound 1e-5)")
+        assert metric <= 1e-4 and bn <= 1e-5, (metric, bn)
+        # a float32 flagship step moves single small tensors by up to 1e-1 of
+        # their max under a 1e-7 change of the weights (the control), so the
+        # bound is taken over each group of GRAD_GROUPS, as the seventh path's
+        assert max(float(v) for v in groups.values()) <= 1e-3, groups
+        del one, again, ctrl
+
+        # the micro config on a dp 2 x sp 2 grid in float32
+        dp, sp = SP_MICRO_GRID
+        port = free_port()
+        run_group([(SELF + ["--dp-worker", "sp_micro", io], rank_env(r, dp * sp, port))
+                   for r in range(dp * sp)], "micro dp x sp ranks")
+        micro = [torch.load(os.path.join(io, f"micro{r}.pt"), weights_only=False)
+                 for r in range(dp * sp)]
+        mm, mgrads, mstate, mpicked = one_process_step(
+            micro_train_config(), os.path.join(io, "init_micro.pt"), 2 * dp, 2048, 4, 3,
+            torch.Generator(device=DP_DEVICE).manual_seed(0), f32=True)
+        worst = {}
+        for r, res in enumerate(micro):
+            d = res["grid"][0]
+            assert all(res["launches"][k] > 0 for k in SP_LAUNCHED), (r, res["launches"])
+            for i, (sampled, fg) in enumerate(res["picked"]):
+                assert torch.equal(sampled, mpicked[2 * d + i][0]), (r, i)
+                assert torch.equal(fg, mpicked[2 * d + i][1]), (r, i)
+            worst[r] = step_distance(res, {"metrics": mm, "grads": mgrads, "state": mstate})
+        log(f"[{card}] micro config, dp 2 x sp 2 (4 ranks over gloo on cuda:0), float32, "
+            f"against one process at B=4: per rank (loss terms' largest relative difference, "
+            f"largest gradient difference relative to its tensor's max, BEV BN running-"
+            f"statistic difference) "
+            + json.dumps({r: [f"{m:.3e}", f"{max(g.values()):.3e}", f"{b:.3e}"]
+                          for r, (m, g, b) in worst.items()})
+            + f"; launches a rank {json.dumps(micro[0]['launches'])}")
+        for r, (m, g, b) in worst.items():
+            assert m <= 1e-4 and max(g.values()) <= 1e-3 and b <= 1e-5, (r, m, worst_of(g), b)
+    log(f"[{card}] eleventh path, BEV row sharding: {time.perf_counter() - t0:.1f} s")
+    return {"train": a["train_launches"], "eval": a["eval_launches"]}
+
+
 def dp_worker(args: list) -> int:
     """`chip_smoke.py --dp-worker <task> <io dir> [CLI arguments]`: one
     rank of the seventh path."""
@@ -4124,6 +4490,10 @@ def dp_worker(args: list) -> int:
     task, io, rest = args[0], args[1], args[2:]
     if task == "step":
         dp_step_worker(io)
+    elif task == "sp":
+        sp_flagship_worker(io)
+    elif task == "sp_micro":
+        sp_micro_worker(io)
     else:
         dp_cli_worker(task, io, rest)
     return 0
@@ -4165,6 +4535,7 @@ def main() -> int:
         return 1
     kernels_only = sys.argv[1:] == ["--kernels"]
     side_only = sys.argv[1:] == ["--side"]
+    sp_only = sys.argv[1:] == ["--sp"]
     sys.path.insert(0, REPO)
     try:
         import btcdet_tpu_torch  # noqa: F401
@@ -4204,6 +4575,11 @@ def main() -> int:
         entries = side_modules_path(card)
         log(f"chip_smoke --side: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
+        return 0
+    if sp_only:
+        launches = sp_path(card)
+        log(f"chip_smoke --sp: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"launches_a_rank": launches}), flush=True)
         return 0
 
     # 3. full flagship model, synthetic weights by name, capture run
@@ -4341,6 +4717,9 @@ def main() -> int:
 
     # 8e. tenth path: the side modules no config names
     kernels += side_modules_path(card)
+
+    # 8f. eleventh path: BEV row sharding, 2 ranks on the card
+    sp_path(card)
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

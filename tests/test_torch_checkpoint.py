@@ -15,6 +15,7 @@ from btcdet_tpu_torch.datasets import make_synthetic_batch, mini_config
 from btcdet_tpu_torch.models import build_network
 from btcdet_tpu_torch.train import checkpoint as C
 from btcdet_tpu_torch.train import optim, trainer
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 MANIFEST = Path(__file__).parent / "fixtures" / "reference_state_dict_manifest.json"
 

@@ -251,20 +251,21 @@ def as_cfg(d):
     return EasyDict(copy.deepcopy(d))
 
 
-def train_once(cfg, sd, batch_np, draws=None) -> dict:
+def train_once(cfg, sd, batch_np, draws=None, bev_sharding=False) -> dict:
     """One port train step in float32 (this process: one rank of a run, or
     alone) from `sd` on `batch_np` with the generator seeded 0 (`draws`,
-    the global batch's roi uniforms, in place of the generator's): the
-    loss terms, every gradient, the state after the update and each
-    frame's sampled roi indices."""
-    return f32(lambda: _train_once(as_cfg(cfg), sd, batch_np, draws))
+    the global batch's roi uniforms, in place of the generator's;
+    `bev_sharding` as `build_network`'s): the loss terms, every gradient,
+    the state after the update and each frame's sampled roi indices."""
+    return f32(lambda: _train_once(as_cfg(cfg), sd, batch_np, draws, bev_sharding))
 
 
-def _train_once(cfg, sd, batch_np, draws) -> dict:
+def _train_once(cfg, sd, batch_np, draws, bev_sharding=False) -> dict:
     from btcdet_tpu_torch.models import build_network
     from btcdet_tpu_torch.models.roi_heads import roi_head_utils as RH
 
-    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu")
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu",
+                        bev_sharding=bev_sharding)
     net.load_state_dict(sd)
     opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 50)
     parallel.broadcast_state(net)
@@ -299,15 +300,17 @@ def train_batch(cfg) -> dict:
     return b
 
 
-def eval_once(cfg, sd, dist: bool, batch_size: int = 1) -> tuple:
+def eval_once(cfg, sd, dist: bool, batch_size: int = 1, bev_sharding: bool = False) -> tuple:
     """(det_annos, AP keys) of the micro eval at `batch_size` frames a
-    process over the tree's val split (`build_dataloader(dist=)`)."""
+    process over the tree's val split (`build_dataloader(dist=)`;
+    `bev_sharding` as `build_network`'s)."""
     from btcdet_tpu_torch.datasets import build_dataloader
     from btcdet_tpu_torch.models import build_network
     from btcdet_tpu_torch.train import eval_utils
 
     cfg = as_cfg(cfg)
-    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu")
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu",
+                        bev_sharding=bev_sharding)
     net.load_state_dict(sd)
     ds, dl, _ = build_dataloader(cfg.DATA_CONFIG, ["Car"], batch_size, dist=dist, workers=0,
                                  training=False)

@@ -15,6 +15,7 @@ from btcdet_tpu.ops import sparse as JS
 from btcdet_tpu_torch.ops import cuda_conv, cuda_pool
 from btcdet_tpu_torch.ops import sparse as TS
 from test_torch_sparse import MAP_CASES, MAP_IDS, make_pair
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 
 def _interpret(fn):

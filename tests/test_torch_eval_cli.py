@@ -31,6 +31,7 @@ from btcdet_tpu_torch.datasets.kitti import kitti_infos as TI
 from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
 from btcdet_tpu_torch.models import build_network
 from btcdet_tpu_torch.train import checkpoint as C
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 REPO = Path(__file__).resolve().parent.parent
 MANIFEST = Path(__file__).parent / "fixtures" / "reference_state_dict_manifest.json"

@@ -22,6 +22,7 @@ from btcdet_tpu_torch.datasets.kitti import kitti_infos as TI
 from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset, to_device
 from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
 from btcdet_tpu_torch.ops import voxelizer as TV
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 N_FRAMES, N_TRAIN = 6, 3
 

@@ -1,15 +1,13 @@
-"""The port's training step against the JAX package on the CPU, float32.
+"""The port's training step against the JAX package on the CPU, float32:
+the unit cases, and `train_step_both`, the harness of the whole-step
+tests (tests/test_torch_train_step.py and the option files).
 
 Unit cases: every loss function, the box helpers the losses use, the RPN
 target assignment and loss, the roi sampling and targets (the JAX
 package's draws for a fixed key fed to the port), the chunked NMS at a
 train-size k, train-mode batch norms (outputs and running statistics),
 the dual optimizer against optax, the sparse-conv and roi-sampler
-gradients. Then one whole train step on the full micro config: the JAX
-package's `trainer.make_train_step` and the port's `trainer.train_step`
-from the same weights on the same batch with the same roi draws, compared
-loss term by loss term, gradient by gradient, and in the parameters and
-BN statistics after the update (the mini config under `-m slow`)."""
+gradients."""
 
 import functools
 
@@ -19,8 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from btcdet_tpu.datasets.mini_config import (micro_data_cfg, micro_model_cfg, mini_data_cfg,
-                                             mini_model_cfg, mini_opt_cfg)
+from btcdet_tpu.datasets.mini_config import micro_data_cfg, micro_model_cfg, mini_opt_cfg
 from btcdet_tpu.models.dense_heads import anchor_head as JAH
 from btcdet_tpu.models.roi_heads import roi_head_utils as JRH
 from btcdet_tpu.ops import iou3d as JI
@@ -35,8 +32,7 @@ from btcdet_tpu_torch.ops import iou3d as TI
 from btcdet_tpu_torch.utils import box_coder as TBC
 from btcdet_tpu_torch.utils import box_utils as TBU
 from btcdet_tpu_torch.utils import loss_utils as TL
-from torch_parity import (assert_close, f32_mode, full_micro_cfgs, init_jax, perturb_variables,
-                          to_np_tree)
+from torch_parity import assert_close, f32_mode, init_jax, perturb_variables, to_np_tree
 
 # elementwise f32 losses and box maths: the same operations in the same order
 TIGHT = dict(rtol=1e-5, atol=1e-5)
@@ -231,13 +227,17 @@ def test_rcnn_loss_matches():
                           jnp.asarray(rng.rand(B, N) < 0.9))
     kw = dict(roi_per_image=R, fg_ratio=0.5, reg_fg_thresh=0.55, cls_fg_thresh=0.75,
               cls_bg_thresh=0.25, cls_bg_thresh_lo=0.1, hard_bg_ratio=0.8)
-    targets = JRH.assign_targets(jax.random.PRNGKey(3), props, jnp.asarray(gt), **kw)
+    # the JAX side jitted: one compile each, not one an op
+    targets = jax.jit(functools.partial(JRH.assign_targets, **kw))(
+        jax.random.PRNGKey(3), props, jnp.asarray(gt))
     rcnn_cls = rng.randn(B * R, 1).astype(np.float32)
     rcnn_reg = (rng.randn(B * R, 7) * 0.2).astype(np.float32)
     weights = dict(rcnn_cls_weight=1.0, rcnn_reg_weight=0.5, rcnn_corner_weight=2.0,
                    code_weights=(1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 2.0))
-    ref_total, ref = JCH.ConvHead(num_class=1, **weights).get_loss(
-        {"rcnn_cls": jnp.asarray(rcnn_cls), "rcnn_reg": jnp.asarray(rcnn_reg)}, targets)
+    jhead = JCH.ConvHead(num_class=1, **weights)
+    ref_total, ref = jax.jit(lambda c, r: jhead.get_loss({"rcnn_cls": c, "rcnn_reg": r},
+                                                         targets))(
+        jnp.asarray(rcnn_cls), jnp.asarray(rcnn_reg))
     head = TCH.ConvHead(1, 16, **weights)
     cls_t, reg_t = t(rcnn_cls).requires_grad_(), t(rcnn_reg).requires_grad_()
     total, out = head.get_loss(cls_t, reg_t, {k: t(np.asarray(v)) for k, v in targets.items()})
@@ -248,11 +248,11 @@ def test_rcnn_loss_matches():
     assert float(ref["rcnn_loss_corner"]) > 0 and float(ref["rcnn_loss_reg"]) > 0
     # gradients of each reg term on its own (the corner loss goes through
     # the roi-frame decode) and of the total, against jax.grad
-    jhead = JCH.ConvHead(num_class=1, **weights)
     for term in ("rcnn_loss_reg", "rcnn_loss_corner", "rcnn_loss"):
         def jloss(c, r, term=term):
             return jhead.get_loss({"rcnn_cls": c, "rcnn_reg": r}, targets)[1][term]
-        ref_g = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(rcnn_cls), jnp.asarray(rcnn_reg))
+        ref_g = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(rcnn_cls),
+                                                         jnp.asarray(rcnn_reg))
         got = torch.autograd.grad(out[term], (cls_t, reg_t), retain_graph=True,
                                   allow_unused=True)
         got = [torch.zeros_like(x) if g is None else g for g, x in zip(got, (cls_t, reg_t))]
@@ -274,8 +274,8 @@ def test_chunked_nms_matches_at_train_size():
     ti, tv = TI.nms_rotated(t(boxes), t(scores), t(valid), **kw)
     tv = tv.numpy()
     for impl in ("chunked", "rounds"):
-        ji, jv = JI.nms_rotated(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
-                                impl=impl, **kw)
+        ji, jv = jax.jit(functools.partial(JI.nms_rotated, impl=impl, **kw))(
+            jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
         jv = np.asarray(jv)
         np.testing.assert_array_equal(tv, jv, err_msg=impl)
         np.testing.assert_array_equal(ti.numpy()[jv], np.asarray(ji)[jv], err_msg=impl)
@@ -448,16 +448,6 @@ def test_dual_optimizer_matches_optax(frozen):
         assert moved == (frozen is None or not name.startswith(f"{frozen}_modules")), name
 
 
-@functools.cache
-def match_height_step():
-    """One micro train step in both packages with MATCH_HEIGHT on and the
-    corner loss off (`train_step_both`)."""
-    data_cfg, model_cfg = full_micro_cfgs(DP_RATIO=0.0)
-    model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT = True
-    model_cfg.ROI_HEAD.LOSS_CONFIG.CORNER_LOSS_REGULARIZATION = False
-    return train_step_both(data_cfg, model_cfg, 2048, 4)
-
-
 def assert_step_gradients_match(res, prefix="", nonzero=0.9):
     """Every gradient under `prefix` within 1e-3 of its tensor's max of the
     JAX package's; more than a `nonzero` share of them nonzero."""
@@ -467,34 +457,6 @@ def assert_step_gradients_match(res, prefix="", nonzero=0.9):
         r = res["ref_grads"][k].numpy()
         np.testing.assert_allclose(g, r, rtol=0, atol=1e-3 * np.abs(r).max() + 1e-8, err_msg=k)
     assert sum(np.abs(g).max() > 0 for g in grads.values()) > nonzero * len(grads)
-
-
-@pytest.mark.parametrize("path,value", [
-    (("model", "DENSE_HEAD", "TARGET_ASSIGNER_CONFIG", "MATCH_HEIGHT"), True),
-    (("model", "ROI_HEAD", "LOSS_CONFIG", "CORNER_LOSS_REGULARIZATION"), False),
-], ids=lambda v: v[-1] if isinstance(v, tuple) else None)
-def test_train_refuses_unported_options(path, value):
-    """Named for the refusals these two train options had; both now run,
-    and each case holds one micro train step with both set against the JAX
-    package's. MATCH_HEIGHT (the rotated 3-D IoU assignment): the RPN loss
-    terms to 1e-4 and the dense head's gradients to 1e-3 of each tensor's
-    max. CORNER_LOSS_REGULARIZATION False: no `rcnn_loss_corner` term on
-    either side, the rcnn terms to 1e-4 and the roi head's gradients to
-    1e-3 of each tensor's max (the micro step samples no foreground roi, so
-    the reg trunk's output layers get none)."""
-    res = match_height_step()
-    ref, out = res["ref_metrics"], res["metrics"]
-    if path[-1] == "MATCH_HEIGHT":
-        keys, prefix, nonzero = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"), \
-            "det_modules.dense_head.", 0.9
-        assert ref["rpn_loss_loc"] > 0
-    else:
-        keys, prefix, nonzero = ("rcnn_loss_cls", "rcnn_loss_reg", "rcnn_loss"), \
-            "det_modules.roi_head.", 0.8
-        assert "rcnn_loss_corner" not in ref and "rcnn_loss_corner" not in out
-    for k in keys + ("loss",):
-        assert_close(out[k], float(np.asarray(ref[k])), err_msg=k)
-    assert_step_gradients_match(res, prefix, nonzero)
 
 
 # ------------------------------------------------------------- whole step
@@ -620,128 +582,3 @@ def train_step_both(data_cfg, model_cfg, num_points: int, num_gt: int, total_ste
     res["rois"] = port_seen["rois"].numpy()
     res["occ"] = {k: port_seen["occ"][k].detach().numpy() for k in OCC_TARGET_KEYS}
     return res
-
-
-@functools.cache
-def micro_step():
-    data_cfg, model_cfg = full_micro_cfgs(DP_RATIO=0.0)
-    return train_step_both(data_cfg, model_cfg, 2048, 4)
-
-
-def _mini_step():
-    data_cfg, model_cfg = mini_data_cfg(with_occ=True), mini_model_cfg(with_occ=True)
-    model_cfg.ROI_HEAD.APPROX_QUERY = False
-    model_cfg.ROI_HEAD.DP_RATIO = 0.0
-    return train_step_both(data_cfg, model_cfg, 8192, 6)
-
-
-@pytest.fixture(scope="module", params=["micro", pytest.param("mini", marks=pytest.mark.slow)])
-def step(request):
-    return micro_step() if request.param == "micro" else _mini_step()
-
-
-@pytest.fixture(scope="module")
-def micro():
-    """The gradients and the update are compared on the micro config only:
-    on the mini config they are too ill-conditioned for 1e-3 of a tensor's
-    max -- a 1e-6 relative change of the weights moves some of them (the
-    occ deconvs, the x_combine conv stack) by up to 6 % of their max,
-    through ReLU and active-site boundaries -- while its loss terms and
-    targets still match."""
-    return micro_step()
-
-
-def test_step_loss_terms_match(step):
-    ref, out = step["ref_metrics"], step["metrics"]
-    assert set(ref) <= set(out), set(ref) - set(out)
-    for k in ref:
-        assert np.isfinite(out[k]), k
-        assert_close(out[k], ref[k], err_msg=k)
-    assert ref["occ_loss"] > 0 and ref["rpn_loss_loc"] > 0
-
-
-def test_step_sampled_rois_and_occ_targets_match(step):
-    # the same rois picked in the same slots (the boxes themselves are f32
-    # RPN outputs, equal to 1e-4; another pick would differ by metres)
-    assert_close(step["rois"], step["ref_rois"])
-    for k in OCC_TARGET_KEYS:
-        a, b = step["occ"][k], step["ref_occ"][k]
-        if a.dtype == np.bool_:
-            np.testing.assert_array_equal(a, b, err_msg=k)
-        else:
-            assert_close(a, b, **TIGHT, err_msg=k)
-    assert step["ref_occ"]["pos_mask"].any() and step["ref_occ"]["forebox_label"].any()
-
-
-def test_step_gradients_match(micro):
-    ref, out = micro["ref_grads"], micro["grads"]
-    assert set(out) <= set(ref)
-    for k, g in out.items():
-        r = ref[k].numpy()
-        scale = np.abs(r).max()
-        np.testing.assert_allclose(g, r, rtol=0, atol=1e-3 * scale + 1e-8, err_msg=k)
-    assert sum(np.abs(g).max() > 0 for g in out.values()) > 0.9 * len(out)
-
-
-def test_step_updated_weights_match(micro):
-    """Parameters and BN running statistics after the update, at 1e-4.
-    Adam's first step moves an element by about lr * sign(g) however small
-    g is, so where the JAX gradient lies within the gradient check's
-    tolerance of 0 (1e-3 of the tensor's max), the two signs may differ:
-    there the step is held to its size, 2 * lr."""
-    ref, out = micro["ref_after"], micro["after"]
-    assert set(out) == {k for k in ref if not k.endswith("num_batches_tracked")}
-    lr0 = {"det": 0.01 / 10, "occ": 0.003 / 10}            # OneCycle LR at step 0
-    n_noise = 0
-    for k, v in out.items():
-        r = ref[k].numpy()
-        g = micro["ref_grads"].get(k)
-        if g is None:                                           # BN statistics
-            assert_close(v, r, err_msg=k)
-            continue
-        g = g.numpy()
-        noise = np.abs(g) <= 1e-3 * np.abs(g).max()
-        n_noise += int(noise.sum())
-        assert_close(v[~noise], r[~noise], err_msg=k)
-        lr = lr0["occ" if k.startswith("occ_modules.") else "det"]
-        np.testing.assert_array_less(np.abs(v - r)[noise], 2 * lr + 1e-4, err_msg=k)
-    assert n_noise < 0.05 * sum(v.size for v in out.values())
-
-
-@pytest.mark.slow
-def test_mini_step_gradients_are_ill_conditioned():
-    """Why the gradients are compared on the micro config only: on the mini
-    config a 1e-6 relative change of the weights moves some gradients of
-    the port's own train step by far more than 1e-3 of their tensor's max
-    (ReLU and active-site boundaries). Prints the largest move."""
-    from btcdet_tpu_torch.datasets import make_synthetic_batch, mini_config
-    from btcdet_tpu_torch.models import build_network
-    from btcdet_tpu_torch.train import trainer as TT
-
-    d, m = mini_config.mini_data_cfg(with_occ=True), mini_config.mini_model_cfg(with_occ=True)
-    m.ROI_HEAD.APPROX_QUERY = False
-    m.ROI_HEAD.DP_RATIO = 0.0
-    batch = make_synthetic_batch(d, batch_size=2, num_points=8192, num_gt=6, seed=0,
-                                 mode="train", device="cpu")
-
-    def grads(eps):
-        net = build_network(m, d, ["Car"], device="cpu")
-        sd = W.synth_state_dict(net)
-        bias = "occ_modules.occ_dense_head.conv_cls.0.bias"
-        sd[bias] = torch.zeros_like(sd[bias])
-        g = torch.Generator().manual_seed(5)
-        for k, v in sd.items():
-            if v.dtype == torch.float32 and "running" not in k:
-                sd[k] = v * (1 + eps * torch.randn(v.shape, generator=g))
-        net.load_state_dict(sd)
-        opt = TT.create_train_state(net, tcfg.EasyDict(mini_opt_cfg()),
-                                    tcfg.EasyDict(mini_opt_cfg()), 100)
-        TT.train_step(net, opt, batch, torch.Generator().manual_seed(0))
-        return {n: p.grad for n, p in net.named_parameters()}
-
-    with f32_mode():
-        g0, g1 = grads(0.0), grads(1e-6)
-    move = max(float((g1[n] - g0[n]).abs().max()) / max(float(g0[n].abs().max()), 1e-30)
-               for n in g0)
-    print(f"largest gradient move under a 1e-6 weight change: {move:.3e} of its tensor's max")
-    assert move > 1e-2

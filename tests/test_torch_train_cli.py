@@ -32,6 +32,7 @@ from btcdet_tpu_torch.datasets import mini_config
 from btcdet_tpu_torch.datasets.kitti import kitti_infos as TI
 from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
 from btcdet_tpu_torch.train import checkpoint as C
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 REPO = Path(__file__).resolve().parent.parent
 N_FRAMES, N_TRAIN = 7, 4          # 2 steps an epoch at B=2

@@ -33,6 +33,7 @@ from btcdet_tpu_torch.datasets import bestmatch as TB
 from btcdet_tpu_torch.datasets.kitti import kitti_infos as TI
 from btcdet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
 from btcdet_tpu_torch.datasets.synthetic_kitti import make_raw_kitti
+import torch_parity  # noqa: F401,E402  (caps torch's threads in this process)
 
 N_FRAMES, N_TRAIN = 9, 6
 BM_DIR = "bm_50maxdist_2num_car"

@@ -21,8 +21,8 @@ from btcdet_tpu.train import golden_synth, ref_import
 from btcdet_tpu_torch import config as tcfg
 from btcdet_tpu_torch import weights
 from btcdet_tpu_torch.datasets import make_synthetic_batch, make_synthetic_batch_np
-from torch_parity import (det_only_micro_cfgs, f32_mode, full_micro_cfgs, init_jax,
-                          perturb_variables)
+from torch_parity import (det_only_micro_cfgs, f32_mode, full_micro_cfgs, perturb_variables,
+                          shaped_jax_variables)
 
 MANIFEST = Path(__file__).parent / "fixtures" / "reference_state_dict_manifest.json"
 
@@ -79,9 +79,10 @@ def test_det_only_edits_the_flagship_config():
 
 @pytest.fixture(scope="module", params=["det_only", "full"])
 def roundtrip_variables(request):
-    """A micro model (det-only, or full with the occ subnet) inside the
-    reference import's assumptions: 128-channel conv_out (its BEV
-    interleave width), two-layer cls / reg heads (its FC index map)."""
+    """The variables of a micro model (det-only, or full with the occ
+    subnet; the init's tree and shapes, `torch_parity.shaped_jax_variables`)
+    inside the reference import's assumptions: 128-channel conv_out (its
+    BEV interleave width), two-layer cls / reg heads (its FC index map)."""
     from btcdet_tpu.models import build_network
 
     data_cfg, model_cfg = (full_micro_cfgs() if request.param == "full"
@@ -93,7 +94,7 @@ def roundtrip_variables(request):
     with f32_mode():
         batch = jax_batch(data_cfg, batch_size=2, num_points=2048, num_gt=4, mode="test")
         net = build_network(model_cfg, data_cfg, ["Car"])
-        v = perturb_variables(init_jax(net, batch))
+        v = perturb_variables(shaped_jax_variables(net, batch))
     grid = int(np.prod(model_cfg.ROI_HEAD.CONV_GRID_POOL.GRID_SIZE))
     return {"params": v["params"], "batch_stats": v["batch_stats"]}, model_cfg, data_cfg, grid
 
@@ -310,8 +311,8 @@ def _det_option(option, model_cfg):
 @pytest.mark.parametrize("option", ["None", "combine", "mean_vfe", "fractional_upsample",
                                     "three_class"])
 def test_det_option_weights_map_strictly(option):
-    """The JAX micro model of a det-side option through
-    `from_jax_variables`: OUT_FEAT_TYPE `None` (no down2 / down3 /
+    """The JAX micro model of a det-side option (the init's tree and shapes,
+    `torch_parity.shaped_jax_variables`) through `from_jax_variables`: OUT_FEAT_TYPE `None` (no down2 / down3 /
     squeezeBev / down_combine, no x_combine conv stack, a narrower first
     rcnn FC), `combine` (the strided down_combine.1 and subm down_combine.2),
     MeanVFE with the occ subnet (no occ side branch, conv1 over the merged
@@ -326,7 +327,7 @@ def test_det_option_weights_map_strictly(option):
     classes = _det_option(option, model_cfg)
     with f32_mode():
         batch = jax_batch(data_cfg, batch_size=2, num_points=2048, num_gt=4, mode="test")
-        v = init_jax(jax_build(model_cfg, data_cfg, classes), batch)
+        v = shaped_jax_variables(jax_build(model_cfg, data_cfg, classes), batch)
     v = {"params": v["params"], "batch_stats": v["batch_stats"]}
     tc = tcfg.EasyDict(JaxEasyDict({"MODEL": model_cfg, "DATA_CONFIG": data_cfg}))
     sd = weights.from_jax_variables(

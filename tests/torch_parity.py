@@ -19,6 +19,14 @@ import torch
 # f32 stage tensors: sums run in a different order in the two packages
 RTOL = ATOL = 1e-4
 
+# torch's intra-op threads in a test process. The suite runs several test
+# processes at once on the machine's cores; at the parity tests' sizes
+# more threads a process only spin against the other processes' work.
+# Every tests/test_torch_*.py file that computes with torch imports this
+# module, so the cap holds in each test process.
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
+
 
 @contextlib.contextmanager
 def f32_mode():
@@ -104,6 +112,25 @@ def init_jax(net, batch_np):
             "dropout": jax.random.PRNGKey(2)}
     batch = {k: jnp.asarray(x) for k, x in batch_np.items()}
     return jax.jit(lambda b: net.init(rngs, b, train=False))(batch)
+
+
+def shaped_jax_variables(net, batch_np, seed: int = 0):
+    """Variables of `net` with the tree, shapes and dtypes its init gives,
+    drawn from N(0, 0.1) by numpy (BN variances from U(0.5, 1.5)): the
+    init is traced (`jax.eval_shape`), not compiled. For the tests that
+    read names and shapes, or any values, but not the init's own."""
+    rngs = {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1),
+            "dropout": jax.random.PRNGKey(2)}
+    batch = {k: jnp.asarray(x) for k, x in batch_np.items()}
+    shapes = jax.eval_shape(lambda b: net.init(rngs, b, train=False), batch)
+    rng = np.random.RandomState(seed)
+
+    def draw(path, x):
+        if path[-1].key == "var":
+            return rng.uniform(0.5, 1.5, x.shape).astype(x.dtype)
+        return (rng.normal(0.0, 0.1, x.shape)).astype(x.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def relabel(batch_np, num_class: int):
