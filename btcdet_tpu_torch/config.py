@@ -170,14 +170,21 @@ FLAGSHIP_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_ca
 
 
 def flagship() -> EasyDict:
-    """The flagship `btcdet_kitti_car.yaml` as it stands, occupancy subnet
-    included, with the one ball-query selection the port has: the exact
-    first-in-point-order query of the reference (`ROI_HEAD.APPROX_QUERY`
-    False; the yaml leaves it unset, which the JAX package reads as its
-    approximate shared-candidate query)."""
+    """The flagship `btcdet_kitti_car.yaml`, occupancy subnet included, with
+    ConvHead's ball queries set to the exact first-in-point-order query of
+    the reference (`ROI_HEAD.APPROX_QUERY` False; the yaml leaves it unset,
+    which selects the roi-grouped approximate query: `flagship_shipped`)."""
     cfg = cfg_from_yaml_file(FLAGSHIP_CFG)
     cfg.MODEL.ROI_HEAD.APPROX_QUERY = False
     return cfg
+
+
+def flagship_shipped() -> EasyDict:
+    """The flagship `btcdet_kitti_car.yaml` untouched: ROI_HEAD.APPROX_QUERY
+    unset, so ConvHead runs the roi-grouped approximate ball query. This is
+    what `bench.py` (the JAX package's timed eval forward and train step)
+    and the JAX package's `tools/test.py` / `tools/train.py` run."""
+    return cfg_from_yaml_file(FLAGSHIP_CFG)
 
 
 THREE_CLASS_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_3classes.yaml"

@@ -168,8 +168,6 @@ class BtcNet(nn.Module):
         occp = cg.CONV_LAYER.get("occ_points")
         if "occ_points" in cg.FEATURES_SOURCE and not self.use_occ:
             raise NotImplementedError("ConvHead occ_points without MODEL.OCC")
-        if bool(rh.get("APPROX_QUERY", True)):
-            raise NotImplementedError("approximate ball queries; set ROI_HEAD.APPROX_QUERY False")
         if not rh.get("CLASS_AGNOSTIC", True) and len(class_names) > 1:
             # the JAX package's ConvHead.get_loss takes the BCE of (R, classes)
             # logits against (R,) labels and fails to broadcast, so no model
@@ -201,7 +199,8 @@ class BtcNet(nn.Module):
             rcnn_reg_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_reg_weight"],
             rcnn_corner_weight=rh.LOSS_CONFIG.LOSS_WEIGHTS["rcnn_corner_weight"],
             code_weights=tuple(rh.LOSS_CONFIG.LOSS_WEIGHTS["code_weights"]),
-            corner_loss=bool(rh.LOSS_CONFIG.get("CORNER_LOSS_REGULARIZATION", True)))
+            corner_loss=bool(rh.LOSS_CONFIG.get("CORNER_LOSS_REGULARIZATION", True)),
+            approx_query=bool(rh.get("APPROX_QUERY", True)))
         self.nms_cfg_train = rh.NMS_CONFIG.TRAIN
         self.nms_cfg_test = rh.NMS_CONFIG.TEST
         tc = rh.TARGET_CONFIG

@@ -388,6 +388,38 @@ def points_in_gt_blocked(points_xyz, valid, gt_boxes, gt_valid, batch_size: int)
     return (hit.any(dim=-1) & valid.reshape(batch_size, -1)).reshape(n)
 
 
+def mirror_points_in_boxes_batched(points_xyz, valid, points_b, gt_boxes, gt_valid, mirr_flag,
+                                   batch_size: int):
+    """`mirror_points_in_boxes` for a flat point list (N, 3) whose points
+    carry their frame `points_b` (N,), against the boxes of their own
+    frame (gt_boxes (B, G, 8), reference
+    `torch_points_and_sym_in_box_3d_batch`). Returns (fore (N,),
+    mirrored points (N, 3), mirrored valid (N,))."""
+    fore = torch.zeros_like(valid)
+    mirr_pts = torch.zeros_like(points_xyz)
+    mirr_val = torch.zeros_like(valid)
+    for b in range(batch_size):
+        sel = valid & (points_b == b)
+        f, mp, mv = mirror_points_in_boxes(points_xyz, sel, gt_boxes[b], gt_valid[b],
+                                           mirr_flag[b])
+        fore = fore | (f & sel)
+        mirr_pts = torch.where((mv & sel)[:, None], mp, mirr_pts)
+        mirr_val = mirr_val | (mv & sel)
+    return fore, mirr_pts, mirr_val
+
+
+def points_in_gt_batched(points_xyz, valid, points_b, gt_boxes, gt_valid, batch_size: int):
+    """In-any-gt-box test of a flat point list (N, 3) whose points carry
+    their frame `points_b` (N,) against their own frame's boxes (reference
+    `torch_points_in_box_3d_label_batch`): (N,) bool."""
+    out = torch.zeros_like(valid)
+    for b in range(batch_size):
+        hit = (box_utils.points_in_boxes_mask(points_xyz, gt_boxes[b][:, :7])
+               & gt_valid[b][None, :]).any(dim=1)
+        out = out | (hit & valid & (points_b == b))
+    return out
+
+
 def make_targets(tab: GridTables, occ_pnts, slot_mask, vcoords, batch, train: bool = False,
                  weights=None, box_weight: float = 1.0, pillar: bool = False,
                  drop_rows=None):

@@ -3,8 +3,12 @@ reference `btcdet/models/roi_heads/conv_head.py`).
 
 Per roi, a grid of points inside the rotated box pools up to three
 feature sources (the flagship's `FEATURES_SOURCE`):
-  raw_points  multi-radius exact ball query + PointNet SA over the raw
-              cloud, grouped offsets rotated into the roi frame;
+  raw_points  multi-radius ball query + PointNet SA over the raw cloud,
+              grouped offsets rotated into the roi frame: the JAX
+              package's roi-grouped approximate query (`approx_query`,
+              ROI_HEAD.APPROX_QUERY unset or True: each roi's 512 points
+              nearest its centre are the candidates of its grid points'
+              balls) or the reference's exact one;
   occ_points  the same SA over the occ subnet's points, feature = prob;
   x_combine   a local mini-grid around each roi grid point samples the
               dense stride-8 `x_combine` volume with the trilinear
@@ -145,7 +149,7 @@ class ConvHead(nn.Module):
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
                  det_voxel_size=(0.05, 0.05, 0.1), compute_dtype=None, rcnn_cls_weight=1.0,
                  rcnn_reg_weight=1.0, rcnn_corner_weight=1.0, code_weights=(1.0,) * 7,
-                 corner_loss: bool = True):
+                 corner_loss: bool = True, approx_query: bool = True):
         """input_channels_xc: the x_combine volume's channels, None where the
         backbone makes no x_combine (the branch is then left out)."""
         super().__init__()
@@ -172,12 +176,14 @@ class ConvHead(nn.Module):
         if "raw_points" in self.features_source:
             self.SA_rawpoints = group_ops.PointSAModuleMSG(
                 radii=raw_radii, nsamples=raw_nsamples,
-                mlps=[[raw_feat_dim + 3, *m] for m in raw_mlps], dtype=compute_dtype)
+                mlps=[[raw_feat_dim + 3, *m] for m in raw_mlps], dtype=compute_dtype,
+                approx_query=approx_query)
             c_pool += sum(m[-1] for m in raw_mlps)
         if "occ_points" in self.features_source:
             self.SA_occpoints = group_ops.PointSAModuleMSG(
                 radii=occ_radii, nsamples=occ_nsamples,
-                mlps=[[OCC_FEAT_DIM + 3, *m] for m in occ_mlps], dtype=compute_dtype)
+                mlps=[[OCC_FEAT_DIM + 3, *m] for m in occ_mlps], dtype=compute_dtype,
+                approx_query=approx_query)
             c_pool += sum(m[-1] for m in occ_mlps)
         self.use_x_combine = "x_combine" in self.features_source and input_channels_xc is not None
         if self.use_x_combine:
@@ -223,12 +229,14 @@ class ConvHead(nn.Module):
             rot = common.rotation_matrix_z(rois[..., 6])
             rot = rot[:, :, None].expand(B, N, G, 3, 3).reshape(B, N * G, 3, 3)
         feats = []
+        # the roi-grouped query's candidates gather around the roi centres
+        group = dict(group_centers=rois[..., :3], group_size=G)
         if "raw_points" in self.features_source:
             feats.append(self.SA_rawpoints(points_xyz, points_mask, new_xyz, new_mask,
-                                           features=points_feat, rotate_matrix=rot))
+                                           features=points_feat, rotate_matrix=rot, **group))
         if "occ_points" in self.features_source:
             feats.append(self.SA_occpoints(occ_xyz, occ_mask, new_xyz, new_mask,
-                                           features=occ_feat, rotate_matrix=rot))
+                                           features=occ_feat, rotate_matrix=rot, **group))
         if self.use_x_combine:
             feats.append(self._x_combine_pool(rois, roi_valid, grid_pts, x_combine))
         pooled = torch.cat([f.to(cd) for f in feats], dim=-1)             # (B, N*G, C)

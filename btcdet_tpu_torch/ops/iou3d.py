@@ -156,6 +156,15 @@ def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
     return out_idx.to(boxes.device), out_valid.to(boxes.device)
 
 
+def nms_normal(boxes, scores, valid, *, thresh: float, pre_max_size: int,
+               post_max_size: int):
+    """The place of the reference's `nms_normal_gpu`: the JAX package
+    suppresses by the same rotated BEV IoU as `nms_rotated`, so this is
+    `nms_rotated` (no shipped config selects it)."""
+    return nms_rotated(boxes, scores, valid, thresh=thresh, pre_max_size=pre_max_size,
+                       post_max_size=post_max_size)
+
+
 # ------------------------------------------------------------------ numpy
 
 def _ring_forward_fill_np(verts, valid):

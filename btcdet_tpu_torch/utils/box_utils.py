@@ -83,6 +83,14 @@ def points_in_boxes_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Ten
             & (shift[..., 2].abs() <= half[..., 2]))
 
 
+def points_in_boxes_id(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """points (N, 3), boxes (M, 7) -> (N,) int64: the first box holding each
+    point (`points_in_boxes_mask`), -1 where none does."""
+    mask = points_in_boxes_mask(points, boxes)
+    first = mask.to(torch.uint8).argmax(dim=-1)
+    return torch.where(mask.any(dim=-1), first, torch.full_like(first, -1))
+
+
 # ------------------------------------------------------ numpy host helpers
 # The host data pipeline's twins of the functions above, and the KITTI
 # camera <-> lidar conversions; numpy in the input's dtype, the JAX

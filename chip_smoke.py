@@ -20,12 +20,15 @@ inverse and transpose sparse convs, VoxelSetAbstraction, ATSS, the roi
 pools, chamfer, PointPillarScatter, the NMS functions) as a tenth, and
 BEV row sharding (`build_network(..., bev_sharding=True)` under
 `parallel.init_dist(..., sp=)`: the BEV pyramid split by rows over the
-ranks of a spatial group) as an eleventh.
+ranks of a spatial group) as an eleventh, and the flagship yaml as shipped
+(`config.flagship_shipped()`: ConvHead's roi-grouped approximate ball
+query, the JAX package's default) as a twelfth.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
     python3 chip_smoke.py --side      # only the tenth path (side modules)
     python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
+    python3 chip_smoke.py --approx    # only the twelfth path (the approximate query)
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
@@ -199,6 +202,25 @@ Phases (any failure raises and exits non-zero, printing no result):
      row gathers' ms a step, the step and eval medians, the peak MiB a
      rank; then the micro config on 4 ranks (dp 2 x sp 2) in float32
      against one process at the global batch;
+  8g. the twelfth path: the flagship yaml as shipped at B=2 (its ConvHead's
+     raw and occ SA modules on the roi-grouped approximate query, 512
+     candidates a roi) with the main path's synthetic weights: the eval
+     forward + post (test caps) with its launches (EVAL_LAUNCHES); each SA
+     module's grouped query on the card against the CPU's on the inputs
+     the forward gave it (differing candidate lists and balls each proven
+     valid in float64 within the f32 rounding of the cut or the radius,
+     and counted), its pooled features on the card against a CPU copy
+     reading the card's neighbours (bf16 MLPs to SA_BF16_TOL of the max,
+     f32 MLPs to 1e-4), the query alone timed (stage 1, stage 2, gather)
+     beside the exact query and its gather on the same inputs; the
+     roi_head stage ms and the forward + post ms against the exact-query
+     flagship on the same weights and batch, in turns, and one profiled
+     forward; the train step (train caps: TRAIN_LAUNCHES, the gradient
+     repeat with 0 elements differing, 4 timed steps in turns with the
+     exact-query flagship's, stage ms) and the PASS_GRAD step
+     (PASS_GRAD_LAUNCHES, the gradient repeat); the small full config with
+     the approximate query f32 on the card against the CPU
+     (`small_input_check`, the grouped queries replayed as proven);
   9. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 """
@@ -1285,6 +1307,10 @@ def small_input_check(cfg, label: str, spread: bool = False):
     if full:
         n_occ = [int(v) for v in g["occ_points_mask"].sum(1)]
         extra += f" (occ points per frame {n_occ}, merged det voxels {len(merged['cuda'])})"
+    if balls.get("grouped_stats"):
+        extra += (" (roi-grouped queries, the CPU's own against the card's; a roi whose centre "
+                  f"or grid points moved more than {BALL_MOVED_M} m keeps the CPU's: "
+                  + json.dumps(balls["grouped_stats"]) + ")")
     log(f"small-input check, {label}{extra}: every stage within rtol=atol=1e-3 (cuda f32 vs "
         "cpu f32)")
     if spread:
@@ -1304,7 +1330,11 @@ BALL_MOVED_M = 1e-4
 def replay_ball_queries(balls: dict, record: bool):
     """`group_ops.multi_ball_query` recorded (`record`, the card's run) into
     balls["calls"], or replayed: each call computes its own result and
-    checks it against the recorded one call by call. Where the two lists of
+    checks it against the recorded one call by call (the roi-grouped
+    `multi_ball_query_grouped_cand` likewise, into balls["grouped"],
+    checked by `grouped_query_diff` into balls["grouped_stats"]; a roi whose
+    centre or grid points moved more than BALL_MOVED_M keeps the CPU's
+    answer, the others take the card's). Where the two lists of
     a query differ, each must be a valid answer for its own query point in
     float64: every listed point within BALL_EDGE_M2 of the ball (or shell),
     every point deeper inside than that listed, up to the list's last index
@@ -1325,20 +1355,13 @@ def replay_ball_queries(balls: dict, record: bool):
 
     orig = group_ops.multi_ball_query
     calls = iter(list(balls["calls"]))
+    orig_g = group_ops.multi_ball_query_grouped_cand
+    gcalls = iter(list(balls.setdefault("grouped", [])))
 
     def recorded(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw):
         out = orig(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, **kw)
         balls["calls"].append((new_xyz.cpu(), [(i.cpu(), e.cpu()) for i, e in out]))
         return out
-
-    def valid_answer(lst, empty, d2, ok, lo, hi):
-        picked = set() if empty else set(lst.tolist())
-        possibly = ok & (d2 <= hi + BALL_EDGE_M2) & (d2 >= lo - BALL_EDGE_M2)
-        surely = ok & (d2 <= hi - BALL_EDGE_M2) & (d2 >= lo + BALL_EDGE_M2)
-        must = set(surely.nonzero()[:, 0].tolist())
-        if len(picked) == lst.numel():              # full: the first points only
-            must = {n for n in must if n < max(picked)}
-        return all(bool(possibly[n]) for n in picked) and must <= picked
 
     def edge_m2(d2, differ, lo, hi):
         """The distance from the radius^2 of the differing point nearest it."""
@@ -1361,10 +1384,11 @@ def replay_ball_queries(balls: dict, record: bool):
             idx, empty = idx.cpu(), empty.cpu()
             for b, m in ((idx != cidx).any(-1) | (empty != cempty)).nonzero().tolist():
                 d2_cpu = ((pts[b] - q[b, m].double()) ** 2).sum(-1)
-                d2_card = ((pts[b] - card_xyz[b, m].double()) ** 2).sum(-1)
-                for lst, emp, d2 in ((idx[b, m], empty[b, m], d2_cpu),
-                                     (cidx[b, m], cempty[b, m], d2_card)):
-                    assert valid_answer(lst, bool(emp), d2, ok[b], lo, hi), (
+                for lst, emp, qm_ in ((idx[b, m], empty[b, m], q[b, m]),
+                                      (cidx[b, m], cempty[b, m], card_xyz[b, m])):
+                    assert ball_list_valid(lst.numpy(), bool(emp), pts[b].numpy(),
+                                           ok[b].numpy(), qm_.double().numpy(), hi,
+                                           BALL_EDGE_M2, lo), (
                         f"ball query {m} of frame {b} (scale {s}, moved {float(move[b, m]):.2e}"
                         f" m): {sorted(set(lst.tolist()))} is no first-in-point-order answer "
                         f"within {BALL_EDGE_M2} m^2 of its radius")
@@ -1383,11 +1407,46 @@ def replay_ball_queries(balls: dict, record: bool):
                         torch.where(moved, empty, cempty).to(xyz.device)))
         return res
 
+    def recorded_g(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers,
+                   group_size, cand_k=512):
+        out = orig_g(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers,
+                     group_size, cand_k=cand_k)
+        balls["grouped"].append(grouped_answer(new_xyz, group_centers, out))
+        return out
+
+    def replayed_g(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers,
+                   group_size, cand_k=512):
+        """The CPU's own answer held against the card's (each valid for its
+        own query points where they differ), then the card's answer for the
+        rois whose centre and grid points moved at most BALL_MOVED_M."""
+        own = orig_g(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers,
+                     group_size, cand_k=cand_k)
+        card = next(gcalls)
+        cpu = grouped_answer(new_xyz, group_centers, own)
+        grouped_query_diff(xyz.cpu(), xyz_mask.cpu(), card, cpu, radii,
+                           balls.setdefault("grouped_stats", grouped_stats()))
+        B, R, ck = cpu[2].shape
+        G = int(group_size)
+        move = torch.maximum((cpu[0] - card[0]).abs().amax(-1).reshape(B, R, G).amax(-1),
+                             (cpu[1] - card[1]).abs().amax(-1))
+        moved = move > BALL_MOVED_M                                          # (B, R)
+        balls["grouped_stats"]["moved_rois"] = (balls["grouped_stats"].get("moved_rois", 0)
+                                                + int(moved.sum()))
+        cand = torch.where(moved[..., None], cpu[2], card[2]).to(xyz.device)
+        mg = moved.repeat_interleave(G, dim=1)[..., None]
+        scales = [(torch.where(mg, p, cp).to(xyz.device), torch.where(mg[..., 0], e, ce).to(
+            xyz.device)) for (p, e), (cp, ce) in zip(cpu[3], card[3])]
+        flat = cand.reshape(B, R * ck)
+        cand_xyz = torch.gather(xyz, 1, flat[..., None].expand(B, R * ck, 3)).reshape(B * R, ck, 3)
+        return scales, cand, cand_xyz, torch.gather(xyz_mask, 1, flat).reshape(B * R, ck)
+
     group_ops.multi_ball_query = recorded if record else replayed
+    group_ops.multi_ball_query_grouped_cand = recorded_g if record else replayed_g
     try:
         yield
     finally:
         group_ops.multi_ball_query = orig
+        group_ops.multi_ball_query_grouped_cand = orig_g
 
 
 def backbone_module_check():
@@ -3292,15 +3351,17 @@ def side_sparse_phase():
 
 
 
-def ball_list_valid(idx, empty, xyz64, mask, q64, r2: float, eps: float) -> bool:
-    """Whether a ball query's list `idx` (k,) is a valid answer for the
-    query point q: the first k points in point order among a set that
-    holds every point with d^2 < r2 - eps and only points with d^2 <=
-    r2 + eps (distances in float64), the slots past its count repeating
-    its first entry; an empty ball holds no point below r2 - eps."""
+def ball_list_valid(idx, empty, xyz64, mask, q64, r2: float, eps, lo2: float = 0.0) -> bool:
+    """Whether a ball (or shell) query's list `idx` (k,) is a valid answer
+    for the query point q among the points of `mask`: the first k points in
+    point order among a set that holds every point with d^2 < r2 - eps (and
+    d^2 > lo2 + eps in a shell) and only points with lo2 - eps <= d^2 <=
+    r2 + eps (numpy, distances in float64, `eps` one bound or one a point),
+    the slots past its count repeating its first entry; an empty ball holds
+    no point surely inside."""
     d2 = ((xyz64 - q64) ** 2).sum(-1)
-    sure = mask & (d2 < r2 - eps)
-    maybe = mask & (d2 <= r2 + eps)
+    sure = mask & (d2 < r2 - eps) & ((d2 > lo2 + eps) if lo2 > 0 else True)
+    maybe = mask & (d2 <= r2 + eps) & (d2 >= lo2 - eps)
     if empty:
         return not sure.any()
     idx = [int(i) for i in idx]
@@ -4483,6 +4544,329 @@ def sp_path(card: str):
     return {"train": a["train_launches"], "eval": a["eval_launches"]}
 
 
+# --------------------- twelfth path: the roi-grouped approximate ball query
+
+# f32 rounding of |c|^2 + |x|^2 - 2 c.x: within D2_ROUND_U * (|c| + |x|)^2
+# of its exact value (u = 2^-24, eight roundings), whatever order either
+# device sums it in. The query checks prove a differing entry valid within it.
+D2_ROUND_U = 8 * 2.0 ** -24
+# the SA module's pooled features on the card against the CPU on the same
+# inputs and neighbours: bf16 MLPs (two layers, each rounding its output to
+# bf16 once) to this share of the output's max; f32 copies to 1e-4
+SA_BF16_TOL = 2.0 ** -5
+
+
+def grouped_answer(new_xyz, centers, out) -> tuple:
+    """(grid points, roi centres, cand, [(cpos, empty)...]) of one
+    `multi_ball_query_grouped_cand` call, on the CPU."""
+    scales, cand, _, _ = out
+    return (new_xyz.detach().cpu(), centers.detach().cpu(), cand.cpu(),
+            [(p.cpu(), e.cpu()) for p, e in scales])
+
+
+def grouped_stats() -> dict:
+    return {"rois": 0, "rois_differ": 0, "rois_reordered": 0, "cut_m2": 0.0, "cut_bound_m2": 0.0,
+            "balls": 0, "balls_differ": 0, "balls_differ_same_cands": 0, "edge_m2": 0.0}
+
+
+def _d2_and_bound(pts64, q64):
+    """float64 d^2 of every point from q and its f32 rounding bound."""
+    d2 = ((pts64 - q64) ** 2).sum(-1)
+    return d2, D2_ROUND_U * (pts64.norm(dim=-1) + q64.norm()) ** 2
+
+
+def grouped_query_diff(pts, mask, a, b, radii, stats: dict):
+    """Two answers `a`, `b` (`grouped_answer`) of the roi-grouped query on
+    the point table (pts (B, N, 3), mask (B, N)), each for its own grid
+    points and roi centres. Where a roi's candidate sets differ, each list
+    must be valid for its own centre in float64: every valid point nearer
+    than the cut (the ck-th valid distance) less its rounding bound listed,
+    every listed point within the cut plus its bound (all valid points where
+    there are at most ck). Where a grid point's ball (as point indices)
+    differs, each must be valid among its own candidates (`ball_list_valid`,
+    within each point's f32 rounding bound). Counts into `stats`
+    (`grouped_stats`): rois, rois_differ (as sets), rois_reordered (same
+    set, other order), cut_m2 (largest distance from the cut of a differing
+    member) beside cut_bound_m2 (its bound), balls, balls_differ, and of
+    those balls_differ_same_cands with edge_m2, the largest distance from
+    its radius^2 of a point that flipped."""
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+
+    pts64 = pts.double()
+    B, R, ck = a[2].shape
+    G = a[0].shape[1] // R
+    stats["rois"] += B * R
+    same_cands = torch.ones(B, R, dtype=torch.bool)
+    for f, r in (a[2] != b[2]).any(-1).nonzero().tolist():
+        sets = [set(side[2][f, r].tolist()) for side in (a, b)]
+        if sets[0] == sets[1]:
+            stats["rois_reordered"] += 1
+            continue
+        same_cands[f, r] = False
+        stats["rois_differ"] += 1
+        valid = mask[f].nonzero()[:, 0]
+        for side, own, other in ((a, sets[0], sets[1]), (b, sets[1], sets[0])):
+            d2, eps = _d2_and_bound(pts64[f], side[1][f, r].double())
+            listed = {i for i in own if mask[f, i]}
+            if valid.numel() <= ck:
+                assert listed == set(valid.tolist()), ("roi candidates", f, r)
+                continue
+            cut = float(d2[valid].kthvalue(ck).values)
+            sure = set((mask[f] & (d2 < cut - eps)).nonzero()[:, 0].tolist())
+            assert sure <= listed and all(float(d2[i]) <= cut + float(eps[i]) for i in listed), (
+                f"roi {r} of frame {f}: its {ck} candidates are no nearest-{ck} list within "
+                "the f32 rounding of the cut")
+            for i in own - other:
+                if abs(float(d2[i]) - cut) > stats["cut_m2"]:
+                    stats["cut_m2"], stats["cut_bound_m2"] = abs(float(d2[i]) - cut), float(eps[i])
+    rows = torch.arange(R).repeat_interleave(G)
+    for (pa, ea), (pb, eb), (lo, hi) in zip(a[3], b[3], group_ops._radii2(radii)):
+        ia = torch.gather(a[2][:, rows], -1, pa)
+        ib = torch.gather(b[2][:, rows], -1, pb)
+        stats["balls"] += ia.shape[0] * ia.shape[1]
+        differ = (ea != eb) | (~ea & (ia != ib).any(-1))
+        for f, m in differ.nonzero().tolist():
+            r = m // G
+            stats["balls_differ"] += 1
+            for side, ids, emp in ((a, ia, ea), (b, ib, eb)):
+                q64 = side[0][f, m].double()
+                _, eps = _d2_and_bound(pts64[f], q64)
+                in_cands = torch.zeros_like(mask[f])
+                in_cands[side[2][f, r]] = True
+                assert ball_list_valid(ids[f, m].numpy(), bool(emp[f, m]), pts64[f].numpy(),
+                                       (mask[f] & in_cands).numpy(), q64.numpy(), hi,
+                                       eps.numpy(), lo), (
+                    f"grid point {m} of frame {f} ([{lo}, {hi}] m^2): "
+                    f"{sorted(set(ids[f, m].tolist()))} is no first-in-point-order answer among "
+                    "its roi's candidates")
+            if same_cands[f, r]:
+                stats["balls_differ_same_cands"] += 1
+                flipped = set(ia[f, m].tolist()) ^ set(ib[f, m].tolist())
+                d2, _ = _d2_and_bound(pts64[f], a[0][f, m].double())
+                edge = min(min(abs(float(d2[i]) - hi), abs(float(d2[i]) - lo) if lo > 0 else 1e9)
+                           for i in flipped) if flipped else 0.0
+                stats["edge_m2"] = max(stats["edge_m2"], edge)
+
+
+@contextlib.contextmanager
+def fixed_grouped_query(answer):
+    """`group_ops.multi_ball_query_grouped_cand` returns `answer`'s (cpos,
+    empty) scales and candidates (moved to the call's device) for the
+    duration."""
+    from btcdet_tpu_torch.ops import group_ops
+
+    orig = group_ops.multi_ball_query_grouped_cand
+
+    def fixed(xyz, *args, **kw):
+        dev = xyz.device
+        return ([(p.to(dev), e.to(dev)) for p, e in answer[3]], answer[2].to(dev), None, None)
+
+    group_ops.multi_ball_query_grouped_cand = fixed
+    try:
+        yield
+    finally:
+        group_ops.multi_ball_query_grouped_cand = orig
+
+
+def approx_sa_check(name: str, sa, args, kw):
+    """One SA module of the approximate ConvHead on the inputs the eval
+    forward gave it (card tensors): its grouped query on the card against
+    the CPU's on the same inputs (`grouped_query_diff`); its pooled
+    features on the card against a CPU copy reading the card's neighbours,
+    as built (bf16 MLPs, SA_BF16_TOL) and with f32 MLPs on both (1e-4);
+    and the query alone timed on the card, stage 1 (`roi_candidates`),
+    stage 2 (`select_in_candidates`) and the gather (`candidate_table` +
+    `group_from_candidates`), beside the exact query (`multi_ball_query`)
+    and its gather (`group_from_idx`) on the same inputs."""
+    import copy
+
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+
+    xyz, mask, new_xyz, new_mask = args[:4]
+    cent, G, feats, rot = kw["group_centers"], kw["group_size"], kw["features"], kw["rotate_matrix"]
+    ck = group_ops.GROUP_CAND_K
+    qargs = (sa.radii, sa.nsamples, cent, G)
+    with torch.no_grad():
+        card_out = group_ops.multi_ball_query_grouped_cand(xyz, mask, new_xyz, new_mask, *qargs,
+                                                           cand_k=ck)
+        cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
+        cpu_out = group_ops.multi_ball_query_grouped_cand(
+            *map(cpu, (xyz, mask, new_xyz, new_mask)), sa.radii, sa.nsamples, cent.cpu(), G,
+            cand_k=ck)
+        card = grouped_answer(new_xyz, cent, card_out)
+        stats = grouped_stats()
+        grouped_query_diff(xyz.cpu(), mask.cpu(), card, grouped_answer(new_xyz, cent, cpu_out),
+                           sa.radii, stats)
+        n_q = [int(new_mask.sum())] * len(sa.radii)
+        full = [int(((~e) & new_mask.cpu()).sum()) for _, e in card[3]]
+        log(f"{name} query, card against CPU on the same inputs (N {xyz.shape[1]}, "
+            f"{cent.shape[1]} rois x {G} grid points a frame, candidates {card[2].shape[-1]}): "
+            + json.dumps(stats) + f"; non-empty balls per scale {full} of {n_q}")
+        cpu_kw = {k: cpu(v) for k, v in kw.items()}
+        worst = {}
+        for dtype in ("as built", "f32"):
+            mod_card, mod_cpu = copy.deepcopy(sa), copy.deepcopy(sa).cpu()
+            if dtype == "f32":
+                for m in (*mod_card.mlps, *mod_cpu.mlps):
+                    m.compute_dtype = torch.float32
+            with f32_everywhere() if dtype == "f32" else contextlib.nullcontext():
+                got = mod_card(*args, **kw).float().cpu()
+                with fixed_grouped_query(card):
+                    want = mod_cpu(*map(cpu, args), **cpu_kw).float()
+            scale = float(want.abs().max())
+            worst[dtype] = float((got - want).abs().max())
+            tol = SA_BF16_TOL * scale if dtype == "as built" else 1e-4 * max(scale, 1.0)
+            assert torch.isfinite(got).all() and worst[dtype] <= tol, (name, dtype, worst, tol)
+        log(f"{name} pooled features, card against CPU (same inputs and neighbours): max abs "
+            f"diff {json.dumps(worst)} (output max {scale:.4f}; bf16 bound {SA_BF16_TOL} of "
+            "the max, f32 bound 1e-4)")
+
+        cand, cxyz, cok = group_ops.roi_candidates(xyz, mask, cent, ck)
+        scales = group_ops.select_in_candidates(cand, cxyz, cok, new_xyz, new_mask, sa.radii,
+                                                sa.nsamples, xyz.shape[1])
+        nf = feats.shape[-1]
+        exact = group_ops.multi_ball_query(xyz, mask, new_xyz, new_mask, sa.radii, sa.nsamples)
+        fns = {
+            "stage1": lambda: group_ops.roi_candidates(xyz, mask, cent, ck),
+            "stage2": lambda: group_ops.select_in_candidates(
+                cand, cxyz, cok, new_xyz, new_mask, sa.radii, sa.nsamples, xyz.shape[1]),
+            "gather": lambda: [group_ops.group_from_candidates(
+                group_ops.candidate_table(xyz, feats, cand), p, e, new_xyz, rotate_matrix=rot,
+                n_feat=nf) for p, e in scales],
+            "exact_query": lambda: group_ops.multi_ball_query(xyz, mask, new_xyz, new_mask,
+                                                              sa.radii, sa.nsamples),
+            "exact_gather": lambda: [group_ops.group_from_idx(
+                xyz, new_xyz, i, e, features=feats, rotate_matrix=rot) for i, e in exact],
+        }
+        ms = {k: round(cuda_ms(fn, reps=10), 3) for k, fn in fns.items()}
+    ms["approx_total"] = round(ms["stage1"] + ms["stage2"] + ms["gather"], 3)
+    ms["exact_total"] = round(ms["exact_query"] + ms["exact_gather"], 3)
+    log(f"{name} query alone, ms on the card (CUDA events, mean of 10): " + json.dumps(ms))
+
+
+def approx_train_steps(card: str):
+    """The twelfth path's train steps: the shipped flagship at the train caps
+    (B=2, 128 rois a frame): one counted step (TRAIN_LAUNCHES), the
+    gradient repeat (0 elements may differ), then 8 steps in turns with the
+    exact-query flagship of the same weights and batch (4 each) and each
+    one's train stage ms; then with PASS_GRAD (PASS_GRAD_OPTIONS): one
+    counted step (PASS_GRAD_LAUNCHES) and the gradient repeat, the occ
+    probabilities' gradient now running through the candidate table's
+    fixed-point sums."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.train import trainer
+
+    runs = {"approx": train_setup(config.flagship_shipped(), 16384, 10, 0),
+            "exact": train_setup(config.flagship(), 16384, 10, 0)}
+    net, opt, batch = runs["approx"]
+    counted_step(net, opt, batch, TRAIN_LAUNCHES, "approximate-query flagship")
+    gradient_repeat(net, batch, "approximate query")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times, stages = {k: [] for k in runs}, {}
+    for i in range(10):
+        kind = ("approx", "exact", "exact", "approx")[i % 4]
+        net, opt, batch = runs[kind]
+        t0 = time.perf_counter()
+        trainer.train_step(net, opt, batch, gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    for kind, (net, opt, batch) in runs.items():
+        net.stage_ms = {}
+        trainer.train_step(net, opt, batch, gen)
+        stages[kind] = {k: round(v, 3) for k, v in net.stage_ms.items()}
+        net.stage_ms = None
+    log("train step ms (B=2, train caps, same weights and batch, 4 steps each in turns after "
+        "a warm-up each): " + json.dumps({k: {"median": round(statistics.median(v), 2),
+                                              "all": [round(t, 2) for t in v]}
+                                          for k, v in times.items()})
+        + f"; stage ms (synchronised, forward only) {json.dumps(stages)} ({card})")
+    del runs, net, opt, batch
+    torch.cuda.empty_cache()
+    net, opt, batch = train_setup(set_options(config.flagship_shipped(), PASS_GRAD_OPTIONS),
+                                  16384, 10, 0)
+    counted_step(net, opt, batch, PASS_GRAD_LAUNCHES, "approximate-query PASS_GRAD")
+    gradient_repeat(net, batch, "approximate query, PASS_GRAD, DROPOUT_RATE 0.2, "
+                                "REMAIN_PERCENTAGE")
+    del net, opt, batch
+    torch.cuda.empty_cache()
+
+
+def approx_query_path(card: str):
+    """The twelfth path (module docstring, 8g)."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
+
+    t0 = time.perf_counter()
+    cfg = config.flagship_shipped()
+    assert "APPROX_QUERY" not in cfg.MODEL.ROI_HEAD, "the yaml as shipped"
+    nets = {}
+    for kind, c in (("approx", cfg), ("exact", config.flagship())):
+        nets[kind] = build_network(c.MODEL, c.DATA_CONFIG, ["Car"])
+        nets[kind].load_state_dict(weights.synth_state_dict(nets[kind]))
+    net, head = nets["approx"], nets["approx"].det_modules.roi_head
+    assert head.SA_rawpoints.approx_query and head.SA_occpoints.approx_query
+    assert not nets["exact"].det_modules.roi_head.SA_rawpoints.approx_query
+    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                 seed=0, mode="test")
+    sa_calls = {}
+    hooks = [getattr(head, n).register_forward_pre_hook(
+        lambda m, a, kw, n=n: sa_calls.setdefault(n, (a, kw)), with_kwargs=True)
+        for n in ("SA_rawpoints", "SA_occpoints")]
+    reset_launches()
+    out = net(batch)
+    post = post_processing(out, cfg.MODEL.POST_PROCESSING, 1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for h in hooks:
+        h.remove()
+    log(f"approximate-query path launches: {json.dumps(launches)}")
+    assert launches == EVAL_LAUNCHES, (launches, EVAL_LAUNCHES)
+    n_det = check_eval_outputs(net, batch, out, post)
+    ref = nets["exact"](batch)
+    ref_post = post_processing(ref, cfg.MODEL.POST_PROCESSING, 1)
+    cls_diff = float((ref["batch_cls_preds"] - out["batch_cls_preds"]).abs().max())
+    log(f"approximate-query flagship (B=2, test caps): rois per frame "
+        f"{[int(v) for v in out['roi_valid'].sum(dim=1)]}, occ points per frame "
+        f"{[int(v) for v in out['occ_points_mask'].sum(dim=1)]}, detections per frame {n_det} "
+        f"(exact query, same weights and batch: "
+        f"{[int(v) for v in ref_post['pred_valid'].sum(dim=1)]}); rois equal to the exact "
+        f"net's: {bool(torch.equal(ref['rois'], out['rois']))}; max |rcnn cls diff| against "
+        f"the exact query {cls_diff:.4f}")
+    for n, (args, kw) in sa_calls.items():
+        approx_sa_check(n, getattr(head, n), args, kw)
+    ms = {"approx": [], "exact": []}
+    for i in range(12):
+        kind = ("approx", "exact", "exact", "approx")[i % 4]
+        ms[kind].append(stage_times(nets[kind], batch, cfg.MODEL.POST_PROCESSING)["roi_head"])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"roi_head stage ms (synchronised, median of 6 in turns, same rois and weights): "
+        f"approximate query {med['approx']:.3f}, exact query {med['exact']:.3f}; all "
+        + json.dumps({k: [round(v, 3) for v in vs] for k, vs in ms.items()}))
+    fwd = {k: timed_median(lambda k=k: forward_post(nets[k], batch, cfg))[0] for k in nets}
+    log(f"forward+post ms (B=2, median of 5 after 2 warm-ups): approximate query "
+        f"{fwd['approx']:.2f}, exact query {fwd['exact']:.2f}")
+    profile_step(lambda: post_processing(net(batch), cfg.MODEL.POST_PROCESSING, 1), STAGES,
+                 "approximate-query forward + post")
+    del nets, net, head, batch, out, post, ref, ref_post, sa_calls
+    torch.cuda.empty_cache()
+    approx_train_steps(card)
+    small = small_config(full=True)
+    small.MODEL.ROI_HEAD.APPROX_QUERY = True
+    small_input_check(small, "full config, approximate query")
+    log(f"twelfth path (approximate query): {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def dp_worker(args: list) -> int:
     """`chip_smoke.py --dp-worker <task> <io dir> [CLI arguments]`: one
     rank of the seventh path."""
@@ -4536,6 +4920,7 @@ def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels"]
     side_only = sys.argv[1:] == ["--side"]
     sp_only = sys.argv[1:] == ["--sp"]
+    approx_only = sys.argv[1:] == ["--approx"]
     sys.path.insert(0, REPO)
     try:
         import btcdet_tpu_torch  # noqa: F401
@@ -4580,6 +4965,10 @@ def main() -> int:
         launches = sp_path(card)
         log(f"chip_smoke --sp: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({"launches_a_rank": launches}), flush=True)
+        return 0
+    if approx_only:
+        approx_query_path(card)
+        log(f"chip_smoke --approx: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
     # 3. full flagship model, synthetic weights by name, capture run
@@ -4720,6 +5109,10 @@ def main() -> int:
 
     # 8f. eleventh path: BEV row sharding, 2 ranks on the card
     sp_path(card)
+
+    # 8g. twelfth path: the flagship yaml as shipped (ConvHead's roi-grouped
+    # approximate ball query)
+    approx_query_path(card)
 
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "

@@ -1,6 +1,8 @@
 """The port's evaluation entry point, `tools/test_torch.py`: on the micro
 config (a reference-format `.pth` through `--ckpt`, port checkpoints
-through `--ckpt_dir --eval_all`), its refusal to fall back to the CPU, and
+through `--ckpt_dir --eval_all`; the yaml as shipped, with its approximate
+ball query, against the JAX package's forward), its refusal to fall back
+to the CPU, and
 under `-m slow` the flagship geometry at reduced capacities against the
 JAX package's KITTI-val runbook (`tools/run_kitti_val.sh`: reference
 checkpoint import, then `tools/test.py`'s evaluation) on one synthetic
@@ -106,13 +108,57 @@ def test_cli_micro_reference_pth_and_ckpt_dir(micro_tree):
     assert (tmp / "out" / "eval_list_val.txt").read_text().split() == ["77", "5", "9"]
 
 
-def test_cli_micro_refuses_approximate_queries(micro_tree, tmp_path):
-    """The micro yaml leaves APPROX_QUERY unset; the CLI does not flip it."""
+def test_cli_micro_yaml_as_shipped_matches_the_jax_forward(micro_tree, tmp_path):
+    """The micro yaml leaves APPROX_QUERY unset, which both packages read as
+    the roi-grouped approximate query. `tools/test_torch.py` on it with no
+    `--set`, from JAX weights (init, BN moved off identity) carried across
+    by `weights.from_jax_variables` into a reference-format `.pth`: each
+    batch's detections equal the JAX package's eval forward +
+    post-processing on the same batch with the same weights (f32, valid
+    flags and labels exact, scores and boxes to 1e-4)."""
+    import jax
+    from btcdet_tpu.config import EasyDict as JaxEasyDict
+    from btcdet_tpu.config import cfg_from_yaml_file as jax_cfg_from_yaml
+    from btcdet_tpu.datasets import make_synthetic_batch as jax_batch
+    from btcdet_tpu.models import build_network as jax_build
+    from btcdet_tpu.models.detectors.btcnet import post_processing as jax_post
+    from torch_parity import assert_close, f32_mode, init_jax, perturb_variables, to_np_tree
+
     _, cfg_file = micro_tree
-    cli = _load_cli()
-    with pytest.raises(NotImplementedError, match="APPROX_QUERY"):
-        cli.main(["--cfg_file", str(cfg_file), "--device", "cpu", "--workers", "0",
-                  "--ckpt", "unused.pth", "--output_dir", str(tmp_path)])
+    jcfg = jax_cfg_from_yaml(str(cfg_file), JaxEasyDict())
+    assert "APPROX_QUERY" not in jcfg.MODEL.ROI_HEAD
+    seen = []
+    with f32_mode():
+        net = jax_build(jcfg.MODEL, jcfg.DATA_CONFIG, ["Car"])
+        example = jax_batch(jcfg.DATA_CONFIG, batch_size=2, num_points=2048, num_gt=4, seed=0,
+                            mode="test")
+        variables = perturb_variables(init_jax(net, example))
+        cls = variables["params"]["occ_subnet"]["conv_cls"]
+        cls["bias"] = np.zeros_like(cls["bias"])
+        sd = weights.from_jax_variables(variables, dp_ratio=jcfg.MODEL.ROI_HEAD.DP_RATIO,
+                                        upsample_strides=jcfg.MODEL.BACKBONE_2D.UPSAMPLE_STRIDES)
+        pth = tmp_path / "from_jax.pth"
+        torch.save({"model_state": {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()},
+                    "epoch": 1, "it": 11}, pth)
+        (run,) = _load_cli().main(
+            ["--cfg_file", str(cfg_file), "--ckpt", str(pth), "--batch_size", "2",
+             "--workers", "0", "--device", "cpu", "--output_dir", str(tmp_path / "out")],
+            on_batch=lambda i, batch, post: seen.append((batch, post)))
+
+        @jax.jit
+        def forward(v, b):
+            return net.apply(v, b, train=False)
+
+        for batch, post in seen:
+            jb = {k: jax.numpy.asarray(v) for k, v in batch.items()
+                  if isinstance(v, np.ndarray) and v.dtype.kind in "biuf"}
+            ref = to_np_tree(jax_post(forward(variables, jb), jcfg.MODEL.POST_PROCESSING, 1))
+            np.testing.assert_array_equal(post["pred_valid"], ref["pred_valid"])
+            np.testing.assert_array_equal(post["pred_labels"], ref["pred_labels"])
+            assert_close(post["pred_scores"], ref["pred_scores"])
+            assert_close(post["pred_boxes"], ref["pred_boxes"])
+    assert run[0] == 11 and len(seen) == 2
+    assert sum(int(p["pred_valid"].sum()) for _, p in seen) > 0
 
 
 def test_cli_without_a_card_fails_with_resolve_devices_error(micro_tree, tmp_path):

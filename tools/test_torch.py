@@ -8,13 +8,15 @@ CUDA card unless `--device cpu` is passed; there is no silent CPU fallback.
     python -m btcdet_tpu_torch.datasets.kitti.kitti_infos <kitti_root>
     python tools/test_torch.py --cfg_file tools/cfgs/model_configs/btcdet_kitti_car.yaml \\
         --ckpt <checkpoint .pth, the port's or the reference BtcDet's> --batch_size 2 \\
-        --set MODEL.ROI_HEAD.APPROX_QUERY False DATA_CONFIG.DATA_PATH <kitti_root>
+        --set DATA_CONFIG.DATA_PATH <kitti_root>
 
     python -m torch.distributed.run --nproc_per_node 8 tools/test_torch.py \\
         --launcher pytorch --cfg_file ... --ckpt ...   # data parallel, one process a GPU
 
-The port has the exact ball query only, so configs that leave
-ROI_HEAD.APPROX_QUERY unset (the flagship yaml) must set it False. With a
+A config that leaves ROI_HEAD.APPROX_QUERY unset (the flagship yaml) runs
+ConvHead's roi-grouped approximate ball query, as the JAX package does;
+`--set MODEL.ROI_HEAD.APPROX_QUERY False` selects the reference CUDA's
+exact query, for reference-trained `.pth` checkpoints. With a
 --launcher each rank evaluates its shard of the split (`--batch_size`
 frames a process) and the results are merged in frame order; rank 0
 logs and writes the files.

@@ -11,17 +11,19 @@ CPU fallback.
     python -m btcdet_tpu_torch.datasets.kitti.kitti_infos <kitti_root>
     python -m btcdet_tpu_torch.datasets.bestmatch <kitti_root>
     python tools/train_torch.py --cfg_file tools/cfgs/model_configs/btcdet_kitti_car.yaml \\
-        --set MODEL.ROI_HEAD.APPROX_QUERY False DATA_CONFIG.DATA_PATH <kitti_root>
+        --set DATA_CONFIG.DATA_PATH <kitti_root>
     python tools/train_torch.py --cfg_file ... --synthetic --epochs 1 --steps 5   # no data
     python tools/train_torch.py --cfg_file ... --pre_occ output/<cfg>/occ_run/ckpt  # staged
     python -m torch.distributed.run --nproc_per_node 8 tools/train_torch.py \\
         --launcher pytorch --cfg_file ...      # data parallel, one process a GPU
 
-The port has the exact ball query only, so configs that leave
-ROI_HEAD.APPROX_QUERY unset (the flagship yaml) must set it False. A
-step's random draws come from a generator seeded by (--seed, global
-step), each epoch's order and per-frame augmentation from (--seed,
-epoch), so a resumed run trains as an unbroken one would.
+A config that leaves ROI_HEAD.APPROX_QUERY unset (the flagship yaml) trains
+with ConvHead's roi-grouped approximate ball query, as the JAX package
+does; `--set MODEL.ROI_HEAD.APPROX_QUERY False` selects the reference
+CUDA's exact query, for reference-trained `.pth` checkpoints. A step's
+random draws come from a generator seeded by (--seed, global step), each
+epoch's order and per-frame augmentation from (--seed, epoch), so a resumed
+run trains as an unbroken one would.
 
 Data parallel (`--launcher pytorch` under torchrun, or `slurm` under
 srun): `--batch_size` frames a process, each rank reading its shard of
