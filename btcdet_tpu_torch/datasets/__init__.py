@@ -62,8 +62,8 @@ def build_dataloader(dataset_cfg, class_names, batch_size, dist=False, root_path
     rank its `ShardSampler` shard of the data-parallel group
     (`parallel.get_dist_info`; one process's shard is the whole, in the
     same order as without it); the sampler is None otherwise.
-    `cache_items` memoizes the items (`loader.CachedDataset`; sound only
-    when `__getitem__` is deterministic)."""
+    `cache_items` memoizes the items (`loader.CachedDataset`: sound only
+    without stochastic augmentation; the items take epoch 0's draws)."""
     from ..parallel import get_dist_info
     from .loader import CachedDataset, make_loader
 

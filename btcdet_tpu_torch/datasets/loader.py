@@ -44,8 +44,10 @@ def make_loader(dataset, batch_size: int, shuffle: bool = False, num_workers: in
 
 
 class CachedDataset:
-    """Memoize `dataset[i]` (a per-item cache). Sound only when __getitem__
-    is deterministic, i.e. without stochastic augmentation."""
+    """Memoize `dataset[i]` (a per-item cache). Sound only without
+    stochastic augmentation. The draws an item still takes (the point
+    shuffle) come from epoch 0, whichever epoch fills the cache, so a run
+    resumed at a later epoch caches the items an unbroken run cached."""
 
     def __init__(self, dataset):
         self._ds = dataset
@@ -53,7 +55,11 @@ class CachedDataset:
 
     def __getitem__(self, i):
         if i not in self._cache:
-            self._cache[i] = self._ds[i]
+            epoch, self._ds._epoch = self._ds._epoch, 0
+            try:
+                self._cache[i] = self._ds[i]
+            finally:
+                self._ds._epoch = epoch
         return self._cache[i]
 
     def __len__(self):

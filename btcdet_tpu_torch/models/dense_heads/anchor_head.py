@@ -142,9 +142,13 @@ class AnchorHeadSingle(nn.Module):
         self.conv_box = nn.Conv2d(input_channels, na * self.box_coder.code_size, 1)
         self.conv_dir_cls = (nn.Conv2d(input_channels, na * num_dir_bins, 1)
                              if use_direction_classifier else None)
-        # the JAX package's init: focal prior on the cls bias, small box weights
+        # the JAX package's init: focal prior on the cls bias, small box
+        # weights and a zero box bias (the kernels of cls and dir take its
+        # default law in `common.jax_default_init_`)
         nn.init.constant_(self.conv_cls.bias, -float(np.log((1 - 0.01) / 0.01)))
         nn.init.normal_(self.conv_box.weight, std=0.001)
+        nn.init.zeros_(self.conv_box.bias)
+        self.conv_cls.prior_bias = self.conv_box.own_init = True
         self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
         self.dir_offset, self.dir_limit_offset = dir_offset, dir_limit_offset
         self.num_dir_bins = num_dir_bins

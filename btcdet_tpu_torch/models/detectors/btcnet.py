@@ -44,7 +44,7 @@ from torch.profiler import record_function
 from ...ops import iou3d, sparse
 from ...ops.voxelizer import compute_grid_size
 from ...parallel import gather_rows, get_sp_info, global_rows, take_rows
-from ...utils.common import activation_dtype, resolve_device
+from ...utils.common import activation_dtype, jax_default_init_, resolve_device
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head
 from ..occ import occ_subnet
@@ -214,6 +214,8 @@ class BtcNet(nn.Module):
         occ_data = data_cfg.get("OCC")
         self.useocc_percentage = float(occ_data.get("USEOCC_PERCENTAGE", 1.0)) if occ_data else 1.0
         self.det_modules = det
+        # the JAX package's init laws, drawn over the layers' own draws
+        jax_default_init_(self)
         self.stage_ms = None  # a dict here collects synchronised ms per stage
 
     def _bev_rows(self):

@@ -57,6 +57,8 @@ class _HeadConv(nn.Module):
     """Dense 3x3x3 conv holding `weight` in the spconv layout (kz, ky, kx,
     Cin, Cout) and an optional bias (reference `conv_cls.0`)."""
 
+    out_axis = -1   # of the weight, for `common.jax_default_init_`
+
     def __init__(self, cin, cout, bias: bool):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(3, 3, 3, cin, cout))
@@ -72,6 +74,8 @@ class _HeadConv2D(nn.Module):
     (Cout, Cin, 3, 3), optional bias). It reads the (B, C, nz, ny, nx)
     volume with z folded into channels, z-major (z * C + c), and returns
     (B, nz * cout_per_z, ny, nx), also z-major."""
+
+    out_axis = 0    # of the weight, for `common.jax_default_init_`
 
     def __init__(self, cin, cout, bias: bool):
         super().__init__()
@@ -250,10 +254,17 @@ class OccSubnet(nn.Module):
             if self.reg:
                 dh.conv_res = nn.ModuleList([_HeadConv2D(nz * channels[1],
                                                          nz * self.res_num_dim, False)])
+                dh.conv_res[0].own_init = True     # std 0.001, as in the JAX package
         else:
             dh.conv_cls = nn.ModuleList([_HeadConv(channels[1], cls_ch, True)])
             if self.reg:
                 dh.conv_res = nn.ModuleList([_HeadConv(channels[1], self.res_num_dim, False)])
+        # the JAX package's focal prior (pi = PRIOR_PROB): the occupied logit,
+        # the last channel of each z's cls_ch, starts at logit(pi)
+        prior = float(head.get("PRIOR_PROB", 0.01))
+        with torch.no_grad():
+            dh.conv_cls[0].bias.view(-1, cls_ch)[:, -1] = float(np.log(prior / (1.0 - prior)))
+        dh.conv_cls[0].prior_bias = True
         self.occ_dense_head = dh
 
     def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:

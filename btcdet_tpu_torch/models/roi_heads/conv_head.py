@@ -67,6 +67,8 @@ class SpconvLayoutConv3d(nn.Module):
     """Dense 3D conv holding its weight in the reference spconv layout
     (kz, ky, kx, Cin, Cout); no bias."""
 
+    out_axis = -1   # of the weight, for `common.jax_default_init_`
+
     def __init__(self, cin, cout, kernel_size, stride, padding):
         super().__init__()
         self.stride, self.padding = tuple(stride), tuple(padding)
@@ -97,6 +99,7 @@ def _fc_trunk(module: nn.Module, fcs, cin, dp_ratio, dropout_after, out_dim=None
         # the JAX package's init of the output projections
         nn.init.normal_(final.weight, std=0.001)
         nn.init.zeros_(final.bias)
+        final.own_init = True
         module.add_module(str(n), final)
         cin = out_dim
     return cin

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -34,6 +35,63 @@ def activation_dtype(default=torch.bfloat16) -> torch.dtype:
     if os.environ.get("BTCDET_F32"):
         return torch.float32
     return default
+
+
+@contextlib.contextmanager
+def float32_everywhere():
+    """Float32 activations in the port (`BTCDET_F32=1`) and no TF32 in
+    cuBLAS or cuDNN, for the duration."""
+    old = os.environ.get("BTCDET_F32")
+    os.environ["BTCDET_F32"] = "1"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        if old is None:
+            del os.environ["BTCDET_F32"]
+        else:
+            os.environ["BTCDET_F32"] = old
+
+
+LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated at +-2
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's default kernel init, the JAX package's: a normal of variance
+    1 / fan_in truncated at 2 sigma, in place."""
+    std = (1.0 / fan_in) ** 0.5 / LECUN_TRUNC
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                           generator=generator)
+
+
+def jax_default_init_(module: torch.nn.Module) -> None:
+    """The JAX package's default init (flax's), drawn over the layers'
+    own draws: the kernels of the torch conv and linear layers of `module`,
+    and of its dense convs in other layouts (an `out_axis` attribute names
+    their output axis), lecun normal, their biases zero. A layer that sets
+    `own_init` keeps its draw (the JAX package's std-0.001 layers); one
+    that sets `prior_bias` keeps its bias (a focal prior). The draws come
+    from a generator of torch's initial seed, so they repeat under
+    `torch.manual_seed` and leave the global stream where it was."""
+    nn = torch.nn
+    gen = torch.Generator().manual_seed(torch.initial_seed())
+    for m in module.modules():
+        if getattr(m, "own_init", False):
+            continue
+        if isinstance(m, (nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            out = m.weight.shape[1]
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
+            out = m.weight.shape[0]
+        elif hasattr(m, "out_axis"):
+            out = m.weight.shape[m.out_axis]
+        else:
+            continue
+        lecun_normal_(m.weight, m.weight.numel() // out, gen)
+        if getattr(m, "bias", None) is not None and not getattr(m, "prior_bias", False):
+            nn.init.zeros_(m.bias)
 
 
 def limit_period(val, offset: float = 0.5, period: float = np.pi):

@@ -22,13 +22,18 @@ BEV row sharding (`build_network(..., bev_sharding=True)` under
 `parallel.init_dist(..., sp=)`: the BEV pyramid split by rows over the
 ranks of a spatial group) as an eleventh, and the flagship yaml as shipped
 (`config.flagship_shipped()`: ConvHead's roi-grouped approximate ball
-query, the JAX package's default) as a twelfth.
+query, the JAX package's default) as a twelfth, and the overfit proof
+(`tools/overfit_proof_torch.py`: the training CLI on a memorisable 25-frame
+synthetic tree, then both evaluations) as a thirteenth: a short gate in the
+default run, the whole proof on request.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
     python3 chip_smoke.py --side      # only the tenth path (side modules)
     python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
     python3 chip_smoke.py --approx    # only the twelfth path (the approximate query)
+    python3 chip_smoke.py --gate      # only the thirteenth path's short gate
+    python3 chip_smoke.py --overfit [--three_classes]   # the whole proof
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
@@ -221,8 +226,30 @@ Phases (any failure raises and exits non-zero, printing no result):
      (PASS_GRAD_LAUNCHES, the gradient repeat); the small full config with
      the approximate query f32 on the card against the CPU
      (`small_input_check`, the grouped queries replayed as proven);
-  9. a JSON line of per-kernel numbers, then the contract line
-     {"ok": true, "device": {...}}.
+  8h. the thirteenth path, `tools/overfit_proof_torch.py` in process: a
+     synthetic KITTI tree of 25 frames x 4 cars (train == val, 4 000
+     background points a frame), its infos, gt and best-match databases,
+     the flagship yaml as shipped with gt sampling and the world
+     augmentations off and the level capacities raised to 36 000 / 26 000 /
+     13 000 / 10 000, `tools/train_torch.py` at B=2 with `--cache_items`
+     (12 steps an epoch asserted), its trailing eval on the same frames and
+     the final checkpoint through `tools/test_torch.py` with 2048 occ
+     points and at the default population; every step's launches equal to
+     TRAIN_LAUNCHES with finite loss terms, the three evals' launches 39 x
+     EVAL_LAUNCHES, every AP_R40 key of every class finite at both occ
+     populations (AOS where the eval reports it); the mean loss a epoch,
+     the AP tables, steps/s, the loop's wall ms by part, the active sites
+     dropped at the level capacities, the merged det table's drops a frame
+     and every gt's heading error. The default run trains
+     OVERFIT_GATE_EPOCHS epochs and gates on the last epoch's mean loss
+     below OVERFIT_GATE_FALL of the first's; `--overfit` trains 150 epochs
+     (1 800 steps, the JAX package's proof) and gates on 3d, bev and bbox
+     AP_R40 >= OVERFIT_AP_MIN at every difficulty for every class and on
+     Car AOS >= OVERFIT_AP_MIN with 2048 occ points (the default
+     population's AOS is recorded, not gated); `--three_classes` runs it on
+     the 3-class yaml;
+  9. JSON lines of the thirteenth path's numbers and of per-kernel numbers,
+     then the contract line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1176,24 +1203,12 @@ def same_point_sets(a, am, b, bm, tol):
     return worst
 
 
-@contextlib.contextmanager
 def f32_everywhere():
-    """Float32 activations in the port (`BTCDET_F32=1`) and no TF32 in
-    cuBLAS or cuDNN, for the duration."""
-    import torch
+    """Float32 activations in the port and no TF32, for the duration
+    (`common.float32_everywhere`)."""
+    from btcdet_tpu_torch.utils.common import float32_everywhere
 
-    old = os.environ.get("BTCDET_F32")
-    os.environ["BTCDET_F32"] = "1"
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        if old is None:
-            del os.environ["BTCDET_F32"]
-        else:
-            os.environ["BTCDET_F32"] = old
+    return float32_everywhere()
 
 
 def micro_variant_config(down: str):
@@ -4867,6 +4882,103 @@ def approx_query_path(card: str):
     log(f"twelfth path (approximate query): {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# the thirteenth path: tools/overfit_proof_torch.py on its 25-frame tree
+OVERFIT_STEPS_A_EPOCH = 12         # 25 frames at B=2, the last partial batch dropped
+OVERFIT_GATE_EPOCHS = 10           # the default run's short gate
+OVERFIT_GATE_FALL = 0.5            # its last epoch's mean loss below this share of its first's
+OVERFIT_AP_MIN = 99.0              # the full proof: 3d / bev / bbox AP_R40, and Car AOS at 2048
+# the trailing eval, the 2048 one and the default population's, 13 batches each
+OVERFIT_EVAL_FORWARDS = 3 * 13
+AP_DIFFICULTIES = ("easy", "moderate", "hard")
+
+
+def overfit_path(card: str, full: bool = False, three_classes: bool = False) -> dict:
+    """The thirteenth path (module docstring, 8h): the short gate, or with
+    `full` the whole proof. Returns its numbers for the JSON line."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "overfit_proof_torch", os.path.join(REPO, "tools", "overfit_proof_torch.py"))
+    proof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(proof)
+    steps = []
+
+    def on_step(gstep, batch, metrics):
+        launches = read_launches()
+        reset_launches()
+        vals = {k: float(v) for k, v in metrics.items()}
+        steps.append(vals)
+        assert launches == TRAIN_LAUNCHES, (gstep, launches)
+        assert all(math.isfinite(v) for v in vals.values()), (gstep, vals)
+
+    epochs = 150 if full else OVERFIT_GATE_EPOCHS
+    argv = ["--fresh", "--epochs", str(epochs)] + (["--three_classes"] if three_classes else [])
+    with contextlib.ExitStack() as stack:
+        if not full:   # the gate's data and checkpoints go with it
+            argv += ["--root", stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="chip_smoke_overfit_"))]
+        reset_launches()
+        summary = proof.main(argv, on_step=on_step)
+        torch.cuda.synchronize()
+        eval_launches = read_launches()
+    label = f"{'3-class ' if three_classes else ''}overfit {'proof' if full else 'gate'}"
+    assert summary["steps_per_epoch"] == OVERFIT_STEPS_A_EPOCH, summary["steps_per_epoch"]
+    assert summary["start_step"] == 0 and len(steps) == epochs * OVERFIT_STEPS_A_EPOCH, (
+        summary["start_step"], len(steps))
+    assert summary["resumed_at_step"] is None, summary["resumed_at_step"]
+    assert eval_launches == {k: v * OVERFIT_EVAL_FORWARDS for k, v in EVAL_LAUNCHES.items()}, (
+        eval_launches)
+    epoch_loss = [statistics.fmean(s["loss"] for s in steps[i:i + OVERFIT_STEPS_A_EPOCH])
+                  for i in range(0, len(steps), OVERFIT_STEPS_A_EPOCH)]
+    keys = [f"{c}_{kind}/{d}_R40" for c in summary["classes"] for kind in proof.AP_KINDS
+            for d in AP_DIFFICULTIES]
+    for name in ("ap", "ap_occ2048"):
+        # the official eval leaves AOS out when no frame has a detection
+        missing = [k for k in keys if "_aos/" not in k and k not in summary[name]]
+        bad = [k for k, v in summary[name].items() if not math.isfinite(v)]
+        assert not missing and not bad, (name, missing, bad)
+    log(f"[{card}] {label}: {len(steps)} steps ({epochs} epochs of "
+        f"{OVERFIT_STEPS_A_EPOCH}), every step launched TRAIN_LAUNCHES with finite loss terms; "
+        f"the evals {OVERFIT_EVAL_FORWARDS} x EVAL_LAUNCHES")
+    log(f"[{card}] {label}: mean loss a epoch (every step) "
+        + json.dumps([round(v, 4) for v in epoch_loss]))
+    log(f"[{card}] {label}: first / final / min logged loss {summary['first_loss']:.4f} / "
+        f"{summary['final_loss']:.4f} / {summary['min_loss']:.4f}; final loss terms "
+        + json.dumps({k: round(v, 4) for k, v in summary["final_loss_terms"].items()}))
+    for name, pop in (("ap", "default occ population"), ("ap_occ2048", "occ points 2048")):
+        log(f"[{card}] {label}: AP_R40 ({pop})\n" + proof.ap_table(summary[name]))
+    log(f"[{card}] {label}: {summary['steps_per_s']:.3f} steps/s; train loop wall ms by part "
+        + json.dumps({k: round(v, 2) for k, v in summary["train_loop_ms"].items()})
+        + "; wall s " + json.dumps({k: round(v, 1) for k, v in summary["wall_s"].items()}))
+    log(f"[{card}] {label}: drops " + json.dumps(summary["drops"]))
+    log(f"[{card}] {label}: heading errors of the matched detections "
+        + json.dumps(summary["heading_errors"]))
+    fall = epoch_loss[-1] / epoch_loss[0]
+    if full:
+        low = {k: summary["ap"][k] for k in keys
+               if "_aos/" not in k and summary["ap"][k] < OVERFIT_AP_MIN}
+        aos = {k: summary["ap_occ2048"].get(k, math.nan) for k in keys
+               if k.startswith("Car_aos/")}
+        log(f"[{card}] {label}: 3d / bev / bbox AP_R40 below {OVERFIT_AP_MIN}: {low}; Car AOS "
+            f"at 2048 occ points {aos}")
+        assert not low and min(aos.values()) >= OVERFIT_AP_MIN, (low, aos)
+    else:
+        log(f"[{card}] {label}: last epoch's mean loss / first's = {fall:.4f} (gate "
+            f"< {OVERFIT_GATE_FALL})")
+        assert fall < OVERFIT_GATE_FALL, (fall, epoch_loss)
+    log(f"thirteenth path ({label}): {time.perf_counter() - t0:.1f} s ({card})")
+    return {"classes": summary["classes"], "epochs": epochs, "steps": len(steps),
+            "epoch_loss": epoch_loss, "loss_fall": fall, "first_loss": summary["first_loss"],
+            "final_loss": summary["final_loss"], "min_loss": summary["min_loss"],
+            "ap": summary["ap"], "ap_occ2048": summary["ap_occ2048"],
+            "heading_errors": summary["heading_errors"], "steps_per_s": summary["steps_per_s"],
+            "wall_s": summary["wall_s"], "card": card}
+
+
 def dp_worker(args: list) -> int:
     """`chip_smoke.py --dp-worker <task> <io dir> [CLI arguments]`: one
     rank of the seventh path."""
@@ -4909,6 +5021,14 @@ def kernel_bench() -> None:
     print(json.dumps({"kernels": entries}), flush=True)
 
 
+def print_contract_line():
+    import torch
+
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4921,6 +5041,8 @@ def main() -> int:
     side_only = sys.argv[1:] == ["--side"]
     sp_only = sys.argv[1:] == ["--sp"]
     approx_only = sys.argv[1:] == ["--approx"]
+    gate_only = sys.argv[1:] == ["--gate"]
+    overfit = sys.argv[1:] in (["--overfit"], ["--overfit", "--three_classes"])
     sys.path.insert(0, REPO)
     try:
         import btcdet_tpu_torch  # noqa: F401
@@ -4969,6 +5091,12 @@ def main() -> int:
     if approx_only:
         approx_query_path(card)
         log(f"chip_smoke --approx: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if gate_only or overfit:
+        res = overfit_path(card, full=overfit, three_classes="--three_classes" in sys.argv)
+        log(f"chip_smoke {' '.join(sys.argv[1:])}: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"overfit_proof" if overfit else "overfit_gate": res}), flush=True)
+        print_contract_line()
         return 0
 
     # 3. full flagship model, synthetic weights by name, capture run
@@ -5114,16 +5242,18 @@ def main() -> int:
     # approximate ball query)
     approx_query_path(card)
 
+    # 8h. thirteenth path: the overfit proof's short gate
+    gate = overfit_path(card)
+
     # 9. results
     log(f"profiler sessions that missed their kernel (timed by CUDA events instead): "
         f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"overfit_gate": gate}), flush=True)
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print_contract_line()
     return 0
 
 

@@ -360,13 +360,15 @@ def test_stage2_grid_point_on_a_candidate():
     assert kept > 0 and dropped > 0, (kept, dropped)
 
 
-def test_grouped_cand_matches_jax_not_exact_in_over_full_balls():
-    """A cluster of 4608 points (sigma 0.5 m) around the first roi's centre,
-    among 2000 background points: the 512 candidates nearest the centre fill
-    the balls of that roi's grid points, whose exact first-in-point-order
-    neighbours often lie among the cluster's other points. The port equals
-    the JAX package there (global point indices), and differs from the
-    exact query on more than a third of those grid points' balls."""
+OVER_FULL_RADII, OVER_FULL_NS = [0.4, 0.8, 1.2, 2.4], [16, 16, 32, 64]
+
+
+@functools.cache
+def over_full():
+    """A cluster of 4608 points (sigma 0.5 m) around the first of 3 roi
+    centres, among 2000 background points, each roi's 27 grid points 0.6 m
+    apart; and the JAX package's `multi_ball_query_grouped_cand` on it
+    (the one JAX run of the over-full tests)."""
     rng = np.random.RandomState(4)
     B, R, G = 1, 3, 27
     cent = np.array([[[5.0, 5.0, 1.0], [2.0, 7.0, 1.0], [7.0, 2.0, 2.0]]], np.float32)
@@ -378,9 +380,21 @@ def test_grouped_cand_matches_jax_not_exact_in_over_full_balls():
     new = (cent[:, :, None, :] + offs.reshape(1, 1, G, 3)).reshape(B, R * G, 3)
     new = new.astype(np.float32)
     new_mask = np.ones((B, R * G), bool)
-    radii, ns = [0.4, 0.8, 1.2, 2.4], [16, 16, 32, 64]
     jscales, jc, _, _ = JG.multi_ball_query_grouped_cand(
-        j(pts), j(mask), j(new), j(new_mask), radii, ns, j(cent), G)
+        j(pts), j(mask), j(new), j(new_mask), OVER_FULL_RADII, OVER_FULL_NS, j(cent), G)
+    jax_cand = ([(np.asarray(p), np.asarray(e)) for p, e in jscales], np.asarray(jc))
+    return pts, mask, new, new_mask, cent, G, jax_cand
+
+
+def test_grouped_cand_matches_jax_not_exact_in_over_full_balls():
+    """The over-full layout (`over_full`): the 512 candidates nearest the
+    first roi's centre fill the balls of that roi's grid points, whose exact
+    first-in-point-order neighbours often lie among the cluster's other
+    points. The port equals the JAX package there (global point indices),
+    and differs from the exact query on more than a third of those grid
+    points' balls."""
+    pts, mask, new, new_mask, cent, G, (jscales, jc) = over_full()
+    radii, ns = OVER_FULL_RADII, OVER_FULL_NS
     tscales, tc, _, _ = TG.multi_ball_query_grouped_cand(
         t(pts), t(mask), t(new), t(new_mask), radii, ns, t(cent), G)
     exact = TG.multi_ball_query(t(pts), t(mask), t(new), t(new_mask), radii, ns)
@@ -392,6 +406,32 @@ def test_grouped_cand_matches_jax_not_exact_in_over_full_balls():
     for (gi, _), (ei, _) in zip(got, exact):
         share.append(float((gi[0, :G] != ei.numpy()[0, :G]).any(-1).mean()))
     assert max(share) > 1 / 3, share
+
+
+def test_grouped_matches_jax_in_over_full_balls_and_differs_from_grouped_cand():
+    """The over-full layout (`over_full`): the port's
+    `multi_ball_query_grouped` (the k_max nearest candidates of each grid
+    point first, then first in point order) equals the JAX package's on
+    every scale, indices and empty flags. There the JAX package's two
+    grouped queries give different neighbour sets, on every scale (1 of the
+    56 balls the smallest radius does not leave empty, then 19 / 27 / 81
+    of 81), although the
+    docstring of its `multi_ball_query_grouped_cand` calls the sets
+    identical: `_cand` picks first in point order over all 512
+    candidates, and ConvHead runs only `_cand`."""
+    pts, mask, new, new_mask, cent, G, (jscales, jc) = over_full()
+    args = (pts, mask, new, new_mask)
+    ref = JG.multi_ball_query_grouped(*map(j, args), OVER_FULL_RADII, OVER_FULL_NS, j(cent), G)
+    out = TG.multi_ball_query_grouped(*map(t, args), OVER_FULL_RADII, OVER_FULL_NS, t(cent), G)
+    differ = []
+    for s, ((ri, re), (oi, oe), (cp, ce)) in enumerate(zip(ref, out, jscales)):
+        ri, re = np.asarray(ri), np.asarray(re)
+        np.testing.assert_array_equal(oi.numpy(), ri, err_msg=f"scale {s}")
+        np.testing.assert_array_equal(oe.numpy(), re, err_msg=f"scale {s}")
+        both = ~re & ~ce   # an empty ball's slots are padding
+        ci = global_ids(cp, jc, G)
+        differ.append(int(((np.sort(ri, -1) != np.sort(ci, -1)).any(-1) & both).sum()))
+    assert all(d > 0 for d in differ), differ
 
 
 def test_grouped_and_shared_candidate_queries_match():

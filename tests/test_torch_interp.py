@@ -7,6 +7,8 @@ volume, which the sampler sums in f32 and rounds once). Samples outside the
 Pallas kernel's 24x24-cell roi window are compared with the twin only:
 the port keeps them, the TPU kernel drops them."""
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,3 +211,117 @@ def test_plain_sampler_on_a_sparse_tensor_dense_view():
     got = out.float().numpy()
     assert (np.abs(got - ref) <= bf16_ulp(ref)).all()
     assert np.abs(ref).max() > 0.5
+
+
+# ------------------------------------ ConvHead's x_combine pool, train mode
+
+def _xc_case(n_rois: int, seed: int = 5):
+    """ConvHead's `_x_combine_pool` in train mode on the micro widths (the
+    micro config's CONV_GRID_POOL: 8 grid points a roi, a (2, 4, 12) local
+    grid, 8 channels) over a random (5, 4, 4) x 16 volume, 2 frames of
+    `n_rois` rois (a few invalid): the JAX package's CPU path (XLA sampler,
+    the conv stack chunked over `roi_chunk` rois) from its init, and the
+    port's head with the same weights. Returns (JAX output, JAX BN running
+    statistics after the call, the port's head, its inputs)."""
+    import flax.linen as nn
+    import jax
+
+    from btcdet_tpu.models.roi_heads import conv_head as JCH
+    from btcdet_tpu.ops import sparse as JS
+    from btcdet_tpu_torch.datasets import mini_config
+    from btcdet_tpu_torch.models.roi_heads import conv_head as TCH
+    from btcdet_tpu_torch.ops import sparse as TS
+
+    cg = mini_config.micro_model_cfg().ROI_HEAD.CONV_GRID_POOL
+    xc = cg.CONV_LAYER.x_combine
+    pcr, dvs = (0.0, -3.2, -3.0, 6.4, 3.2, 1.1), (0.2, 0.2, 0.1)
+    geom = dict(grid_size=tuple(cg.GRID_SIZE), point_cloud_range=pcr, det_voxel_size=dvs,
+                xc_part_scene=tuple(xc.PART_SCENE_SIZE), xc_ker_size=tuple(xc.KER_SIZE),
+                xc_kernels=tuple(map(tuple, xc.KERNEL)),
+                xc_paddings=tuple(map(tuple, xc.PADDING)),
+                xc_strides=tuple(map(tuple, xc.STRIDE)), xc_channels=tuple(xc.CHANNEL),
+                xc_downsample=tuple(xc.DOWNSAMPLE_FACTOR))
+
+    class XcPool(JCH.ConvHead):
+        @nn.compact
+        def __call__(self, rois, roi_valid, grid_pts, x_combine):
+            return self._x_combine_pool(rois, roi_valid, grid_pts, x_combine, True)
+
+    rng = np.random.RandomState(seed)
+    B, shape, C = 2, (5, 4, 4), 16
+    cells = np.stack(np.meshgrid(*map(np.arange, shape), indexing="ij"), -1).reshape(-1, 3)
+    coords = np.concatenate([np.concatenate([np.full((len(cells), 1), b), cells], 1)
+                             for b in range(B)]).astype(np.int32)
+    coords[rng.rand(len(coords)) < 0.3] = -1           # inactive sites
+    feats = rng.randn(len(coords), C).astype(np.float32)
+    rois = np.concatenate([rng.uniform([1.0, -2.2, -2.0], [5.4, 2.2, 0.0], (B, n_rois, 3)),
+                           rng.uniform([1.5, 0.6, 0.6], [4.0, 1.8, 1.8], (B, n_rois, 3)),
+                           rng.uniform(-np.pi, np.pi, (B, n_rois, 1))], -1).astype(np.float32)
+    roi_valid = rng.rand(B, n_rois) < 0.9
+    grid_pts = np.array(JCH.global_roi_grid_points(jnp.asarray(rois), geom["grid_size"]))
+    jhead = XcPool(num_class=1, compute_dtype=jnp.float32, **geom)
+    jx = JS.from_coords(jnp.asarray(feats), jnp.asarray(coords), shape, B)
+    args = (jnp.asarray(rois), jnp.asarray(roi_valid), jnp.asarray(grid_pts), jx)
+    variables = jax.jit(jhead.init)(jax.random.PRNGKey(seed), *args)
+    out, upd = jax.jit(lambda v, *a: jhead.apply(v, *a, mutable=["batch_stats"]))(
+        variables, *args)
+    head = TCH.ConvHead(1, C, features_source=("x_combine",), compute_dtype=torch.float32,
+                        **geom).train()
+    p, s = variables["params"], variables["batch_stats"]
+    for i, blk in enumerate(head.conv_layers[0]):
+        conv, bn = getattr(blk, "0"), getattr(blk, "1")
+        conv.weight.data = torch.from_numpy(np.array(p[f"xc_conv_{i}"]["kernel"]))
+        jbn, jst = p[f"xc_bn_{i}"]["MaskedBatchNorm_0"], s[f"xc_bn_{i}"]["MaskedBatchNorm_0"]
+        bn.weight.data, bn.bias.data = (torch.from_numpy(np.array(jbn[k]))
+                                        for k in ("scale", "bias"))
+        bn.running_mean.data, bn.running_var.data = (torch.from_numpy(np.array(jst[k]))
+                                                     for k in ("mean", "var"))
+    tx = TS.from_coords(torch.from_numpy(feats), torch.from_numpy(coords), shape, B)
+    targs = (torch.from_numpy(rois), torch.from_numpy(roi_valid), torch.from_numpy(grid_pts), tx)
+    stats = [{k: np.asarray(upd["batch_stats"][f"xc_bn_{i}"]["MaskedBatchNorm_0"][k])
+              for k in ("mean", "var")} for i in range(len(head.conv_layers[0]))]
+    return np.asarray(out), stats, head, targs
+
+
+def _running_stats(head):
+    return [{"mean": getattr(blk, "1").running_mean.numpy(),
+             "var": getattr(blk, "1").running_var.numpy()} for blk in head.conv_layers[0]]
+
+
+def test_x_combine_pool_matches_jax_cpu_path_up_to_32_rois():
+    """24 rois a frame: the JAX CPU path runs the conv stack over all rois
+    in one chunk (`roi_chunk` 32), as the port always does; the pooled
+    features and the BN running statistics agree to 1e-4."""
+    ref, stats, head, args = _xc_case(24)
+    with torch.no_grad():
+        out = head._x_combine_pool(*args).numpy()
+    assert out.shape == ref.shape and np.abs(ref).max() > 0.1
+    assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for got, want in zip(_running_stats(head), stats):
+        for k in want:
+            assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_x_combine_pool_parts_from_jax_cpu_path_past_32_rois():
+    """40 rois a frame: the JAX CPU path takes the conv stack's train-time BN
+    statistics per chunk of 32 rois (both frames' rois 0-31, then 32-39),
+    the port (and the JAX TPU path) over all rois. The pooled features part
+    by far more than rounding; the port run chunk by chunk, its running
+    statistics moved once a chunk, equals the JAX CPU path to 1e-4."""
+    ref, stats, head, args = _xc_case(40)
+    whole_head = copy.deepcopy(head)
+    with torch.no_grad():
+        whole = whole_head._x_combine_pool(*args).numpy()
+        rois, valid, grid_pts, x = args
+        G = grid_pts.shape[2]
+        chunked = np.concatenate([head._x_combine_pool(rois[:, a:a + 32], valid[:, a:a + 32],
+                                                       grid_pts[:, a:a + 32], x).numpy()
+                                  for a in (0, 32)], axis=1)
+    assert_close(chunked, ref, rtol=1e-4, atol=1e-4)
+    for got, want in zip(_running_stats(head), stats):
+        for k in want:
+            assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    part = np.abs(whole - ref).max()
+    assert part > 1e-2 * np.abs(ref).max(), part
+    # the first chunk's rois part too: their statistics lack rois 32-39
+    assert np.abs(whole[:, :32 * G] - ref[:, :32 * G]).max() > 1e-3, part
