@@ -187,6 +187,16 @@ def flagship_shipped() -> EasyDict:
     return cfg_from_yaml_file(FLAGSHIP_CFG)
 
 
+FAST20K_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_car_fast20k.yaml"
+
+
+def fast20k() -> EasyDict:
+    """`btcdet_kitti_car_fast20k.yaml` as shipped: the flagship yaml (its
+    `_BASE_CONFIG_`) with the eval voxel caps at 20 000 instead of 40 000,
+    the approximate ball query left on."""
+    return cfg_from_yaml_file(FAST20K_CFG)
+
+
 THREE_CLASS_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "btcdet_kitti_3classes.yaml"
 
 

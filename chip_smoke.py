@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port (`btcdet_tpu_torch`): the full
+"""GPU smoke run of the PyTorch port (`btcdet_tpu_torch`): `bench.py`'s main
+path as shipped (the flagship yaml untouched, its approximate ball query, at
+bench.py's batch of 8) as the first path, then the full
 flagship BtcNet eval forward (occupancy subnet included) on one CUDA
 card, its det-only variant as a second path, the det backbone's four
 occ-code variants (`config.flagship_occ_variant`) as a third, the
@@ -28,6 +30,9 @@ synthetic tree, then both evaluations) as a thirteenth: a short gate in the
 default run, the whole proof on request.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --b8        # only the first path (bench.py's main path, B=8)
+    python3 chip_smoke.py --dp [seed ...]   # only the seventh path's data-parallel steps,
+                                      # with more draws of the output projections
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
     python3 chip_smoke.py --side      # only the tenth path (side modules)
     python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
@@ -39,6 +44,36 @@ Phases (any failure raises and exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `btcdet_tpu_torch/csrc` (one nvcc per
      source, started together) and print the build seconds;
+  2b. the first path, `bench.py`'s main path as shipped: the flagship yaml
+     untouched (`config.flagship_shipped()`, ConvHead's roi-grouped
+     approximate query) with the main path's synthetic weights on
+     `make_synthetic_batch` at B=8 (16 384 points, 10 gt, the yaml's test
+     caps), eval forward + post-processing. One captured forward gives the
+     kernels' B=8 inputs: K1's five picked convs, all 18 K1 launches and the
+     maps, K2 max and K4 at 800 rois held against their plain versions as in
+     step 4 (entries named `@B8`); then counts reset, one run whose launches
+     must equal EVAL_LAUNCHES (nothing runs per frame), its outputs checked
+     (`check_eval_outputs`), occ points and new merged det rows in every
+     frame; the active sites each level capacity cut a frame and the merged
+     table's drops a frame logged (bench.py's frames overflow the yaml's
+     level-1 and level-2 capacities at any batch); frames 0-1 against the
+     same model on the B=2 batch of the same seed (inputs asserted equal),
+     stage by stage (`batch_independence`): a B=8 batch of frames 0-1
+     repeated gives them the B=8 run's bits at every stage, and the level
+     capacities cut frames 0-1 the same sites at B=8 and at B=2; the first
+     stage where a bit differs from the B=2 run is logged with the
+     detections that moved, and must be one of DENSE_STAGES (the BEV
+     pyramid, the RPN, ConvHead: their cuDNN / cuBLAS calls see the whole
+     batch); the B=2 run is then traced with those stages' B=8 outputs
+     replaced in, their own held within DENSE_ROUNDING of their max, and
+     every other output of every stage must equal the B=8 run's bit for
+     bit (the roi-grouped queries that differ proven valid); the bound's
+     readings against two planted faults are logged (frames swapped must
+     exceed it); the forward + post median and spread, frames/s, peak
+     memory, stage ms and the device idle share, stage ms a frame against
+     B=2, the roi-grouped query alone (ms and peak a stage); then
+     `config.fast20k()` at B=8 (launches, outputs, the sites cut a level,
+     its median beside the shipped caps');
   3. capture: one forward of the full flagship model at B=2 records the
      inputs its kernels see (these launches are not counted);
   4. kernel phase: each kernel against its plain PyTorch version on the
@@ -135,9 +170,16 @@ Phases (any failure raises and exits non-zero, printing no result):
      gradients and the parameters after the step equal on both ranks bit
      for bit, a repeat the same bits, each rank's launches TRAIN_LAUNCHES,
      the step and all-reduce ms, the distance from the one-process B=4
-     step); the f32 step of `small_config(full=True)`, 1 frame a rank,
-     against one process at B=2 (same sampled rois, gradients within 1e-3
-     of each tensor's max, BN statistics within 1e-5). Run inside the
+     step); the f32 step of the micro config and of `small_config(full=True)`
+     with the model's own output projections and with DP_PROJ_SEEDS' draws
+     of them, 1 frame a rank, against one process at B=2: the discrete
+     choices that part them counted (sampled rois, proposal NMS keeps, occ
+     top-k rows, exact ball queries, the signs of ConvHead's conv-stack
+     ReLU inputs), then with the ranks' ball queries and ReLU signs
+     replayed in the one-process step, each differing ball proven valid
+     and each differing sign's input within RELU_EDGE of 0 in both runs
+     (same sampled rois, gradients within 1e-3 of each tensor's max, BN
+     statistics within 1e-5). Run inside the
      fourth and sixth paths' trees: `tools/test_torch.py --launcher
      pytorch` under torchrun (merged det_annos equal the one-process
      run's bit for bit, same AP) and `tools/train_torch.py --launcher
@@ -242,14 +284,24 @@ Phases (any failure raises and exits non-zero, printing no result):
      dropped at the level capacities, the merged det table's drops a frame
      and every gt's heading error. The default run trains
      OVERFIT_GATE_EPOCHS epochs and gates on the last epoch's mean loss
-     below OVERFIT_GATE_FALL of the first's; `--overfit` trains 150 epochs
+     below OVERFIT_GATE_FALL of the first's, then evaluates the gate's
+     checkpoint through `tools/test_torch.py` at `--batch_size 8` (batches
+     of 8, 8, 8 and 1) and at 1 with the score threshold at
+     OVERFIT_BATCH_SCORE: launches EVAL_LAUNCHES a forward, detections in
+     both, the AP keys equal, the frames' detections compared and logged;
+     then each batch of 8 through the same net gives the CLI's detections
+     bit for bit, and each of its frames alone, with the batch's outputs of
+     the BEV pyramid, the RPN and ConvHead replaced in (their own held
+     within DENSE_ROUNDING of their max), equals the batch's frame bit for
+     bit at every stage (`eval_batch_agreement`); `--overfit` trains 150 epochs
      (1 800 steps, the JAX package's proof) and gates on 3d, bev and bbox
      AP_R40 >= OVERFIT_AP_MIN at every difficulty for every class and on
      Car AOS >= OVERFIT_AP_MIN with 2048 occ points (the default
      population's AOS is recorded, not gated); `--three_classes` runs it on
      the 3-class yaml;
-  9. JSON lines of the thirteenth path's numbers and of per-kernel numbers,
-     then the contract line {"ok": true, "device": {...}}.
+  9. JSON lines of the thirteenth path's numbers and of per-kernel numbers
+     (the first path's `@B8` entries last), then the contract line
+     {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -290,6 +342,17 @@ def gpu_name_and_power_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True, timeout=60)
     return r.stdout.strip().splitlines()[0]
+
+
+def load_tool(name: str):
+    """`tools/<name>.py` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -536,6 +599,28 @@ def k1_case(name, args, df: bool = False, transpose: bool = False):
             "plain_ms": map_plain_ms, "bound_ms": map_bound_s * 1e3, "bound_by": "bytes",
             "library_ms": None}
     return [nmap, gemm]
+
+
+def eval_conv_picks(convs, suffix: str = "") -> dict:
+    """{name: captured args} of the five K1 convs the kernel phase holds
+    against their plain versions, from an eval forward's `sparse_conv`
+    calls (args: features, keys, out_coords, weights, in_shape, batch,
+    kernel, stride, padding), picked by kernel / stride / Cout, first in
+    call order; `suffix` ends each name."""
+    def pick(kernel, stride, cout):
+        return next(a for a in convs
+                    if a[6] == kernel and a[7] == stride and a[3].shape[2] == cout)
+
+    c1 = pick((3, 3, 3), (1, 1, 1), 16)
+    c2c = pick((3, 3, 3), (1, 1, 1), 32)
+    picks = {
+        f"conv1(subm {c1[0].shape[1]}->16)": c1,
+        "conv2(3^3 s2 16->32)": pick((3, 3, 3), (2, 2, 2), 32),
+        f"conv2_combine_0(subm {c2c[0].shape[1]}->32)": c2c,
+        "conv_out(3x1x1 s2 64->128)": pick((3, 1, 1), (2, 1, 1), 128),
+        "down_combine_0(subm 256->128)": pick((3, 3, 3), (1, 1, 1), 128),
+    }
+    return {name + suffix: args for name, args in picks.items()}
 
 
 def k1_eval_table(conv_calls, map_calls):
@@ -923,14 +1008,16 @@ def stage_times(net, batch, post_cfg) -> dict:
     return {s: round(times[s], 3) for s in STAGES if s in times}
 
 
-def stage_profile(net, batch, post_cfg):
+def stage_profile(net, batch, post_cfg, label: str = "step"):
     """Where the time goes in one forward + post-processing: wall ms per
     stage, then one step under torch.profiler for the device's idle share
-    and its top kernels."""
+    and its top kernels. Returns (stage ms, profiled wall ms, kernel ms)."""
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
 
-    log("stage ms (synchronised): " + json.dumps(stage_times(net, batch, post_cfg)))
-    profile_step(lambda: post_processing(net(batch), post_cfg, 1), STAGES)
+    stages = stage_times(net, batch, post_cfg)
+    log("stage ms (synchronised): " + json.dumps(stages))
+    return (stages, *profile_step(lambda: post_processing(net(batch), post_cfg, 1), STAGES,
+                                  label))
 
 
 def occ_determinism(net, batch, post_cfg):
@@ -1070,7 +1157,8 @@ def kernel_times(prof, ranges=()) -> dict:
 def profile_step(fn, ranges=(), label: str = "step"):
     """One call of fn() under torch.profiler: wall ms, kernel time, the
     device's idle share and the top kernels (names in `ranges` are the
-    profiler ranges of the stages, not kernels)."""
+    profiler ranges of the stages, not kernels). Returns (wall ms, kernel
+    ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1085,6 +1173,7 @@ def profile_step(fn, ranges=(), label: str = "step"):
         f"device idle share {idle_share(busy, wall)}")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:9.3f} ms  x{n:<5d} {name[:100]}")
+    return wall, busy
 
 
 def full_matrix_nms(boxes, scores, valid, *, thresh, pre_max_size, post_max_size):
@@ -1248,8 +1337,7 @@ def small_input_check(cfg, label: str, spread: bool = False):
     from btcdet_tpu_torch.models.detectors.btcnet import clamp_intensity
 
     full = cfg.MODEL.get("OCC") is not None
-    balls = {"calls": [], "flips": 0, "worst": 0.0, "moved": 0, "moved_differ": 0,
-             "moved_max": 0.0, "differ": []}
+    balls = ball_record()
     with f32_everywhere():
         outs, occ = {}, {}
         for dev in ("cuda", "cpu"):
@@ -1650,12 +1738,14 @@ def k3_step_table(dw_calls):
 
 
 def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
-                batch_size: int = 2, bev_sharding: bool = False):
+                batch_size: int = 2, bev_sharding: bool = False, proj_seed=None):
     """A flagship-layout net of `cfg`'s CLASS_NAMES in train mode with
     synthetic weights (`bev_sharding` as `build_network`'s), its dual
     optimizer and a `mode="train"` synthetic batch of `batch_size` frames
     (its gt boxes `relabel`led over the classes where there are
-    several)."""
+    several). With `proj_seed` the output projections' random weights
+    (the RPN box conv's and ConvHead's final cls and reg convs') are drawn
+    again by their law, N(0, 0.001^2), from a generator of that seed."""
     import torch
 
     from btcdet_tpu_torch import weights
@@ -1675,9 +1765,13 @@ def train_setup(cfg, num_points: int, num_gt: int, seed: int, device="cuda",
     head = net.det_modules.roi_head
     finals = [f"det_modules.roi_head.{t}.{len(list(getattr(head, t).children())) - 1}"
               for t in ("cls_layers", "reg_layers")]
-    for k in ("det_modules.dense_head.conv_cls.bias", "det_modules.dense_head.conv_box.weight",
-              *(f + ".weight" for f in finals), *(f + ".bias" for f in finals)):
+    drawn = ("det_modules.dense_head.conv_box.weight", *(f + ".weight" for f in finals))
+    for k in ("det_modules.dense_head.conv_cls.bias", *drawn, *(f + ".bias" for f in finals)):
         sd[k] = own[k].cpu()
+    if proj_seed is not None:
+        g = torch.Generator().manual_seed(proj_seed)
+        for k in drawn:
+            sd[k] = torch.randn(own[k].shape, generator=g) * 0.001
     net.load_state_dict(sd)
     net.train()
     opt = trainer.create_train_state(net, cfg.OPTIMIZATION, cfg.OCC_OPTIMIZATION, 1000)
@@ -1837,7 +1931,6 @@ def eval_cli_phase(card: str):
     loop's frames per second and wall ms by part (with 2 loader workers and
     with none), the host pipeline's ms a frame and the device's idle share
     over a profiled run of the loop."""
-    import importlib.util
     import tempfile
     from pathlib import Path
 
@@ -1854,10 +1947,7 @@ def eval_cli_phase(card: str):
     from btcdet_tpu_torch.train import eval_utils
 
     t_phase = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "test_torch_cli", os.path.join(REPO, "tools", "test_torch.py"))
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = load_tool("test_torch")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
         tmp = Path(tmp)
         root = tmp / "kitti"
@@ -2013,7 +2103,6 @@ def variant_train_phase():
 
 def train_cli_phase(card: str):
     """The training entry point end to end (see the module docstring, 8.)."""
-    import importlib.util
     import tempfile
     from pathlib import Path
 
@@ -2028,10 +2117,7 @@ def train_cli_phase(card: str):
     from btcdet_tpu_torch.train import checkpoint
 
     t_phase = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "train_torch_cli", os.path.join(REPO, "tools", "train_torch.py"))
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = load_tool("train_torch")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         tmp = Path(tmp)
         root = tmp / "kitti"
@@ -2918,7 +3004,6 @@ def three_class_clis(card: str):
     gt boxes of every class pasted) with its trailing eval; then
     `tools/test_torch.py` on that checkpoint: every val frame, finite AP
     keys for each class."""
-    import importlib.util
     import tempfile
     from pathlib import Path
 
@@ -2932,12 +3017,7 @@ def three_class_clis(card: str):
     from btcdet_tpu_torch.train import checkpoint
 
     t_phase = time.perf_counter()
-    clis = {}
-    for name in ("train_torch", "test_torch"):
-        spec = importlib.util.spec_from_file_location(
-            f"{name}_cli_3class", os.path.join(REPO, "tools", f"{name}.py"))
-        clis[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(clis[name])
+    clis = {name: load_tool(name) for name in ("train_torch", "test_torch")}
     classes = ("Car", "Pedestrian", "Cyclist")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3class_") as tmp:
         tmp = Path(tmp)
@@ -3737,22 +3817,30 @@ def run_group(cmds, label: str, timeout: float = DP_TIMEOUT_S) -> list:
     return outs
 
 
-def record_picks():
+def record_picks(proposals: list | None = None):
     """Wrap `roi_head_utils.subsample_rois` to record each frame's sampled
-    roi indices and foreground flags; returns (list, undo)."""
+    roi indices and foreground flags (and with `proposals` a list, the
+    proposal NMS's kept rois and flags into it); returns (list, undo)."""
     from btcdet_tpu_torch.models.roi_heads import roi_head_utils as RH
 
-    picked, orig = [], RH.subsample_rois
+    picked, orig, orig_prop = [], RH.subsample_rois, RH.proposal_layer
 
     def subsample(*a, **k):
         out = orig(*a, **k)
         picked.append(tuple(t.cpu() for t in out))
         return out
 
+    def proposal(*a, **k):
+        out = orig_prop(*a, **k)
+        proposals.append((out.rois.detach().cpu(), out.roi_valid.cpu()))
+        return out
+
     RH.subsample_rois = subsample
+    if proposals is not None:
+        RH.proposal_layer = proposal
 
     def undo():
-        RH.subsample_rois = orig
+        RH.subsample_rois, RH.proposal_layer = orig, orig_prop
     return picked, undo
 
 
@@ -3765,7 +3853,7 @@ def host_grads(net) -> dict:
             if p.grad is not None}
 
 
-def dp_step_worker(io: str):
+def dp_step_worker(io: str, proj_seeds=()):
     """A rank of the data-parallel train step (see `dp_step_phase`)."""
     import copy
 
@@ -3826,49 +3914,61 @@ def dp_step_worker(io: str):
         del net, opt, batch, snap, opt_snap, g2, s2
         torch.cuda.empty_cache()
 
-        out.update(dp_f32_cases(io, dev, rank, world))
+        out.update(dp_f32_cases(io, dev, rank, world, proj_seeds))
         torch.save(out, os.path.join(io, f"rank{rank}.pt"))
     finally:
         parallel.destroy()
 
 
-def dp_f32_cases(io: str, dev, rank: int, world: int) -> dict:
-    """A rank's F32_CASES steps in float32, 1 frame a rank: the micro
-    config, and the flagship's widths on a 16 m scene."""
+def dp_f32_cases(io: str, dev, rank: int, world: int, proj_seeds=()) -> dict:
+    """A rank's `f32_cases(proj_seeds)` steps in float32, 1 frame a rank:
+    the micro config, and the flagship's widths on a 16 m scene with the
+    output projections of each draw; records the rank's sampled rois,
+    proposal NMS keeps, kept outputs, ball queries (`replay_ball_queries`)
+    and conv-stack ReLU signs (`replay_relu_signs`)."""
     import torch
 
     from btcdet_tpu_torch import parallel
     from btcdet_tpu_torch.train import trainer
 
     out = {}
-    for name, (cfg_fn, points, gts) in F32_CASES.items():
+    for name, (cfg_fn, points, gts, proj_seed) in f32_cases(proj_seeds).items():
         with f32_everywhere():
             net, opt, batch = train_setup(cfg_fn(), points, gts, 3, device=dev,
-                                          batch_size=world)
+                                          batch_size=world, proj_seed=proj_seed)
             batch = trainer.split_batch(batch, rank, world)
             parallel.broadcast_state(net)
             if rank == 0:
                 torch.save(host_state(net), os.path.join(io, f"init_{name}.pt"))
-            picked, undo = record_picks()
+            proposals, rec, relus = [], ball_record(), relu_record()
+            picked, undo = record_picks(proposals)
             kept = dict.fromkeys(KEPT)
             try:
-                m = trainer.train_step(net, opt, batch,
-                                       torch.Generator(device=dev).manual_seed(0), keep=kept)
+                with replay_ball_queries(rec, record=True), replay_relu_signs(relus, True):
+                    m = trainer.train_step(net, opt, batch,
+                                           torch.Generator(device=dev).manual_seed(0), keep=kept)
             finally:
                 undo()
         out[name] = {"metrics": {k: float(v) for k, v in m.items()},
                      "grads": host_grads(net), "state": host_state(net), "picked": picked,
+                     "proposals": proposals, "balls": rec, "relus": relus,
                      "kept": {k: v.cpu() for k, v in kept.items()}}
         del net, opt, batch
     return out
 
 
 def one_process_step(cfg, init_path, batch_size, num_points, num_gt, seed, generator,
-                     f32=False, perturb=0.0, kept=None):
+                     f32=False, perturb=0.0, kept=None, balls=None, relus=None,
+                     proposals=None):
     """The one-process train step on the card from a rank's saved initial
     weights (each float parameter times 1 + `perturb` * N(0, 1) when
     given): (metrics, gradients, state after, sampled rois); `kept`, a
-    dict of output names, gets those outputs on the host."""
+    dict of output names, gets those outputs on the host; `balls`, a
+    `ball_record` of the same step, is replayed (`replay_ball_queries`:
+    each ball query's own answer held against the recorded one and
+    replaced by it), and `relus`, a `relu_record`, likewise
+    (`replay_relu_signs`); `proposals`, a list, gets the proposal NMS's
+    keeps."""
     import torch
 
     from btcdet_tpu_torch.train import trainer
@@ -3883,9 +3983,14 @@ def one_process_step(cfg, init_path, batch_size, num_points, num_gt, seed, gener
             with torch.no_grad():
                 for p in net.parameters():
                     p.mul_(1 + perturb * torch.randn(p.shape, generator=g).to(p.device))
-        picked, undo = record_picks()
+        picked, undo = record_picks(proposals)
         try:
-            m = trainer.train_step(net, opt, batch, generator, keep=kept)
+            with contextlib.ExitStack() as replay:
+                if balls is not None:
+                    replay.enter_context(replay_ball_queries(balls, record=False))
+                if relus is not None:
+                    replay.enter_context(replay_relu_signs(relus, record=False))
+                m = trainer.train_step(net, opt, batch, generator, keep=kept)
             torch.cuda.synchronize()
         finally:
             undo()
@@ -3895,49 +4000,226 @@ def one_process_step(cfg, init_path, batch_size, num_points, num_gt, seed, gener
 
 
 # the f32 comparisons of the data-parallel step with one process: (config,
-# points, gt boxes a frame)
-F32_CASES = {"micro": (lambda: micro_train_config(), 2048, 4),
-             "small": (lambda: small_config(full=True), 4096, 4)}
+# points, gt boxes a frame, the output projections' draw: None keeps the
+# model's own)
+def f32_cases(proj_seeds=()) -> dict:
+    """The micro config, the small config with the output projections the
+    model draws (the configs' own), and the small config with each draw of
+    `proj_seeds` (`train_setup(proj_seed=)`)."""
+    cases = {"micro": (lambda: micro_train_config(), 2048, 4, None),
+             "small": (lambda: small_config(full=True), 4096, 4, None)}
+    for s in proj_seeds:
+        cases[f"small@proj{s}"] = (lambda: small_config(full=True), 4096, 4, int(s))
+    return cases
+
+
+# the draws of the small config's output projections the default run holds
+# besides the model's own: on draws 1, 2, 3 and 6 the runs part by ReLU
+# inputs of ConvHead's x_combine conv stack at 0 (2-4 a draw), on 3 and 6 by
+# exact balls at their radius too (PERF.md, §6)
+DP_PROJ_SEEDS = tuple(range(1, 11))
 # the train forward's outputs each rank's frames are compared on
 KEPT = ("rois", "occ_points")
 
 
-def f32_case(card: str, name: str, cfg_fn, points: int, gts: int, ranks, io: str):
-    """One F32_CASES comparison: the data-parallel step (2 ranks x 1
+def ball_record() -> dict:
+    """The record `replay_ball_queries` fills and reads."""
+    return {"calls": [], "flips": 0, "worst": 0.0, "moved": 0, "moved_differ": 0,
+            "moved_max": 0.0, "differ": []}
+
+
+# an input of a ReLU in ConvHead's x_combine conv stack within this share of
+# its call's largest |input| of 0 may take either sign in two runs whose
+# forwards part by f32 rounding (the data-parallel step's inputs of the
+# roi head's FCs part by about 2e-6 of their max)
+RELU_EDGE = 1e-5
+
+
+def relu_record() -> dict:
+    """The record `replay_relu_signs` fills and reads."""
+    return {"calls": [], "flips": 0, "worst": 0.0, "of": 0}
+
+
+@contextlib.contextmanager
+def replay_relu_signs(rec: dict, record: bool):
+    """The ReLUs of ConvHead's x_combine conv stack (`_conv_stack`)
+    recorded (`record`) into rec["calls"]: each call's signs (input > 0)
+    and the inputs within RELU_EDGE of 0 (relative to the call's largest
+    |input|), on the host; or replayed: the elements whose sign differs
+    from the recorded call's must lie within RELU_EDGE of 0 in both runs,
+    and every element takes the recorded sign (the ReLU passes its input
+    where the recorded one was positive, 0 elsewhere, and so routes the
+    gradient). rec["flips"] counts the differing signs, rec["worst"] is
+    their largest |input| relative to the call's largest, rec["of"] the
+    inputs seen."""
+    import torch
+
+    from btcdet_tpu_torch.models.roi_heads import conv_head
+
+    orig_stack, orig_relu = conv_head.ConvHead._conv_stack, torch.relu
+    calls = iter(list(rec["calls"]))
+
+    def near_zero(x):
+        a = x.detach().abs()
+        return a <= RELU_EDGE * float(a.max()), a
+
+    def recorded(x):
+        rec["calls"].append({"pos": (x > 0).cpu(), "near": near_zero(x)[0].cpu()})
+        return orig_relu(x)
+
+    def replayed(x):
+        want = next(calls)
+        pos = want["pos"].to(x.device)
+        flip = (x > 0) != pos
+        rec["of"] += x.numel()
+        if bool(flip.any()):
+            near, a = near_zero(x)
+            assert bool((near & want["near"].to(x.device))[flip].all()), (
+                "conv-stack ReLU inputs whose sign differs lie away from 0")
+            rec["flips"] += int(flip.sum())
+            rec["worst"] = max(rec["worst"], float(a[flip].max() / a.max()))
+        return torch.where(pos, x, torch.zeros_like(x))
+
+    def stack(self, g, m):
+        torch.relu = recorded if record else replayed
+        try:
+            return orig_stack(self, g, m)
+        finally:
+            torch.relu = orig_relu
+
+    conv_head.ConvHead._conv_stack = stack
+    try:
+        yield
+    finally:
+        conv_head.ConvHead._conv_stack = orig_stack
+
+
+def merged_record(ranks, name: str) -> dict:
+    """The ranks' `ball_record`s of case `name` (1 frame a rank), call by
+    call, as one record of a batch of the ranks' frames in rank order."""
+    import torch
+
+    recs = [res[name]["balls"] for res in ranks]
+    assert len({len(r["calls"]) for r in recs}) == 1
+    assert not any(r.get("grouped") for r in recs), "grouped calls"
+    out = ball_record()
+    for per_rank in zip(*(r["calls"] for r in recs)):
+        out["calls"].append((
+            torch.cat([q for q, _ in per_rank]),
+            [(torch.cat([sc[i][0] for _, sc in per_rank]),
+              torch.cat([sc[i][1] for _, sc in per_rank])) for i in range(len(per_rank[0][1]))]))
+    return out
+
+
+def merged_relus(ranks, name: str) -> dict:
+    """The ranks' `relu_record`s of case `name`, call by call, as one record
+    of a batch of the ranks' frames in rank order (the conv stack's rows
+    are frame-major)."""
+    import torch
+
+    recs = [res[name]["relus"]["calls"] for res in ranks]
+    assert len({len(r) for r in recs}) == 1
+    out = relu_record()
+    out["calls"] = [{k: torch.cat([c[k] for c in per_rank]) for k in ("pos", "near")}
+                    for per_rank in zip(*recs)]
+    return out
+
+
+def discrete_choices(ranks, name: str, picked, proposals, kept) -> dict:
+    """Counts of the discrete choices that part the ranks' frames from the
+    one-process step's: sampled roi indices and foreground flags, proposal
+    NMS keeps (a kept row whose flag or box differs by more than 1e-4 of the
+    max), occ top-k rows (more than 1e-4 of the max)."""
+    import torch
+
+    out = {"sampled_rois": 0, "nms_keeps": 0, "occ_topk": 0}
+    for r, res in enumerate(ranks):
+        rp = res[name]
+        # subsample_rois runs frame by frame
+        out["sampled_rois"] += int((rp["picked"][0][0] != picked[r][0]).sum())
+        (rr, rv), (orr, orv) = rp["proposals"][0], proposals[0]
+        tol = 1e-4 * max(float(orr.abs().max()), 1e-30)
+        box = (rr[0] - orr[r]).abs().amax(-1) > tol
+        out["nms_keeps"] += int(((rv[0] != orv[r]) | ((rv[0] | orv[r]) & box)).sum())
+        occ, oocc = rp["kept"]["occ_points"][0], kept["occ_points"][r]
+        out["occ_topk"] += int(((occ - oocc).abs().amax(-1)
+                                > 1e-4 * max(float(oocc.abs().max()), 1e-30)).sum())
+    return out
+
+
+def f32_case(card: str, name: str, cfg_fn, points: int, gts: int, ranks, io: str) -> str:
+    """One `f32_cases` comparison: the data-parallel step (2 ranks x 1
     frame) against one process at B=2 from the same weights, batch and
-    generator: the same sampled rois (indices and boxes) and occ points,
-    the loss and the BN running statistics within 1e-5, every gradient
-    tensor within 1e-3 of its max."""
+    generator. The discrete choices that part them are counted
+    (`discrete_choices`, the exact ball queries whose lists differ and the
+    conv-stack ReLU inputs whose sign differs); the one-process step is
+    then run again with the ranks' ball queries and conv-stack ReLU signs
+    replayed (each differing ball proven valid for its own query,
+    `replay_ball_queries`; each differing sign's input within RELU_EDGE of
+    0 in both runs, `replay_relu_signs`), and held to: the same sampled rois
+    (indices and boxes) and occ points, the loss and the BN running
+    statistics within 1e-5, every gradient tensor within 1e-3 of its max.
+    Returns "" or what failed."""
     import torch
 
     init = os.path.join(io, f"init_{name}.pt")
-    kept = dict.fromkeys(KEPT)
-    metrics, grads, state, picked = one_process_step(
-        cfg_fn(), init, DP_WORLD, points, gts, 3,
-        torch.Generator(device=DP_DEVICE).manual_seed(0), f32=True, kept=kept)
-    g = ranks[0][name]
-    assert g["grads"].keys() == grads.keys()
-    rois_equal = all(torch.equal(res[name]["picked"][0][i], picked[r][i])
-                     for r, res in enumerate(ranks) for i in (0, 1))
-    # each output's largest difference over the ranks' frames, relative to its max
-    outs = {k: max(float((res[name]["kept"][k][0] - v[r]).abs().max()) for r, res in
-                   enumerate(ranks)) / max(float(v.abs().max()), 1e-30) for k, v in kept.items()}
-    rel = grad_distance(g["grads"], grads)
-    stats = max(float((g["state"][k] - v).abs().max()) for k, v in state.items()
-                if "running_" in k)
-    loss_rel = abs(g["metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"])
+    res = {}
+    for replay in (False, True):
+        kept, proposals = dict.fromkeys(KEPT), []
+        rec = merged_record(ranks, name) if replay else None
+        relus = merged_relus(ranks, name) if replay else None
+        metrics, grads, state, picked = one_process_step(
+            cfg_fn(), init, DP_WORLD, points, gts, 3,
+            torch.Generator(device=DP_DEVICE).manual_seed(0), f32=True, kept=kept,
+            balls=rec, relus=relus, proposals=proposals)
+        g = ranks[0][name]
+        assert g["grads"].keys() == grads.keys()
+        res[replay] = {
+            "rois_equal": all(torch.equal(rk[name]["picked"][0][i], picked[r][i])
+                              for r, rk in enumerate(ranks) for i in (0, 1)),
+            # each output's largest difference over the ranks' frames, relative to its max
+            "outs": {k: max(float((rk[name]["kept"][k][0] - v[r]).abs().max())
+                            for r, rk in enumerate(ranks)) / max(float(v.abs().max()), 1e-30)
+                     for k, v in kept.items()},
+            "rel": grad_distance(g["grads"], grads),
+            "stats": max(float((g["state"][k] - v).abs().max()) for k, v in state.items()
+                         if "running_" in k),
+            "loss_rel": abs(g["metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"]),
+            "choices": discrete_choices(ranks, name, picked, proposals, kept),
+            "balls": rec, "relus": relus}
+    before, after = res[False], res[True]
+    balls, relus = after["balls"], after["relus"]
+    n_balls = sum(int(e[1].numel()) for _, sc in balls["calls"] for e in sc)
     log(f"[{card}] data-parallel f32 step ({name} config, 2 ranks x 1 frame) against one "
-        f"process at B=2 on the card: sampled roi indices equal {rois_equal}; roi boxes and "
-        f"occ points largest difference relative to their max "
-        f"{json.dumps({k: f'{v:.3e}' for k, v in outs.items()})} (bound 1e-4); loss relative "
-        f"difference {loss_rel:.3e}; largest BN running-statistic difference {stats:.3e} "
-        f"(bound 1e-5); gradient difference relative to each tensor's max: largest "
-        f"{max(rel.values()):.3e} over {len(rel)} tensors (bound 1e-3), worst 8 "
-        + json.dumps(worst_of(rel)))
-    assert rois_equal and max(outs.values()) <= 1e-4, (name, outs)
-    assert loss_rel <= 1e-5, (name, loss_rel)
-    assert stats <= 1e-5, (name, stats)
-    assert max(rel.values()) <= 1e-3, (name, worst_of(rel))
+        f"process at B=2 on the card: discrete choices that differ "
+        + json.dumps(dict(after["choices"], exact_balls=balls["flips"] + balls["moved_differ"],
+                          exact_balls_of=n_balls, grouped_calls=0,
+                          conv_stack_relu_signs=relus["flips"], relu_inputs_of=relus["of"]))
+        + f"; the differing balls, each proven valid for its own query: "
+        f"{json.dumps(balls['differ'][:8])}; the point that flips lies at most "
+        f"{balls['worst']:.2e} m^2 from its radius^2; the ReLU inputs whose sign differs lie "
+        f"at most {relus['worst']:.2e} of their call's largest |input| from 0 (bound "
+        f"{RELU_EDGE})")
+    for label, r in (("own choices", before), ("the ranks' balls and ReLU signs replayed",
+                                                after)):
+        log(f"[{card}]   {name}, {label}: sampled roi indices equal {r['rois_equal']}; roi "
+            f"boxes and occ points largest difference relative to their max "
+            f"{json.dumps({k: f'{v:.3e}' for k, v in r['outs'].items()})} (bound 1e-4); loss "
+            f"relative difference {r['loss_rel']:.3e}; largest BN running-statistic difference "
+            f"{r['stats']:.3e} (bound 1e-5); gradient difference relative to each tensor's max: "
+            f"largest {max(r['rel'].values()):.3e} over {len(r['rel'])} tensors (bound 1e-3), "
+            f"worst 8 " + json.dumps(worst_of(r["rel"])))
+    r = after
+    fails = []
+    if not (r["rois_equal"] and max(r["outs"].values()) <= 1e-4):
+        fails.append(f"rois / outputs {r['outs']}")
+    if r["loss_rel"] > 1e-5:
+        fails.append(f"loss {r['loss_rel']:.3e}")
+    if r["stats"] > 1e-5:
+        fails.append(f"BN statistics {r['stats']:.3e}")
+    if max(r["rel"].values()) > 1e-3:
+        fails.append(f"gradients {worst_of(r['rel'], 3)}")
+    return f"{name}: " + "; ".join(fails) if fails else ""
 
 
 def grad_distance(grads, ref) -> dict:
@@ -3961,7 +4243,7 @@ def group_distance(grads, ref) -> dict:
     return out
 
 
-def dp_step_phase(card: str):
+def dp_step_phase(card: str, proj_seeds=DP_PROJ_SEEDS):
     """Seventh path, parts 1 and 2: 2 ranks over gloo, both on cuda:0.
     1. The flagship train step at full width (train caps), 2 frames a
     rank of a synthetic B=4 batch, from the same synthetic weights:
@@ -3970,9 +4252,12 @@ def dp_step_phase(card: str):
     rank's launches TRAIN_LAUNCHES, the loss finite; the median step ms
     and the gradient all-reduce's ms; the loss's and each gradient
     group's relative distance from the one-process B=4 step.
-    2. `small_config(full=True)` in float32, 1 frame a rank, against one
-    process at B=2: the same sampled rois, every gradient within 1e-3 of
-    its tensor's max, the BN running statistics within 1e-5."""
+    2. `f32_cases(proj_seeds)` in float32, 1 frame a rank, against one
+    process at B=2 (`f32_case`): the discrete choices that part them
+    counted, then with the ranks' ball queries and conv-stack ReLU signs
+    replayed (each differing one proven valid) the same sampled rois, every
+    gradient within 1e-3 of its tensor's max, the BN running statistics
+    within 1e-5."""
     import tempfile
 
     import torch
@@ -3984,8 +4269,9 @@ def dp_step_phase(card: str):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as io:
         port = free_port()
-        run_group([(SELF + ["--dp-worker", "step", io], rank_env(r, DP_WORLD, port))
-                   for r in range(DP_WORLD)], "data-parallel step ranks")
+        run_group([(SELF + ["--dp-worker", "step", io, *map(str, proj_seeds)],
+                    rank_env(r, DP_WORLD, port)) for r in range(DP_WORLD)],
+                  "data-parallel step ranks")
         ranks = [torch.load(os.path.join(io, f"rank{r}.pt"), weights_only=False)
                  for r in range(DP_WORLD)]
         a, b = ranks[0]["full"], ranks[1]["full"]
@@ -4028,8 +4314,9 @@ def dp_step_phase(card: str):
             f"difference by group: " + json.dumps(group_distance(cgrads, grads)))
         assert math.isfinite(loss_rel), loss_rel
 
-        for name, (cfg_fn, points, gts) in F32_CASES.items():
-            f32_case(card, name, cfg_fn, points, gts, ranks, io)
+        fails = [f32_case(card, name, cfg_fn, points, gts, ranks, io)
+                 for name, (cfg_fn, points, gts, _) in f32_cases(proj_seeds).items()]
+        assert not any(fails), [f for f in fails if f]
     log(f"[{card}] seventh path, data-parallel steps: {time.perf_counter() - t0:.1f} s")
 
 
@@ -4038,14 +4325,10 @@ def dp_cli_worker(task: str, io: str, argv: list):
     (`train_cli_cut`: stopped after the first epoch's checkpoint) records
     every step's launches and loss and the trailing eval; `eval_cli` the
     merged det_annos, the result and the launches."""
-    import importlib.util
     import pickle
 
     name = "train_torch" if task.startswith("train") else "test_torch"
-    spec = importlib.util.spec_from_file_location(name + "_cli",
-                                                  os.path.join(REPO, "tools", name + ".py"))
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = load_tool(name)
     rank = int(os.environ["RANK"])
     rec = {"steps": []}
     reset_launches()
@@ -4886,6 +5169,10 @@ def approx_query_path(card: str):
 OVERFIT_STEPS_A_EPOCH = 12         # 25 frames at B=2, the last partial batch dropped
 OVERFIT_GATE_EPOCHS = 10           # the default run's short gate
 OVERFIT_GATE_FALL = 0.5            # its last epoch's mean loss below this share of its first's
+# the eval CLI's batch comparison on the gate's checkpoint lowers the score
+# threshold to this: after OVERFIT_GATE_EPOCHS the model scores no detection
+# above the yaml's 0.60, and at 0 every valid roi left by the NMS is kept
+OVERFIT_BATCH_SCORE = 0.0
 OVERFIT_AP_MIN = 99.0              # the full proof: 3d / bev / bbox AP_R40, and Car AOS at 2048
 # the trailing eval, the 2048 one and the default population's, 13 batches each
 OVERFIT_EVAL_FORWARDS = 3 * 13
@@ -4895,16 +5182,12 @@ AP_DIFFICULTIES = ("easy", "moderate", "hard")
 def overfit_path(card: str, full: bool = False, three_classes: bool = False) -> dict:
     """The thirteenth path (module docstring, 8h): the short gate, or with
     `full` the whole proof. Returns its numbers for the JSON line."""
-    import importlib.util
     import tempfile
 
     import torch
 
     t0 = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "overfit_proof_torch", os.path.join(REPO, "tools", "overfit_proof_torch.py"))
-    proof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(proof)
+    proof = load_tool("overfit_proof_torch")
     steps = []
 
     def on_step(gstep, batch, metrics):
@@ -4919,12 +5202,14 @@ def overfit_path(card: str, full: bool = False, three_classes: bool = False) -> 
     argv = ["--fresh", "--epochs", str(epochs)] + (["--three_classes"] if three_classes else [])
     with contextlib.ExitStack() as stack:
         if not full:   # the gate's data and checkpoints go with it
-            argv += ["--root", stack.enter_context(tempfile.TemporaryDirectory(
-                prefix="chip_smoke_overfit_"))]
+            root = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_overfit_"))
+            argv += ["--root", root]
         reset_launches()
         summary = proof.main(argv, on_step=on_step)
         torch.cuda.synchronize()
         eval_launches = read_launches()
+        if not full:
+            batches = eval_batch_agreement(card, proof, root)
     label = f"{'3-class ' if three_classes else ''}overfit {'proof' if full else 'gate'}"
     assert summary["steps_per_epoch"] == OVERFIT_STEPS_A_EPOCH, summary["steps_per_epoch"]
     assert summary["start_step"] == 0 and len(steps) == epochs * OVERFIT_STEPS_A_EPOCH, (
@@ -4971,12 +5256,698 @@ def overfit_path(card: str, full: bool = False, three_classes: bool = False) -> 
             f"< {OVERFIT_GATE_FALL})")
         assert fall < OVERFIT_GATE_FALL, (fall, epoch_loss)
     log(f"thirteenth path ({label}): {time.perf_counter() - t0:.1f} s ({card})")
-    return {"classes": summary["classes"], "epochs": epochs, "steps": len(steps),
+    return {**({} if full else {"eval_batch_8_against_1": batches}),
+            "classes": summary["classes"], "epochs": epochs, "steps": len(steps),
             "epoch_loss": epoch_loss, "loss_fall": fall, "first_loss": summary["first_loss"],
             "final_loss": summary["final_loss"], "min_loss": summary["min_loss"],
             "ap": summary["ap"], "ap_occ2048": summary["ap_occ2048"],
             "heading_errors": summary["heading_errors"], "steps_per_s": summary["steps_per_s"],
             "wall_s": summary["wall_s"], "card": card}
+
+
+# ------------------------------- the first path: bench.py's main path as shipped
+
+BENCH_B = 8                        # bench.py's batch (its `main`; tools/run_kitti_val.sh's)
+BENCH_PAIR = (0, 1)                # the frames a B=2 batch of the same seed holds
+# the flagship geometry test's bound on detections that move between two
+# runs (tests/test_torch_eval_cli.py): at most this share of them, each
+# within this distance (m) and score of its nearest counterpart
+MOVED_SHARE, MOVED_M, MOVED_SCORE = 0.05, 0.25, 0.01
+SAME_DET = 1e-4                    # a detection with a counterpart within this is unmoved
+
+
+def sparse_frame(st, b: int) -> tuple:
+    """(coords (z, y, x), features) of frame b's rows of a SparseTensor, on
+    the host: the frame's place in its batch left out."""
+    m = st.coords[:, 0] == b
+    return st.coords[m][:, 1:].cpu(), st.features[m].cpu()
+
+
+@contextlib.contextmanager
+def frame_site_drops(calls: list):
+    """`sparse._unique_capped` (a strided conv's output sites under its
+    level capacity) wrapped: each call appends (capacity a frame, [distinct
+    sites wanted a frame], [sites kept a frame]) on the host."""
+    import torch
+
+    from btcdet_tpu_torch.ops import sparse
+
+    orig = sparse._unique_capped
+
+    def counted(cand_keys, capacity, cells_per_batch, batch_size):
+        keys, nnz = orig(cand_keys, capacity, cells_per_batch, batch_size)
+        s = torch.sort(cand_keys.long()).values
+        first = s != sparse.INT32_MAX
+        first[1:] &= s[1:] != s[:-1]
+        kept = keys.long()[keys.long() != sparse.INT32_MAX]
+        calls.append((int(capacity) // int(batch_size), *(
+            torch.bincount((k // cells_per_batch).clamp(0, batch_size - 1),
+                           minlength=batch_size).cpu().tolist() for k in (s[first], kept))))
+        return keys, nnz
+
+    sparse._unique_capped = counted
+    try:
+        yield
+    finally:
+        sparse._unique_capped = orig
+
+
+def frame_views(net, batch, post_cfg, drops=None) -> tuple:
+    """One eval forward + post-processing: its per-frame outputs by stage
+    ({stage: {name: [one host tensor a frame]}}, `btcnet.STAGES` order), the
+    roi-grouped query's calls ((points, mask, radii, `grouped_answer`) on
+    the host), and the forward's and post-processing's outputs; `drops`, a
+    list, gets the strided convs' sites a frame (`frame_site_drops`)."""
+    import torch
+
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+    from btcdet_tpu_torch.ops import group_ops
+
+    seen, queries = {}, []
+    bb = net.det_modules.backbone_3d
+    hooks = [bb.register_forward_pre_hook(lambda m, a: seen.update(merged=a[0])),
+             bb.register_forward_hook(lambda m, a, o: seen.update(encoded=o["encoded"]))]
+    orig = group_ops.multi_ball_query_grouped_cand
+
+    def recorded(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers, group_size,
+                 cand_k=512):
+        out = orig(xyz, xyz_mask, new_xyz, new_mask, radii, nsamples, group_centers,
+                   group_size, cand_k=cand_k)
+        queries.append((xyz.cpu(), xyz_mask.cpu(), radii,
+                        grouped_answer(new_xyz, group_centers, out)))
+        return out
+
+    group_ops.multi_ball_query_grouped_cand = recorded
+    try:
+        with frame_site_drops([] if drops is None else drops):
+            out = net(batch)
+        post = post_processing(out, post_cfg, 1, device=batch["points"].device)
+        torch.cuda.synchronize()
+    finally:
+        group_ops.multi_ball_query_grouped_cand = orig
+        for h in hooks:
+            h.remove()
+    B = batch["points"].shape[0]
+
+    def frames(src, *keys):
+        return {k: [src[k][b].cpu() for b in range(B)] for k in keys}
+
+    merged = [sparse_frame(seen["merged"], b) for b in range(B)]
+    encoded = [sparse_frame(seen["encoded"], b) for b in range(B)]
+    views = {
+        "occ_subnet": dict(frames(out, "occ_probs"), occ_points=[
+            out["occ_points"][b][out["occ_points_mask"][b]].cpu() for b in range(B)],
+            merged_coords=[c for c, _ in merged], merged_features=[f for _, f in merged]),
+        "backbone_3d": dict(frames(out, "spatial_features"),
+                            encoded_coords=[c for c, _ in encoded],
+                            encoded_features=[f for _, f in encoded]),
+        "bev": frames(out, "spatial_features_2d"),
+        "dense_head": frames(out, "rpn_cls_preds", "rpn_box_preds"),
+        "proposal_nms": frames(out, "rois", "roi_valid"),
+        "roi_head": frames(out, "batch_cls_preds", "batch_box_preds"),
+        "post_processing": frames(post, "pred_boxes", "pred_scores", "pred_labels",
+                                  "pred_valid"),
+    }
+    return views, queries, out, post
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (NaNs of the same bits equal)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return torch.equal(a, b)
+
+
+def frame_differences(big: dict, small: dict, frames) -> dict:
+    """{stage: {output: (tensors that differ, max abs difference)}} of frames
+    `frames` of the run `big` against the frames of the run `small`, in
+    order, bit for bit; a shape that differs counts as an infinite
+    difference."""
+    diffs = {}
+    for stage, outs in big.items():
+        for name, per in outs.items():
+            n, worst = 0, 0.0
+            for a, b in zip([per[f] for f in frames], small[stage][name]):
+                if same_bits(a, b):
+                    continue
+                n += 1
+                worst = max(worst, float((a.double() - b.double()).abs().max())
+                            if a.shape == b.shape else math.inf)
+            if n:
+                diffs.setdefault(stage, {})[name] = (n, worst)
+    return diffs
+
+
+def moved_detections(boxes_a, scores_a, boxes_b, scores_b) -> list:
+    """[(centre distance, score difference)] to its nearest counterpart in
+    b of each detection of a with none in b within SAME_DET (box and score,
+    relative and absolute), as tests/test_torch_eval_cli.py `_unmatched`
+    compares two runs: as sets, since near-tied scores may be visited in
+    another order."""
+    import torch
+
+    ra = torch.cat([boxes_a.double(), scores_a.double()[:, None]], 1)
+    rb = torch.cat([boxes_b.double(), scores_b.double()[:, None]], 1)
+    out = []
+    for r in ra:
+        if len(rb) and bool(((rb - r).abs() <= SAME_DET + SAME_DET * rb.abs()).all(1).any()):
+            continue
+        if not len(rb):
+            out.append((math.inf, math.inf))
+            continue
+        j = int((rb[:, :3] - r[:3]).norm(dim=1).argmin())
+        out.append((float((rb[j, :3] - r[:3]).norm()), float((rb[j, 7] - r[7]).abs())))
+    return out
+
+
+def frame_dets(post, b: int) -> tuple:
+    """(boxes, scores) of frame b's kept detections, on the host."""
+    keep = post["pred_valid"][b]
+    return post["pred_boxes"][b][keep].cpu(), post["pred_scores"][b][keep].cpu()
+
+
+# the stages whose cuDNN / cuBLAS calls see the whole batch, by the module
+# that runs them: the BEV pyramid's convs, the RPN's convs, ConvHead's dense
+# conv stack and FCs (the other stages hold each frame's rows apart)
+DENSE_STAGES = {"bev": "backbone_2d", "dense_head": "dense_head", "roi_head": "roi_head"}
+# how far such a stage's output may part, relative to its max, when another
+# batch size picks another algorithm: 8 bf16 ulps at the max, for a chain of
+# bf16 layers each rounding once (the BEV pyramid: 7 convs a path)
+DENSE_ROUNDING = 2.0 ** -5
+
+
+def frames_of(obj, frames, n: int):
+    """Frames `frames` of an output of n frames: a tensor (n, ...) indexed,
+    one of (n * k, ...) rows taken by blocks of k; dicts, lists and tuples
+    item by item."""
+    import torch
+
+    if torch.is_tensor(obj):
+        if not obj.dim() or obj.shape[0] % n:
+            return obj
+        k = obj.shape[0] // n
+        return obj.reshape(n, k, *obj.shape[1:])[list(frames)].reshape(len(frames) * k,
+                                                                         *obj.shape[1:])
+    if isinstance(obj, dict):
+        return type(obj)({key: frames_of(v, frames, n) for key, v in obj.items()})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(frames_of(v, frames, n) for v in obj)
+    return obj
+
+
+def batch_frames(batch: dict, n: int, frames) -> dict:
+    """The frames `frames` (in order, repeats allowed) of a batch of n
+    frames, as a batch of its own: each key's blocks of rows, the voxel
+    tables' frame column renumbered."""
+    import torch
+
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0] // n
+        v = torch.cat([v[f * rows:(f + 1) * rows] for f in frames])
+        if k.endswith("voxel_coords"):
+            new = torch.arange(len(frames), device=v.device,
+                               dtype=v.dtype).repeat_interleave(rows)
+            v = torch.cat([torch.where(v[:, :1] >= 0, new[:, None], v[:, :1]), v[:, 1:]], 1)
+        out[k] = v
+    return out
+
+
+def tensors_of(obj, prefix: str = "") -> dict:
+    """{path: tensor} of an output's floating tensors."""
+    import torch
+
+    if torch.is_tensor(obj):
+        return {prefix: obj} if obj.is_floating_point() else {}
+    items = (obj.items() if isinstance(obj, dict) else enumerate(obj)
+             if isinstance(obj, (list, tuple)) else ())
+    return {k: v for key, item in items for k, v in tensors_of(item, f"{prefix}.{key}").items()}
+
+
+@contextlib.contextmanager
+def dense_stage_hooks(net, rec: dict, replay=None):
+    """Forward hooks on DENSE_STAGES' modules: each output recorded into
+    `rec`; or, with `replay` (such a record
+    of a run of `replay["n"]` frames, and `replay["frames"]` the frames this
+    run holds), each module's own output held against the recorded one's
+    frames (largest difference and the recorded max, by tensor, into `rec`)
+    and replaced by them, so every later stage reads the same inputs as in
+    the recorded run."""
+    det = net.det_modules
+
+    def hook(stage):
+        def fn(mod, args, out):
+            if replay is None:
+                rec[stage] = out
+                return None
+            want = frames_of(replay[stage], replay["frames"], replay["n"])
+            mine, theirs = tensors_of(out), tensors_of(want)
+            rec[stage] = {k: (float((v.float() - theirs[k].float()).abs().max()),
+                              float(theirs[k].float().abs().max())) for k, v in mine.items()}
+            return want
+        return fn
+
+    hooks = [getattr(det, m).register_forward_hook(hook(s)) for s, m in DENSE_STAGES.items()]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def batch_independence(card: str, net, cfg, batch8, big, queries8, post8, drops8,
+                       dense8) -> dict:
+    """Frames BENCH_PAIR of the B=8 run against the same shipped model on
+    the B=2 batch of the same seed (its inputs asserted equal to those
+    frames'), stage by stage: the first stage where any bit differs and by
+    how much, and how far the detections moved (`moved_detections`). The
+    sites each strided conv wanted and kept must be the same for those
+    frames in both runs (`drops8` against the B=2 run's: every level
+    capacity is a frame's own). At one batch size no frame may see another:
+    a B=8 batch of frames 0-1 four times over must give frames 0-1 the B=8
+    run's bits at every stage. Equal bit for bit at B=2 passes. Otherwise
+    the difference is traced: the B=2 run again with each of DENSE_STAGES'
+    outputs replaced by the B=8 run's (`dense8`, `dense_stage_hooks`), after
+    its own has been held to them within DENSE_ROUNDING of their max (the
+    rounding of another cuDNN / cuBLAS algorithm at another batch size);
+    every stage of that run must then equal the B=8 run's frames bit for bit
+    (the occ top-k, the sparse backbone, both NMSs and the roi-grouped
+    queries give the same answer on the same inputs). Returns the B=2
+    batch."""
+    import torch
+
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import STAGES
+
+    batch2 = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
+                                  seed=0, mode="test")
+    for k, v in batch2.items():
+        # a key holds (frames, ...) or a fixed number of rows a frame
+        assert torch.equal(v, batch8[k][:v.shape[0] // 2 * 2]), (
+            f"the B=2 batch's {k} is not frames 0-1 of the B=8 batch")
+    pair, post_cfg = list(BENCH_PAIR), cfg.MODEL.POST_PROCESSING
+    repeated, _, _, _ = frame_views(net, batch_frames(batch8, BENCH_B, pair * (BENCH_B // 2)),
+                                    post_cfg)
+    coupled = frame_differences(big, repeated, pair)
+    log(f"[{card}] batch independence at B={BENCH_B}: frames {pair} among frames 2-7 and "
+        f"among copies of themselves give the same bits at every stage: {not coupled} "
+        + json.dumps({s: list(v) for s, v in coupled.items()}))
+    assert not coupled, f"at one batch size frames 0-1 see the other frames: {coupled}"
+    drops2 = []
+    small, _, _, post2 = frame_views(net, batch2, post_cfg, drops2)
+    assert [(c, [w[f] for f in pair], [k[f] for f in pair]) for c, w, k in drops8] == drops2, (
+        "the level capacities cut frames 0-1 otherwise at B=8 than at B=2", drops8, drops2)
+    diffs = frame_differences(big, small, BENCH_PAIR)
+    first = next((s for s in STAGES if s in diffs), None)
+    moved = [moved_detections(*frame_dets(post8, b), *frame_dets(post2, i))
+             for i, b in enumerate(BENCH_PAIR)]
+    n_det = [(len(frame_dets(post8, b)[0]), len(frame_dets(post2, i)[0]))
+             for i, b in enumerate(BENCH_PAIR)]
+    if first is None:
+        log(f"[{card}] batch independence: frames {pair} of the B=8 run equal the B=2 run of "
+            f"the same frames bit for bit at every stage ({sum(len(v) for v in big.values())} "
+            f"outputs over {len(big)} stages, the merged det rows and the sites each level "
+            f"kept included)")
+        return batch2
+    log(f"[{card}] batch independence: frames {pair} of the B=8 run against the B=2 run: "
+        f"first stage that differs {first}; differing outputs by stage (frames that differ, "
+        "max abs difference): " + json.dumps({s: {k: [n, f"{w:.3e}"] for k, (n, w) in v.items()}
+                                              for s, v in diffs.items()})
+        + f"; detections a frame (B=8, B=2) {n_det}, moved or missing "
+        f"{[len(m) for m in moved]} (nearest counterpart: largest distance "
+        f"{max([d for m in moved for d, _ in m], default=0.0):.3f} m)")
+    assert first in DENSE_STAGES, f"frames part first at {first}, a stage that keeps them apart"
+    rec = {}
+    with dense_stage_hooks(net, rec, dict(dense8, frames=pair, n=BENCH_B)):
+        traced, queries2, _, _ = frame_views(net, batch2, post_cfg)
+    rest = frame_differences(big, traced, BENCH_PAIR)
+    # the roi-grouped query on the same inputs: the same answers, or each
+    # differing one valid for its own query (`grouped_query_diff`)
+    stats = grouped_stats()
+    for (_, _, radii, a8), (xyz2, m2, _, a2) in zip(queries8, queries2):
+        sliced = (a8[0][pair], a8[1][pair], a8[2][pair], [(p[pair], e[pair]) for p, e in a8[3]])
+        grouped_query_diff(xyz2, m2, sliced, a2, radii, stats)
+    worst = {s: max(d / max(m, 1e-30) for d, m in rec[s].values()) for s in DENSE_STAGES}
+    log(f"[{card}] batch independence, traced: the B=2 run with the B=8 run's outputs of "
+        f"{list(DENSE_STAGES)} replaced in: their own outputs within {json.dumps(worst)} of "
+        f"the max (bound {DENSE_ROUNDING}); every other output of every stage equal bit for "
+        f"bit: {not rest} {json.dumps({s: list(v) for s, v in rest.items()})}; the "
+        f"roi-grouped queries of {len(queries2)} calls against the B=8 run's "
+        + json.dumps(stats))
+    assert max(worst.values()) <= DENSE_ROUNDING and not rest, (worst, rest)
+    assert len(queries2) == len(queries8), (len(queries2), len(queries8))
+    planted = planted_dense_faults(net, batch2, post_cfg, dense8)
+    log(f"[{card}] DENSE_ROUNDING against planted faults: the same traced B=2 run's dense "
+        f"outputs against the B=8 run's, relative to the max, (a) against frames "
+        f"{pair[::-1]} (each frame held to the other's), (b) with {PLANTED_DROP:.0%} of frame "
+        f"0's active BEV cells zeroed in the BEV pyramid's input: " + json.dumps(
+            {k: {s: f"{v:.3e}" for s, v in w.items()} for k, w in planted.items()})
+        + f" (sound reading above {json.dumps({s: f'{v:.3e}' for s, v in worst.items()})})")
+    assert all(max(w.values()) > DENSE_ROUNDING for w in planted.values()), planted
+    return batch2
+
+
+# the share of a frame's active BEV cells the planted fault of
+# `planted_dense_faults` zeroes: a site drop a shared capacity could make
+PLANTED_DROP = 0.01
+
+
+def planted_dense_faults(net, batch2, post_cfg, dense8) -> dict:
+    """`batch_independence`'s traced B=2 run twice more with a planted
+    fault: (a) its dense outputs held to the B=8 run's frames swapped, (b)
+    PLANTED_DROP of frame 0's active cells zeroed in the BEV pyramid's input
+    (a random draw of seed 0). Returns each run's DENSE_STAGES readings
+    (largest difference relative to the B=8 run's max)."""
+    import torch
+
+    def zero_cells(mod, args):
+        x = args[0].clone()
+        cells = (x[0] != 0).any(0).nonzero()
+        g = torch.Generator().manual_seed(0)
+        pick = cells[torch.randperm(len(cells), generator=g)[:max(1, int(PLANTED_DROP * len(
+            cells)))].to(cells.device)]
+        x[0, :, pick[:, 0], pick[:, 1]] = 0
+        return (x, *args[1:])
+
+    out = {}
+    for name, frames, pre in (("a", [1, 0], None), ("b", [0, 1], zero_cells)):
+        rec = {}
+        hook = None if pre is None else net.det_modules.backbone_2d.register_forward_pre_hook(pre)
+        try:
+            with dense_stage_hooks(net, rec, dict(dense8, frames=frames, n=BENCH_B)):
+                frame_views(net, batch2, post_cfg)
+        finally:
+            if hook is not None:
+                hook.remove()
+        out[name] = {s: max(d / max(m, 1e-30) for d, m in rec[s].values()) for s in DENSE_STAGES}
+    return out
+
+
+def bench_path(card: str) -> list:
+    """The first path (module docstring, 2b): `bench.py`'s main path as
+    shipped, at its batch of 8. Returns the kernels' `@B8` entries."""
+    import torch
+
+    from btcdet_tpu_torch import config, weights
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models import build_network
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = config.flagship_shipped()
+    assert "APPROX_QUERY" not in cfg.MODEL.ROI_HEAD, "the yaml as shipped"
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
+    net.load_state_dict(weights.synth_state_dict(net))
+    head = net.det_modules.roi_head
+    assert head.SA_rawpoints.approx_query and head.SA_occpoints.approx_query
+    batch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=BENCH_B, num_points=16384,
+                                 num_gt=10, seed=0, mode="test")
+    caps = {p.NAME: p.MAX_NUMBER_OF_VOXELS["test"] for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+            if "MAX_NUMBER_OF_VOXELS" in p}
+    post_cfg = cfg.MODEL.POST_PROCESSING
+
+    # the kernels at B=8, on the inputs one forward gives them
+    captured = capture_kernel_inputs(lambda: net(batch))
+    calls = {k: [a for a, _ in v] for k, v in captured.items()}
+    picks = eval_conv_picks(calls["sparse_conv"], "@B8")
+    kernels = [e for name, args in picks.items() for e in k1_case(name, args)]
+    k1_eval_table(captured["sparse_conv"], captured["neighbor_map"])
+    assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
+    kernels.append(k2_case(captured["sparse_pool"][0], "@B8"))
+    kernels.append(k4_case(calls["trilinear_pool"][0], "@B8"))
+    del captured, calls, picks
+    torch.cuda.empty_cache()
+
+    # the main path: counts reset, one forward + post-processing
+    probe = load_tool("overfit_proof_torch").DropProbe()
+    probe.phase = "eval"
+    drops8, dense8 = [], {}
+    reset_launches()
+    with probe, dense_stage_hooks(net, dense8):
+        big, queries8, out, post = frame_views(net, batch, post_cfg, drops8)
+    launches = read_launches()
+    log(f"[{card}] first path (bench.py's main path: the yaml as shipped, B={BENCH_B}, caps "
+        f"{json.dumps(caps)}) launches: {json.dumps(launches)}")
+    assert launches == EVAL_LAUNCHES, (launches, EVAL_LAUNCHES)
+    for e in kernels:
+        e["launches"] = launches[e["name"].split(":")[0]]
+    n_det = check_eval_outputs(net, batch, out, post)
+    drops = probe.read()
+    n_occ = [int(v) for v in out["occ_points_mask"].sum(dim=1)]
+    det_rows = [int((batch["det_voxel_coords"][:, 0] == b).sum()) for b in range(BENCH_B)]
+    merged = [len(c) for c in big["occ_subnet"]["merged_coords"]]
+    new_rows = [m - d for m, d in zip(merged, det_rows)]
+    log(f"[{card}] B={BENCH_B}: occ points per frame {n_occ}; det voxels per frame {det_rows}; "
+        f"merged det rows per frame {merged} (new occ rows {new_rows}); rois per frame "
+        f"{[int(v) for v in out['roi_valid'].sum(dim=1)]}; detections per frame {n_det}; nnz "
+        f"per level {json.dumps(out['nnz'])}")
+    log(f"[{card}] B={BENCH_B} active sites a frame dropped at each level capacity "
+        "(capacity a frame: [dropped of wanted] by frame): " + json.dumps(
+            {f"call {i} ({c})": [f"{w - k} of {w}" for w, k in zip(want, kept)]
+             for i, (c, want, kept) in enumerate(drops8)})
+        + "; the merged det table " + json.dumps(drops["merged_table"]))
+    assert min(n_occ) > 0 and min(new_rows) > 0, (n_occ, new_rows)
+
+    batch2 = batch_independence(card, net, cfg, batch, big, queries8, post, drops8, dense8)
+    del big, queries8, out, post, dense8
+
+    # numbers
+    med, times = timed_median(lambda: forward_post(net, batch, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[{card}] forward+post ms, the yaml as shipped at B={BENCH_B} (5 runs after 2 "
+        f"warm-ups): median {med:.2f}, spread {min(times):.2f}-{max(times):.2f}, all "
+        f"{[round(t, 2) for t in times]}; {BENCH_B * 1e3 / med:.2f} frames/s; peak "
+        f"{peak:.1f} MiB")
+    stages8, wall, busy = stage_profile(net, batch, post_cfg, f"forward + post at B={BENCH_B}")
+    log(f"[{card}] B={BENCH_B} forward + post under the profiler: wall {wall:.2f} ms, kernel "
+        f"{busy:.2f} ms, device idle share {idle_share(busy, wall)}")
+    med2, _ = timed_median(lambda: forward_post(net, batch2, cfg))
+    stages2 = stage_times(net, batch2, post_cfg)
+    per_frame = {s: {f"B={BENCH_B}": round(stages8[s] / BENCH_B, 3),
+                     "B=2": round(stages2[s] / 2, 3)} for s in stages8}
+    log(f"[{card}] stage ms a frame, B={BENCH_B} against B=2 (one synchronised run each; "
+        f"B=2 forward+post median {med2:.2f} ms): " + json.dumps(per_frame))
+    grouped_query_alone(card, net, batch)
+    del batch2
+
+    # the fast-eval yaml at B=8: its 20 000 caps
+    fast = config.fast20k()
+    fnet = build_network(fast.MODEL, fast.DATA_CONFIG, ["Car"])
+    fnet.load_state_dict(weights.synth_state_dict(fnet))
+    fbatch = make_synthetic_batch(fast.DATA_CONFIG, batch_size=BENCH_B, num_points=16384,
+                                  num_gt=10, seed=0, mode="test")
+    fdrops = []
+    reset_launches()
+    with frame_site_drops(fdrops):
+        fout = fnet(fbatch)
+    fpost = post_processing(fout, fast.MODEL.POST_PROCESSING, 1)
+    torch.cuda.synchronize()
+    flaunch = read_launches()
+    assert flaunch == EVAL_LAUNCHES, (flaunch, EVAL_LAUNCHES)
+    fdet = check_eval_outputs(fnet, fbatch, fout, fpost)
+    fcut = {f"call {i} ({c})": sum(w) - sum(k) for i, (c, w, k) in enumerate(fdrops)}
+    fmed, ftimes = timed_median(lambda: forward_post(fnet, fbatch, fast))
+    fcaps = {p.NAME: p.MAX_NUMBER_OF_VOXELS["test"] for p in fast.DATA_CONFIG.DATA_PROCESSOR
+             if "MAX_NUMBER_OF_VOXELS" in p}
+    log(f"[{card}] fast20k yaml (test caps {json.dumps(fcaps)}) at B={BENCH_B}: launches "
+        f"EVAL_LAUNCHES, detections per frame {fdet}, active sites dropped a batch by level "
+        f"{json.dumps(fcut)}; forward+post "
+        f"median {fmed:.2f} ms (all {[round(t, 2) for t in ftimes]}) against {med:.2f} at the "
+        f"shipped yaml's caps")
+    del fnet, fbatch, fout, fpost, net, batch
+    torch.cuda.empty_cache()
+    log(f"first path (bench.py's main path, B={BENCH_B}): {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return kernels
+
+
+def grouped_query_alone(card: str, net, batch):
+    """ConvHead's roi-grouped query at the batch's rois: each SA module's
+    stage 1 (`roi_candidates`) and stage 2 (`select_in_candidates`) alone on
+    the inputs the forward gave it, ms (CUDA events) and the peak MiB above
+    what was allocated before the call."""
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+
+    head = net.det_modules.roi_head
+    sa_calls = {}
+    hooks = [getattr(head, n).register_forward_pre_hook(
+        lambda m, a, kw, n=n: sa_calls.setdefault(n, (a, kw)), with_kwargs=True)
+        for n in ("SA_rawpoints", "SA_occpoints")]
+    try:
+        net(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    res = {}
+    with torch.no_grad():
+        for n, (args, kw) in sa_calls.items():
+            sa = getattr(head, n)
+            xyz, mask, new_xyz, new_mask = args[:4]
+            cent, ck = kw["group_centers"], group_ops.GROUP_CAND_K
+            cand, cxyz, cok = group_ops.roi_candidates(xyz, mask, cent, ck)
+            fns = {"stage1": lambda: group_ops.roi_candidates(xyz, mask, cent, ck),
+                   "stage2": lambda: group_ops.select_in_candidates(
+                       cand, cxyz, cok, new_xyz, new_mask, sa.radii, sa.nsamples,
+                       xyz.shape[1])}
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                res[f"{n}.{k}"] = {"ms": round(cuda_ms(fn, reps=10), 3), "peak_mib": round(
+                    (torch.cuda.max_memory_allocated() - base) / 2**20, 1)}
+            res[n] = {"rois": int(cent.shape[0] * cent.shape[1]), "points": int(xyz.shape[1]),
+                      "candidates": ck}
+    log(f"[{card}] the roi-grouped query alone at B={batch['points'].shape[0]} (CUDA events, "
+        "mean of 10; peak above the allocation before the call): " + json.dumps(res))
+
+
+def nonfinite_origin(out, post) -> dict:
+    """Rows with a value not finite in an eval forward's outputs: the RPN's
+    box predictions (of every anchor), the valid rois, the valid rois'
+    refined boxes (by column) and the kept detections."""
+    import torch
+
+    def bad(t):
+        return ~torch.isfinite(t.float()).all(-1)
+
+    valid = out["roi_valid"]
+    box = out["batch_box_preds"][valid]
+    return {"rpn_box_preds": int(bad(out["rpn_box_preds"]).sum()),
+            "rois": int(bad(out["rois"][valid]).sum()),
+            "refined": int(bad(box).sum()),
+            "refined_by_column": (~torch.isfinite(box.float())).sum(0).tolist(),
+            "detections": int(bad(post["pred_boxes"][post["pred_valid"]]).sum())}
+
+
+def eval_batch_agreement(card: str, proof, root: str) -> dict:
+    """The gate's final checkpoint through `tools/test_torch.py` on the
+    gate's tree at `--batch_size` BENCH_B (batches of 8, 8, 8 and a partial
+    1) and at 1, the score threshold at OVERFIT_BATCH_SCORE: each run's
+    launches EVAL_LAUNCHES a forward, detections in both, their AP keys
+    equal; each frame's detections of the two runs are compared
+    (`moved_detections`, logged). Then the cascade is traced on the
+    runs' own batches (`cli_batch_trace`): each batch of 8 through the same
+    net equals the CLI's outputs bit for bit, and each of its frames alone,
+    with the batch's outputs of DENSE_STAGES replaced in after its own were
+    held within DENSE_ROUNDING of their max, equals that batch's frame bit
+    for bit at every stage. Returns the counts."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch.train.checkpoint import CheckpointManager
+
+    work, run_dir = proof.run_dirs(Path(root))
+    mgr = CheckpointManager(run_dir / "ckpt")
+    cli, runs = load_tool("test_torch"), {}
+    for bs in (BENCH_B, 1):
+        argv = ["--cfg_file", str(work / f"{run_dir.name}.yaml"), "--ckpt",
+                str(mgr.path(mgr.latest_step())), "--batch_size", str(bs), "--workers", "2",
+                "--output_dir", str(work / f"eval_batch_{bs}"), "--set",
+                "MODEL.POST_PROCESSING.SCORE_THRESH", str(OVERFIT_BATCH_SCORE)]
+        batches = []
+        reset_launches()
+        (_, _, result, annos), = cli.main(argv, on_batch=lambda i, b, p: batches.append((b, p)))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches == {k: v * len(batches) for k, v in EVAL_LAUNCHES.items()}, (
+            bs, launches)
+        assert len(batches) == -(-len(annos) // bs), (bs, len(batches))
+        runs[bs] = (proof.ap_keys(result), annos, batches, argv)
+    (ap8, annos8, batches8, argv8), (ap1, annos1, batches1, _) = runs[BENCH_B], runs[1]
+    assert [a["frame_id"] for a in annos8] == [a["frame_id"] for a in annos1]
+
+    def dets(a):
+        boxes = torch.from_numpy(a["boxes_lidar"])
+        ok = torch.isfinite(boxes).all(-1)
+        return boxes[ok], torch.from_numpy(a["score"])[ok]
+
+    counts = [(len(a["score"]), len(b["score"])) for a, b in zip(annos8, annos1)]
+    n_det = sum(a for a, _ in counts)
+    assert n_det > 0 and sum(b for _, b in counts) > 0, counts
+    nonfinite = [sum(int((~np.isfinite(a["boxes_lidar"]).all(-1)).sum()) for a in annos)
+                 for annos in (annos8, annos1)]
+    moved = [moved_detections(*dets(a), *dets(b)) for a, b in zip(annos8, annos1)]
+    assert ap8.keys() == ap1.keys(), (sorted(ap8), sorted(ap1))
+    ap_diff = {k: ap8[k] - ap1[k] for k in ap8 if ap8[k] != ap1[k]}
+    res = {"detections": n_det, "frames_count_differs": sum(a != b for a, b in counts),
+           "nonfinite_boxes": nonfinite, "moved": sum(len(m) for m in moved),
+           "frames_moved": sum(bool(m) for m in moved),
+           "max_m": max([d for m in moved for d, _ in m], default=0.0),
+           "max_score": max([s for m in moved for _, s in m], default=0.0),
+           "ap_keys": len(ap8), "ap_differ": len(ap_diff),
+           "ap_max_diff": max(map(abs, ap_diff.values()), default=0.0)}
+    log(f"[{card}] the gate's checkpoint through tools/test_torch.py on its {len(annos8)} "
+        f"frames, SCORE_THRESH {OVERFIT_BATCH_SCORE}, at --batch_size {BENCH_B} (batches of "
+        f"{BENCH_B} and a partial {len(annos8) % BENCH_B or BENCH_B}) against --batch_size 1: "
+        f"launches EVAL_LAUNCHES a forward in each; detections (batch 8, batch 1) a frame "
+        f"{counts}; " + json.dumps(res) + " (moved: detections with a finite box and no "
+        f"counterpart within {SAME_DET}; bound of the flagship geometry test {MOVED_SHARE} of "
+        f"them, {MOVED_M} m, {MOVED_SCORE}); AP differences " + json.dumps(ap_diff))
+    res.update(cli_batch_trace(card, cli, argv8, batches8, batches1))
+    return res
+
+
+def cli_batch_trace(card: str, cli, argv, batches8, batches1) -> dict:
+    """`eval_batch_agreement`'s trace: the CLI's net (`build_eval`, the
+    checkpoint loaded) on the batch-8 run's batches and, frame by frame, on
+    the batch-1 run's (`frame_views`, `dense_stage_hooks`). Returns the
+    trace's readings."""
+    import torch
+
+    from btcdet_tpu_torch.datasets.kitti.kitti_dataset import to_device
+    from btcdet_tpu_torch.train import checkpoint as ckpt_mod
+
+    args, cfg = cli.parse_config(argv)
+    dev = torch.device(args.device)
+    net, _, _ = cli.build_eval(args, cfg, None, dev)
+    ckpt_mod.load_any(args.ckpt, net)
+    post_cfg = cfg.MODEL.POST_PROCESSING
+    frame, worst, origin = 0, dict.fromkeys(DENSE_STAGES, 0.0), []
+    for host8, cli_post in batches8:
+        n = len(host8["frame_id"])
+        rec = {}
+        with dense_stage_hooks(net, rec):
+            big, _, out, post = frame_views(net, to_device(host8, dev), post_cfg)
+        for k in ("pred_boxes", "pred_scores", "pred_labels", "pred_valid"):
+            assert same_bits(post[k].cpu(), torch.from_numpy(cli_post[k])), (
+                f"the batch of frames {frame}-{frame + n - 1} through the CLI's net gives "
+                f"other {k} than the CLI's run")
+        origin.append(nonfinite_origin(out, post))
+        for f in range(n):
+            host1, _ = batches1[frame + f]
+            assert host1["frame_id"][0] == host8["frame_id"][f]
+            got = {}
+            with dense_stage_hooks(net, got, dict(rec, frames=[f], n=n)):
+                alone, _, _, _ = frame_views(net, to_device(host1, dev), post_cfg)
+            rest = frame_differences(big, alone, [f])
+            assert not rest, (f"frame {frame + f} alone, with its batch's dense outputs, "
+                              f"parts from its batch at {rest}")
+            for s in DENSE_STAGES:
+                worst[s] = max([worst[s]] + [d / max(m, 1e-30) for d, m in got[s].values()])
+        frame += n
+    origin = {k: (sum(o[k] for o in origin) if k != "refined_by_column" else
+                  [sum(c) for c in zip(*(o[k] for o in origin))]) for k in origin[0]}
+    log(f"[{card}] the eval CLI's batches traced: each batch of {BENCH_B} through the CLI's "
+        f"net gives the CLI's detections bit for bit; each of its {frame} frames alone, with "
+        f"its batch's outputs of {list(DENSE_STAGES)} replaced in, equals its batch's frame "
+        f"bit for bit at every stage, those stages' own outputs within "
+        f"{json.dumps({s: f'{v:.3e}' for s, v in worst.items()})} of the max (bound "
+        f"{DENSE_ROUNDING}); rows not finite in the batch-{BENCH_B} run's outputs "
+        + json.dumps(origin))
+    assert max(worst.values()) <= DENSE_ROUNDING, worst
+    return {"traced_frames": frame, "dense_rounding": worst, "nonfinite_origin": origin}
 
 
 def dp_worker(args: list) -> int:
@@ -4985,7 +5956,7 @@ def dp_worker(args: list) -> int:
     sys.path.insert(0, REPO)
     task, io, rest = args[0], args[1], args[2:]
     if task == "step":
-        dp_step_worker(io)
+        dp_step_worker(io, [int(v) for v in rest])
     elif task == "sp":
         sp_flagship_worker(io)
     elif task == "sp_micro":
@@ -5034,6 +6005,7 @@ def main() -> int:
 
     if len(sys.argv) > 3 and sys.argv[1] == "--dp-worker":
         return dp_worker(sys.argv[2:])
+    dp_only = sys.argv[1:2] == ["--dp"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -5041,6 +6013,7 @@ def main() -> int:
     side_only = sys.argv[1:] == ["--side"]
     sp_only = sys.argv[1:] == ["--sp"]
     approx_only = sys.argv[1:] == ["--approx"]
+    b8_only = sys.argv[1:] == ["--b8"]
     gate_only = sys.argv[1:] == ["--gate"]
     overfit = sys.argv[1:] in (["--overfit"], ["--overfit", "--three_classes"])
     sys.path.insert(0, REPO)
@@ -5092,12 +6065,27 @@ def main() -> int:
         approx_query_path(card)
         log(f"chip_smoke --approx: {time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if dp_only:
+        dp_step_phase(card, DP_PROJ_SEEDS + tuple(int(v) for v in sys.argv[2:]))
+        log(f"chip_smoke {' '.join(sys.argv[1:])}: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if b8_only:
+        keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+        entries = bench_path(card)
+        log(f"chip_smoke --b8: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
+        print_contract_line()
+        return 0
     if gate_only or overfit:
         res = overfit_path(card, full=overfit, three_classes="--three_classes" in sys.argv)
         log(f"chip_smoke {' '.join(sys.argv[1:])}: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({"overfit_proof" if overfit else "overfit_gate": res}), flush=True)
         print_contract_line()
         return 0
+
+    # 2b. first path: bench.py's main path as shipped (B=8, the approximate query)
+    b8_kernels = bench_path(card)
 
     # 3. full flagship model, synthetic weights by name, capture run
     cfg = config.flagship()
@@ -5117,22 +6105,8 @@ def main() -> int:
     assert len(calls["neighbor_map"]) == len(pairings) == EVAL_MAPS, (
         len(calls["neighbor_map"]), len(pairings))
 
-    # 4. kernel phase. Captured args: features, keys, out_coords, weights,
-    # in_shape, batch, kernel, stride, padding; picked by kernel / stride /
-    # Cout, first in call order
-    def pick(kernel, stride, cout):
-        return next(a for a in convs
-                    if a[6] == kernel and a[7] == stride and a[3].shape[2] == cout)
-
-    c1 = pick((3, 3, 3), (1, 1, 1), 16)
-    c2c = pick((3, 3, 3), (1, 1, 1), 32)
-    picks = {
-        f"conv1(subm {c1[0].shape[1]}->16)": c1,
-        "conv2(3^3 s2 16->32)": pick((3, 3, 3), (2, 2, 2), 32),
-        f"conv2_combine_0(subm {c2c[0].shape[1]}->32)": c2c,
-        "conv_out(3x1x1 s2 64->128)": pick((3, 1, 1), (2, 1, 1), 128),
-        "down_combine_0(subm 256->128)": pick((3, 3, 3), (1, 1, 1), 128),
-    }
+    # 4. kernel phase
+    picks = eval_conv_picks(convs)
     kernels = [e for name, args in picks.items() for e in k1_case(name, args)]
     k1_eval_table(captured["sparse_conv"], captured["neighbor_map"])
     assert len(calls["sparse_pool"]) == 1, len(calls["sparse_pool"])
@@ -5252,7 +6226,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"overfit_gate": gate}), flush=True)
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels + b8_kernels]}),
+          flush=True)
     print_contract_line()
     return 0
 

@@ -2,7 +2,8 @@
 config (a reference-format `.pth` through `--ckpt`, port checkpoints
 through `--ckpt_dir --eval_all`; the yaml as shipped, with its approximate
 ball query, against the JAX package's forward), its refusal to fall back
-to the CPU, and
+to the CPU, the one-command KITTI-val script
+(`tools/run_kitti_val_torch.sh`) at batch 8 on the CPU, and
 under `-m slow` the flagship geometry at reduced capacities against the
 JAX package's KITTI-val runbook (`tools/run_kitti_val.sh`: reference
 checkpoint import, then `tools/test.py`'s evaluation) on one synthetic
@@ -170,6 +171,38 @@ def test_cli_without_a_card_fails_with_resolve_devices_error(micro_tree, tmp_pat
                        capture_output=True, text=True, cwd=str(REPO), env=env, timeout=300)
     assert r.returncode != 0
     assert "no CUDA device is available" in r.stderr, r.stderr[-2000:]
+
+
+def test_run_kitti_val_torch_script(micro_tree, tmp_path):
+    """`tools/run_kitti_val_torch.sh` on a copy of the micro tree without its
+    infos, with a reference-format `.pth`, `DEVICE=cpu` and batch 8 (the
+    tree's 3 val frames in one partial batch): it generates the infos, then
+    evaluates every val frame with the official AP."""
+    import shutil
+
+    tmp, cfg_file = micro_tree
+    root = tmp_path / "kitti"
+    shutil.copytree(tmp / "kitti", root,
+                    ignore=lambda d, names: [n for n in names if n.endswith(".pkl")
+                                             or n.startswith("gt_database")])
+    assert not list(root.glob("*.pkl"))
+    cfg = cfg_from_yaml_file(cfg_file, EasyDict())
+    net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"], device="cpu")
+    pth = tmp_path / "reference.pth"
+    torch.save({"model_state": weights.synth_state_dict(net), "epoch": 2, "it": 31}, pth)
+    out = tmp_path / "out"
+    env = dict(os.environ, DEVICE="cpu", WORKERS="0", OUTPUT_DIR=str(out),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run(["bash", "tools/run_kitti_val_torch.sh", str(root), str(pth),
+                        str(cfg_file), "8"], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "generating kitti infos" in r.stdout and (root / "kitti_infos_val.pkl").exists()
+    (log,) = out.glob("eval_*.log")
+    txt = log.read_text()
+    assert "evaluating " + str(pth) + " (step 31)" in txt
+    assert "eval: 3 frames over 1 rank(s)" in txt
+    assert "Car AP_R40@0.70, 0.70, 0.70:" in txt, txt[-2000:]
 
 
 # ------------------------------------------------- the flagship geometry

@@ -142,11 +142,13 @@ def relabel(batch_np, num_class: int):
     return dict(batch_np, gt_boxes=gt)
 
 
-def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",)) -> dict:
+def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",),
+             batch_size: int = 2) -> dict:
     """One JAX BtcNet eval forward + post-processing and the port's on the
-    same synthetic batch (seed 0, B=2; with several `class_names` its gt
-    boxes `relabel`led) and the same weights (JAX init, BN moved off
-    identity, carried across with `weights.from_jax_variables`).
+    same synthetic batch (seed 0, `batch_size` frames; with several
+    `class_names` its gt boxes `relabel`led) and the same weights (JAX
+    init, BN moved off identity, carried across with
+    `weights.from_jax_variables`).
     cfg: {"DATA_CONFIG", "MODEL"} of the JAX package.
 
     With MODEL.OCC the occupancy bias moves off its logit(0.01) prior, so
@@ -155,7 +157,8 @@ def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",)) -> dict:
     mask) (`ref_bb` / `bb`, channels last) and `per_frame`, the det voxel
     rows of a frame. Always: `ref` / `ref_post` (JAX outputs and
     detections), `out` / `post` (the port's), `missing` (the port's
-    strict load_state_dict report). All arrays are numpy."""
+    strict load_state_dict report), `port` (the port's model, on the CPU,
+    holding those weights). All arrays are numpy."""
     from btcdet_tpu.datasets import make_synthetic_batch as jax_batch
     from btcdet_tpu.models import build_network as jax_build
     from btcdet_tpu.models.detectors.btcnet import post_processing as jax_post
@@ -168,7 +171,7 @@ def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",)) -> dict:
     use_occ = cfg.MODEL.get("OCC") is not None
     res = {}
     with f32_mode():
-        batch_np = jax_batch(cfg.DATA_CONFIG, batch_size=2, num_points=num_points,
+        batch_np = jax_batch(cfg.DATA_CONFIG, batch_size=batch_size, num_points=num_points,
                              num_gt=num_gt, seed=0, mode="test")
         if len(class_names) > 1:
             batch_np = relabel(batch_np, len(class_names))
@@ -207,13 +210,14 @@ def run_both(cfg, num_points: int, num_gt: int, class_names=("Car",)) -> dict:
         for h in hooks:
             h.remove()
         post = post_processing(out, tc.MODEL.POST_PROCESSING, len(class_names), device="cpu")
+    res["port"] = port
     res["out"] = {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
     res["post"] = {k: v.numpy() for k, v in post.items()}
     if use_occ:
         res["occ"] = {k: v.numpy() for k, v in seen["occ"].items() if v is not None}
         x, m = seen["bb"]
         res["bb"] = (x.permute(0, 2, 3, 4, 1).numpy(), m.numpy())
-        res["per_frame"] = batch_np["det_voxels"].shape[0] // 2
+        res["per_frame"] = batch_np["det_voxels"].shape[0] // batch_size
     return res
 
 
