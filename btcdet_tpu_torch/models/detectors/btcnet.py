@@ -34,17 +34,14 @@ Without a spatial group it changes nothing.
 
 from __future__ import annotations
 
-import contextlib
-import time
-
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ...ops import iou3d, sparse
 from ...ops.voxelizer import compute_grid_size
 from ...parallel import gather_rows, get_sp_info, global_rows, take_rows
 from ...utils.common import activation_dtype, jax_default_init_, resolve_device
+from ...utils.trace import readback, stage
 from .. import backbones_2d, backbones_3d, map_to_bev, vfe
 from ..dense_heads import anchor_head
 from ..occ import occ_subnet
@@ -62,24 +59,6 @@ VIS_MASK_KEYS = (
 # stages of one eval forward + post-processing, in order
 STAGES = ("occ_subnet", "backbone_3d", "bev", "dense_head", "proposal_nms", "roi_head",
           "post_processing")
-
-
-@contextlib.contextmanager
-def stage(name: str, times: dict | None = None):
-    """A profiler range named `name`. Given a `times` dict, the stage also
-    runs between two device synchronisations and adds its wall ms there
-    (serialises the device: for stage breakdowns, not for throughput)."""
-    with record_function(name):
-        if times is None:
-            yield
-            return
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
 def _level_caps(bb_cfg, mode: str):
@@ -216,7 +195,6 @@ class BtcNet(nn.Module):
         self.det_modules = det
         # the JAX package's init laws, drawn over the layers' own draws
         jax_default_init_(self)
-        self.stage_ms = None  # a dict here collects synchronised ms per stage
 
     def _bev_rows(self):
         """H of the BEV map: the grid's ny after the three stride-2 convs
@@ -244,7 +222,7 @@ class BtcNet(nn.Module):
         Eval mode returns the JAX package's eval keys and layouts, without
         a gradient. Train mode returns `loss`, `loss_dict` and the train
         intermediates (with MODEL.OCC the occ masks of VIS_MASK_KEYS); `generator` draws its random numbers. Each stage
-        runs in `stage(name)` (STAGES)."""
+        runs in `trace.stage(name)` (STAGES)."""
         if self.training:
             if generator is None:
                 raise ValueError("a train forward needs a torch.Generator")
@@ -265,7 +243,7 @@ class BtcNet(nn.Module):
             batch = dict(batch, use_occ_prob=(draw_use_occ_prob(generator, rows)[lo:lo + B].to(
                 batch["points"].device) <= self.useocc_percentage))
         if self.use_occ:
-            with stage("occ_subnet", self.stage_ms):
+            with stage("occ_subnet"):
                 occ_out = self.occ_modules(batch, generator)
             occ_pts, occ_mask = occ_out["occ_points"], occ_out["occ_points_mask"]
             out["occ_probs"] = occ_out["probs"]
@@ -276,7 +254,7 @@ class BtcNet(nn.Module):
             else:
                 out["occ_pos_mask"] = occ_out["pos_mask"]
                 out["occ_cls_mask"] = occ_out["general_cls_loss_mask"]
-        with stage("backbone_3d", self.stage_ms):
+        with stage("backbone_3d"):
             if self.use_occ and "det_voxel_features" in occ_out:
                 voxel_features, occ_code = occ_out["det_voxel_features"], occ_out["det_occ_code"]
                 coords = occ_out["det_voxel_coords"]
@@ -296,22 +274,23 @@ class BtcNet(nn.Module):
                 st = sparse.from_coords(voxel_features, coords, (nz + 1, ny, nx), B)
             bb_out = det.backbone_3d(st, occ_code)
         out["encoded_features"] = bb_out["encoded"].features
-        out["nnz"] = {k: int(v.nnz) for k, v in bb_out.items() if v is not None}
-        with stage("bev", self.stage_ms):
+        with readback("nnz"):
+            out["nnz"] = {k: int(v.nnz) for k, v in bb_out.items() if v is not None}
+        with stage("bev"):
             bev, out["spatial_features"] = self.map_to_bev(bb_out["encoded"])
             if self.bev_sharding:
                 spatial_2d = gather_rows(det.backbone_2d(take_rows(bev)))
             else:
                 spatial_2d = det.backbone_2d(bev)
         out["spatial_features_2d"] = spatial_2d.permute(0, 2, 3, 1)
-        with stage("dense_head", self.stage_ms):
+        with stage("dense_head"):
             head = det.dense_head(spatial_2d)
             if train:
                 head.update(det.dense_head.assign_targets(batch["gt_boxes"]))
         out["rpn_cls_preds"] = head["cls_preds"]
         out["rpn_box_preds"] = head["batch_box_preds"]
         nms = self.nms_cfg_train if train else self.nms_cfg_test
-        with stage("proposal_nms", self.stage_ms):
+        with stage("proposal_nms"):
             props = roi_head_utils.proposal_layer(
                 head["batch_box_preds"], head["cls_preds"],
                 nms_pre=int(nms["NMS_PRE_MAXSIZE"]), nms_post=int(nms["NMS_POST_MAXSIZE"]),
@@ -322,7 +301,7 @@ class BtcNet(nn.Module):
                                                         **self.target_cfg)
                 rois, roi_valid = targets["rois"], targets["roi_valid"]
         pts = batch["points"]
-        with stage("roi_head", self.stage_ms):
+        with stage("roi_head"):
             rcnn_cls, rcnn_reg = det.roi_head(
                 rois, roi_valid, pts[..., :3], pts[..., 3:], batch["points_mask"],
                 bb_out["x_combine"],
@@ -371,12 +350,11 @@ def draw_use_occ_prob(generator: torch.Generator, B: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def post_processing(out: dict, post_cfg, num_class: int = 1, device=None,
-                    stage_ms: dict | None = None) -> dict:
+def post_processing(out: dict, post_cfg, num_class: int = 1, device=None) -> dict:
     """Final per-frame rotated NMS over the refined boxes (reference
     `detector3d_template.post_processing:363`), class-agnostic. Returns
     (B, post_max) pred_boxes / pred_scores / pred_labels / pred_valid."""
-    with stage("post_processing", stage_ms):
+    with stage("post_processing"):
         return _post_processing(out, post_cfg, resolve_device(device))
 
 

@@ -39,7 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...utils import box_utils, common, coords
+from ...utils import box_utils, common, coords, trace
 
 
 class OccGridSpec(NamedTuple):
@@ -182,7 +182,8 @@ def scatter_mask(coords_bzyx, valid, batch_size: int, grid):
     lin = (c[:, 1] * ny + c[:, 2]) * nx + c[:, 3]
     idx = torch.where(valid, c[:, 0] * ncell + lin, torch.full_like(lin, batch_size * ncell))
     out = torch.zeros(batch_size * ncell + 1, dtype=torch.bool, device=c.device)
-    out[idx] = True
+    with trace.readback("occ.scatter_mask"):     # the value True copied to the device
+        out[idx] = True
     return out[:-1].reshape(batch_size, nz, ny, nx)
 
 
@@ -291,7 +292,8 @@ def occlusion_mask(tab: GridTables, points_xyz, points_valid, points_b, rot_z,
     idx = torch.where(inr, points_b.long() * scell + lin,
                       torch.full_like(lin, batch_size * scell))
     smask = torch.zeros(batch_size * scell + 1, dtype=torch.float32, device=dev)
-    smask[idx] = 1.0
+    with trace.readback("occ.sphere_mask"):      # the value 1.0 copied to the device
+        smask[idx] = 1.0
     smask = smask[:-1].reshape(batch_size, snz, sny, snx)
 
     if spec.empt_sur_thresh < 9 and spec.reverse_vis not in ("VCC", "BACK_TRACK"):

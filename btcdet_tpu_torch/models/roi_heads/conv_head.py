@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from ...ops import cuda_interp, group_ops
 from ...ops.sparse import MaskedBatchNorm, SparseTensor
 from ...parallel import all_reduce_sum, global_rows
-from ...utils import common, loss_utils
+from ...utils import common, loss_utils, trace
 from ...utils.box_coder import ResidualCoder
 
 # the occ points' pooled feature: the occupancy probability
@@ -48,8 +48,9 @@ def get_dense_grid_points(rois, grid_size, dim_times: float = 1.0):
     gz, gy, gx = grid_size
     idx = np.stack(np.meshgrid(np.arange(gz), np.arange(gy), np.arange(gx), indexing="ij"),
                    axis=-1).reshape(-1, 3).astype(np.float32)
-    idx_xyz = torch.from_numpy(idx[:, ::-1].copy()).to(rois.device)
-    denom = torch.tensor([gx, gy, gz], dtype=torch.float32, device=rois.device)
+    with trace.readback("roi.grid_points"):       # host constants copied to the device
+        idx_xyz = torch.from_numpy(idx[:, ::-1].copy()).to(rois.device)
+        denom = torch.tensor([gx, gy, gz], dtype=torch.float32, device=rois.device)
     dims = rois[..., 3:6] * dim_times
     return (idx_xyz + 0.5) * dims[..., None, :] / denom - dims[..., None, :] / 2
 
@@ -284,9 +285,10 @@ class ConvHead(nn.Module):
         ], dim=-1)
         sample_pts = global_roi_grid_points(local_rois, (lz, ly, lx), 1.0)   # (B, N*G, L, 3)
         dev = rois.device
-        lo = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32, device=dev)
-        vs = (torch.tensor(self.det_voxel_size, dtype=torch.float32, device=dev)
-              * torch.tensor(self.xc_downsample, dtype=torch.float32, device=dev))
+        with trace.readback("roi.pool_grid"):      # host constants copied to the device
+            lo = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32, device=dev)
+            vs = (torch.tensor(self.det_voxel_size, dtype=torch.float32, device=dev)
+                  * torch.tensor(self.xc_downsample, dtype=torch.float32, device=dev))
         tgt = (sample_pts.reshape(R, S, 3) - lo) / vs - 0.5
         zyx = torch.stack([tgt[..., 2], tgt[..., 1], tgt[..., 0]], dim=-1).contiguous()
         roi_b = torch.arange(B, device=dev).repeat_interleave(N)

@@ -49,18 +49,15 @@ import itertools
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernel_build
 
-# kernel launches made by the wrappers below (CPU calls take the plain
-# versions and are not counted): the neighbour-map builds (`neighbor_map`),
-# the forward gather-GEMM (`sparse_conv`), the df of the backward
-# (`sparse_conv_df`, K1 too), K3's per-tap compaction of the map
-# (`tap_pairs`) and the weight gradient (`sparse_conv_dw`, K3)
-nbr_launches = 0
-launches = 0
-df_launches = 0
-pair_launches = 0
-dw_launches = 0
+# Each wrapper below counts its kernel launches as the recorder's counter
+# `launch.<wrapper>` (CPU calls take the plain versions and are not
+# counted): the neighbour-map builds (`neighbor_map`), the forward
+# gather-GEMM (`sparse_conv`), the df of the backward (`sparse_conv_df`, K1
+# too), K3's per-tap compaction of the map (`tap_pairs`) and the weight
+# gradient (`sparse_conv_dw`, K3).
 
 # K3's workspace of per-chunk partial weight gradients is held below this
 WS_BYTES = 64 << 20
@@ -283,8 +280,7 @@ def neighbor_map(in_keys, out_coords, in_spatial_shape, batch_size, kernel_size,
         stream)
     if err != 0:
         raise RuntimeError(f"neighbor_map kernel launch failed: cudaError {err}")
-    global nbr_launches
-    nbr_launches += 1
+    trace.count("launch.neighbor_map")
     return nbr
 
 
@@ -343,8 +339,7 @@ def sparse_conv(features, in_keys, out_coords, weights, in_spatial_shape, batch_
         return apply_map_matmul(features, nbr, weights)
     out, launched = _launch_k1("sparse_conv", features, nbr, weights)
     if launched:
-        global launches
-        launches += 1
+        trace.count("launch.sparse_conv")
     return out
 
 
@@ -368,8 +363,7 @@ def sparse_conv_df(g, table_keys, query_coords, weights, table_spatial_shape, ba
         return apply_map_matmul(g, nbr, weights)
     out, launched = _launch_k1("sparse_conv_df", g, nbr, weights)
     if launched:
-        global df_launches
-        df_launches += 1
+        trace.count("launch.sparse_conv_df")
     return out
 
 
@@ -407,8 +401,7 @@ def tap_pairs(nbr):
         nbr.data_ptr(), M, K, blk.data_ptr(), pairs.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tap_pairs kernel launch failed: cudaError {err}")
-    global pair_launches
-    pair_launches += 1
+    trace.count("launch.tap_pairs")
     return pairs, counts
 
 
@@ -462,8 +455,7 @@ def sparse_conv_dw(features, in_keys, out_coords, g, in_spatial_shape, batch_siz
         dw.data_ptr(), ws.data_ptr(), n_chunks, rows, cin, cin_k, cout, cout_k, stream)
     if err != 0:
         raise RuntimeError(f"sparse_conv_dw kernel launch failed: cudaError {err}")
-    global dw_launches
-    dw_launches += 1
+    trace.count("launch.sparse_conv_dw")
     return dw
 
 

@@ -30,13 +30,13 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from ..utils.common import trilinear_corners, trilinear_interpolate_dense
 from . import kernel_build
 
-# kernel launches made by the wrappers below (CPU calls take the plain
-# versions and are not counted): the forward, the volume gradient
-launches = 0
-bwd_launches = 0
+# The forward and the volume gradient below count their kernel launches as
+# the recorder's counters `launch.trilinear_pool` / `launch.trilinear_pool_grad`
+# (CPU calls take the plain versions and are not counted).
 
 
 def trilinear_pool_plain(volume, zyx, roi_b, valid):
@@ -114,8 +114,7 @@ def trilinear_pool(volume, zyx, roi_b, valid):
         zyx.data_ptr(), valid_u8.data_ptr(), roi_b32.data_ptr(), R, S, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trilinear_pool kernel launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    trace.count("launch.trilinear_pool")
     return out
 
 
@@ -270,8 +269,7 @@ def trilinear_pool_grad(g, volume_shape, volume_dtype, zyx, roi_b, valid):
         stream)
     if err != 0:
         raise RuntimeError(f"trilinear_pool_bwd kernel launch failed: cudaError {err}")
-    global bwd_launches
-    bwd_launches += 1
+    trace.count("launch.trilinear_pool_grad")
     return out
 
 

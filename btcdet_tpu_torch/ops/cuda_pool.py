@@ -38,15 +38,13 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import cuda_conv, kernel_build
 from .cuda_conv import INT32_MAX, check_map, neighbor_map_plain, triple
 
-# kernel launches made by the wrappers below, max and sum mode, forward and
-# backward (CPU calls take the plain versions and are not counted)
-launches = 0
-sum_launches = 0
-bwd_launches = 0
-sum_bwd_launches = 0
+# Each wrapper below counts its kernel launches, max and sum mode, forward
+# and backward, as the recorder's counter `launch.<wrapper>` (CPU calls take
+# the plain versions and are not counted).
 
 
 def sparse_pool_plain(features, in_keys, out_coords, in_spatial_shape, kernel_size, stride,
@@ -182,8 +180,7 @@ def sparse_pool(features, in_keys, out_coords, in_spatial_shape, batch_size, ker
     out, launched = _launch("sparse_pool", "sparse_maxpool_fwd", features, in_keys, out_coords,
                             in_spatial_shape, batch_size, kernel_size, stride, padding, nbr)
     if launched:
-        global launches
-        launches += 1
+        trace.count("launch.sparse_pool")
     return out
 
 
@@ -198,8 +195,7 @@ def sparse_sum_pool(features, in_keys, out_coords, in_spatial_shape, batch_size,
                             out_coords, in_spatial_shape, batch_size, kernel_size, stride,
                             padding, nbr)
     if launched:
-        global sum_launches
-        sum_launches += 1
+        trace.count("launch.sparse_sum_pool")
     return out
 
 
@@ -254,8 +250,7 @@ def sparse_pool_grad(features, out, g, nbr, tnbr):
              N, M, K, share.data_ptr(), df.data_ptr(), C, stream)
     if err != 0:
         raise RuntimeError(f"sparse_pool_grad kernel launch failed: cudaError {err}")
-    global bwd_launches
-    bwd_launches += 1
+    trace.count("launch.sparse_pool_grad")
     return df
 
 
@@ -273,6 +268,5 @@ def sparse_sum_pool_grad(g, tnbr):
     err = _fn("sparse_sumpool_fwd")(g.data_ptr(), tnbr.data_ptr(), N, K, df.data_ptr(), C, stream)
     if err != 0:
         raise RuntimeError(f"sparse_sum_pool_grad kernel launch failed: cudaError {err}")
-    global sum_bwd_launches
-    sum_bwd_launches += 1
+    trace.count("launch.sparse_sum_pool_grad")
     return df

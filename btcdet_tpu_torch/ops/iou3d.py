@@ -11,10 +11,13 @@ so the augmentor draws the same boxes, and no torch op in loader workers.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..utils import box_utils
+from ..utils.trace import readback
 
 
 def _ring_forward_fill(verts, valid):
@@ -106,7 +109,8 @@ def _greedy_chunked(top_boxes, top_valid, post_max_size: int, thresh: float,
     score-ordered chunks, each first suppressed by the survivors so far
     (candidate clipped by survivor), then greedily within itself; stops
     once `post_max_size` survive. About k * (chunk + post) box pairs."""
-    valid = top_valid.cpu().numpy()
+    with readback("nms.valid"):
+        valid = top_valid.cpu().numpy()
     kept = []
     for c0 in range(0, top_boxes.shape[0], chunk):
         if len(kept) >= post_max_size:
@@ -115,9 +119,13 @@ def _greedy_chunked(top_boxes, top_valid, post_max_size: int, thresh: float,
         if not cv.any():
             continue
         cb = top_boxes[c0:c0 + chunk]
-        cols = torch.cat([top_boxes[torch.as_tensor(kept, dtype=torch.int64,
-                                                    device=cb.device)], cb])
-        over = (boxes_iou_bev(cb, cols) > thresh).cpu().numpy()
+        # the survivors' indices are copied to the device: a wait once there are any
+        with readback("nms.survivors") if kept else contextlib.nullcontext():
+            cols = torch.cat([top_boxes[torch.as_tensor(kept, dtype=torch.int64,
+                                                        device=cb.device)], cb])
+        over = boxes_iou_bev(cb, cols) > thresh
+        with readback("nms.chunk"):
+            over = over.cpu().numpy()
         alive = cv & ~over[:, :len(kept)].any(axis=1)
         inner = over[:, len(kept):]
         for i in range(cb.shape[0]):
@@ -151,9 +159,11 @@ def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
         kept = _greedy_chunked(top_boxes, top_valid, post_max_size, thresh)
         if kept:
             kept_t = torch.as_tensor(kept, dtype=torch.int64)
-            out_idx[:len(kept)] = top_idx.cpu()[kept_t]
+            with readback("nms.kept"):
+                out_idx[:len(kept)] = top_idx.cpu()[kept_t]
             out_valid[:len(kept)] = True
-    return out_idx.to(boxes.device), out_valid.to(boxes.device)
+    with readback("nms.out"):                   # the kept indices copied to the device
+        return out_idx.to(boxes.device), out_valid.to(boxes.device)
 
 
 def nms_normal(boxes, scores, valid, *, thresh: float, pre_max_size: int,

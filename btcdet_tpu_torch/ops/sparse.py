@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel import all_reduce_sum
+from ..utils import trace
 from ..utils.common import activation_dtype
 from . import cuda_conv, cuda_pool
 from .cuda_conv import INT32_MAX, triple
@@ -117,11 +118,23 @@ def conv_out_shape(spatial_shape, kernel_size, stride, padding):
     return tuple((int(spatial_shape[i]) + 2 * p[i] - k[i]) // s[i] + 1 for i in range(3))
 
 
+def _frame_counts(mask, skey, cells_per_batch: int, batch_size: int):
+    """(B,) int64: the entries of `mask` a frame, over keys `skey` sorted
+    ascending (frame b holds [b, b + 1) * cells_per_batch): differences of
+    a running count at the frames' ends, with no atomics."""
+    ends = torch.searchsorted(skey, torch.arange(1, batch_size + 1, device=skey.device,
+                                                 dtype=torch.int64) * cells_per_batch)
+    upto = torch.cat([skey.new_zeros(1), torch.cumsum(mask.long(), 0)])[ends]
+    return torch.diff(upto, prepend=upto.new_zeros(1))
+
+
 def _unique_capped(cand_keys, capacity: int, cells_per_batch: int, batch_size: int):
     """Sorted unique keys under a static capacity: (keys (capacity,)
     ascending with INT32_MAX padding, nnz). With batch_size > 1 each frame
     keeps at most capacity // batch_size of its smallest keys (the JAX
-    engine's per-frame drop rule); otherwise the smallest `capacity`."""
+    engine's per-frame drop rule); otherwise the smallest `capacity`.
+    Tallies the distinct sites wanted and kept a frame
+    (`backbone.sites_wanted` / `backbone.sites_kept`)."""
     skey = torch.sort(cand_keys.long()).values
     first = torch.ones_like(skey, dtype=torch.bool)
     first[1:] = skey[1:] != skey[:-1]
@@ -137,7 +150,12 @@ def _unique_capped(cand_keys, capacity: int, cells_per_batch: int, batch_size: i
         keep = first & ((rank - start[bidx]) < per_cap)
     else:
         keep = first & (rank < capacity)
-    kept = skey[keep]
+    trace.tally("backbone.sites_wanted", lambda: _frame_counts(first, skey, cells_per_batch,
+                                                               batch_size))
+    trace.tally("backbone.sites_kept", lambda: _frame_counts(keep, skey, cells_per_batch,
+                                                             batch_size))
+    with trace.readback("sparse.kept_sites"):
+        kept = skey[keep]
     out = torch.full((capacity,), INT32_MAX, dtype=torch.int64, device=skey.device)
     out[:kept.numel()] = kept
     return out.to(torch.int32), keep.sum()

@@ -26,6 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernel_build
 from .cuda_conv import INT32_MAX
 
@@ -157,8 +158,9 @@ def merge_points_into_voxel_features(dvox, dcoords, dnum, opts, ovalid, *, grid_
 
     # destination row of every kept point, flattened over frames
     frame = torch.arange(B, device=dev)[:, None] * R
-    dest = (frame + row)[kept]
-    pk = sp[kept]
+    with trace.readback("merge.kept_points"):
+        dest = (frame + row)[kept]
+        pk = sp[kept]
     is_occ = pk[:, -1] >= 0.05
     head, tail = pk[:, :nrf], pk[:, nrf:]
     zero = torch.zeros((), device=dev)
@@ -215,7 +217,9 @@ def _merge_plan(dkey, dnum, opts, ovalid, grid_size, lo, vs, extra: int, max_poi
     det cell key (stable), and for each its destination row (a det row for
     a hit, Nd + the cell's rank among the missing cells otherwise), its
     slot, and whether it is kept; the new rows' keys (INT32_MAX pads).
-    dkey (B, Nd) int64 cell keys of the det rows, key-sorted valid-first."""
+    dkey (B, Nd) int64 cell keys of the det rows, key-sorted valid-first.
+    Tallies the new cells a frame offered and those kept as rows
+    (`occ.merge.new_cells` / `occ.merge.new_rows`)."""
     nxd, nyd, nzd = (int(v) for v in grid_size)
     B, K = ovalid.shape
     Nd = dkey.shape[1]
@@ -240,9 +244,12 @@ def _merge_plan(dkey, dnum, opts, ovalid, grid_size, lo, vs, extra: int, max_poi
     keep_m = ~hit & live & (nrank >= 0) & (nrank < extra) & (slot < max_points)
     row = torch.where(hit, il, Nd + nrank)
     new_head = miss_head & (nrank < extra)
+    trace.tally("occ.merge.new_cells", lambda: miss_head.sum(1))
+    trace.tally("occ.merge.new_rows", lambda: new_head.sum(1))
     frame = torch.arange(B, device=dev)[:, None] * extra
     ekey = torch.full((B * extra,), INT32_MAX, dtype=torch.long, device=dev)
-    ekey[(frame + nrank)[new_head]] = sk[new_head]
+    with trace.readback("merge.new_keys"):
+        ekey[(frame + nrank)[new_head]] = sk[new_head]
     return (order, row, torch.where(hit, dest_slot, slot), keep_h | keep_m,
             ekey.reshape(B, extra))
 

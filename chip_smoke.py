@@ -31,6 +31,7 @@ default run, the whole proof on request.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b8        # only the first path (bench.py's main path, B=8)
+    python3 chip_smoke.py --syncs     # only the sync-debug check (2c)
     python3 chip_smoke.py --dp [seed ...]   # only the seventh path's data-parallel steps,
                                       # with more draws of the output projections
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
@@ -74,6 +75,13 @@ Phases (any failure raises and exits non-zero, printing no result):
      B=2, the roi-grouped query alone (ms and peak a stage); then
      `config.fast20k()` at B=8 (launches, outputs, the sites cut a level,
      its median beside the shipped caps');
+  2c. the sync-debug check (`sync_path`): the car and 3-class yamls as
+     shipped at B=8, one eval forward + post-processing each under
+     `torch.cuda.set_sync_debug_mode`, with the recorder on: in "warn" mode
+     no synchronising call may come from outside the named read-backs
+     (`utils.trace.readback`; each found site is logged by file and line),
+     and in "error" mode the pass must run through; the read-backs a batch
+     are logged by site;
   3. capture: one forward of the full flagship model at B=2 records the
      inputs its kernels see (these launches are not counted);
   4. kernel phase: each kernel against its plain PyTorch version on the
@@ -398,27 +406,28 @@ TRAIN_LAUNCHES = {"neighbor_map": 17, "sparse_conv": 18, "sparse_conv_df": 17, "
 
 
 def kernel_modules():
-    """{kernel wrapper name: (the ops module holding it, its launch counter)}."""
+    """{kernel wrapper name: the ops module holding it}; each wrapper counts
+    its launches as the recorder's counter `launch.<name>`."""
     from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 
-    return {"neighbor_map": (cuda_conv, "nbr_launches"), "sparse_conv": (cuda_conv, "launches"),
-            "sparse_conv_df": (cuda_conv, "df_launches"), "tap_pairs": (cuda_conv, "pair_launches"),
-            "sparse_conv_dw": (cuda_conv, "dw_launches"), "sparse_pool": (cuda_pool, "launches"),
-            "sparse_sum_pool": (cuda_pool, "sum_launches"),
-            "sparse_pool_grad": (cuda_pool, "bwd_launches"),
-            "sparse_sum_pool_grad": (cuda_pool, "sum_bwd_launches"),
-            "trilinear_pool": (cuda_interp, "launches"),
-            "trilinear_pool_grad": (cuda_interp, "bwd_launches")}
+    return {"neighbor_map": cuda_conv, "sparse_conv": cuda_conv, "sparse_conv_df": cuda_conv,
+            "tap_pairs": cuda_conv, "sparse_conv_dw": cuda_conv, "sparse_pool": cuda_pool,
+            "sparse_sum_pool": cuda_pool, "sparse_pool_grad": cuda_pool,
+            "sparse_sum_pool_grad": cuda_pool, "trilinear_pool": cuda_interp,
+            "trilinear_pool_grad": cuda_interp}
 
 
 def reset_launches():
-    for mod, counter in kernel_modules().values():
-        setattr(mod, counter, 0)
+    from btcdet_tpu_torch.utils import trace
+
+    trace.reset_counts("launch.")
 
 
 def read_launches(names=None) -> dict:
-    return {name: getattr(mod, counter) for name, (mod, counter) in kernel_modules().items()
-            if names is None or name in names}
+    from btcdet_tpu_torch.utils import trace
+
+    n = trace.counts("launch.")
+    return {name: n.get(name, 0) for name in kernel_modules() if names is None or name in names}
 
 
 def capture_kernel_inputs(run):
@@ -426,7 +435,7 @@ def capture_kernel_inputs(run):
     returns the recorded calls (args, kwargs) of each, in order."""
     mods = kernel_modules()
     calls = {name: [] for name in mods}
-    orig = {name: getattr(mod, name) for name, (mod, _) in mods.items()}
+    orig = {name: getattr(mod, name) for name, mod in mods.items()}
 
     def recorder(name):
         def rec(*args, **kw):
@@ -434,12 +443,12 @@ def capture_kernel_inputs(run):
             return orig[name](*args, **kw)
         return rec
 
-    for name, (mod, _) in mods.items():
+    for name, mod in mods.items():
         setattr(mod, name, recorder(name))
     try:
         run()
     finally:
-        for name, (mod, _) in mods.items():
+        for name, mod in mods.items():
             setattr(mod, name, orig[name])
     return calls
 
@@ -994,17 +1003,27 @@ def k4_grad_case(args, label: str = "train"):
             else "operations", "library_ms": lib_ms}
 
 
+def synced_stage_ms(run) -> dict:
+    """Wall ms by stage of run(), each stage span between two device
+    synchronisations (the recorder's `enable(sync=True)`), summed over the
+    spans of a name: for stage breakdowns, not for throughput."""
+    from btcdet_tpu_torch.utils import trace
+
+    trace.enable(sync=True, tallies=False)
+    try:
+        run()
+    finally:
+        rec = trace.disable()
+    return {n: rec.ms(n) for n in dict.fromkeys(s[0] for s in rec.spans)
+            if not n.startswith("sync.")}
+
+
 def stage_times(net, batch, post_cfg) -> dict:
     """Wall ms per stage of one forward + post-processing, each stage
     between two device synchronisations."""
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
 
-    times = {}
-    net.stage_ms = times
-    try:
-        post_processing(net(batch), post_cfg, 1, stage_ms=times)
-    finally:
-        net.stage_ms = None
+    times = synced_stage_ms(lambda: post_processing(net(batch), post_cfg, 1))
     return {s: round(times[s], 3) for s in STAGES if s in times}
 
 
@@ -1869,11 +1888,9 @@ def train_phase():
     log(f"train max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     log(f"train loss per step: {losses}")
     assert all(math.isfinite(v) for v in losses), losses
-    net.stage_ms = {}
-    trainer.train_step(net, opt, batch, gen)
+    stages = synced_stage_ms(lambda: trainer.train_step(net, opt, batch, gen))
     log("train stage ms (synchronised, forward only): "
-        + json.dumps({k: round(v, 3) for k, v in net.stage_ms.items()}))
-    net.stage_ms = None
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     profile_step(lambda: trainer.train_step(net, opt, batch, gen), STAGES, "train step")
     return entries
 
@@ -4552,13 +4569,13 @@ def sp_flagship_worker(io: str):
             step()
             times.append((time.perf_counter() - t0) * 1e3)
         out["step_ms"] = times
-        spatial.COMM_MS, net.stage_ms = {}, {}
-        step()
-        out["train_comm_ms"], out["train_stage_ms"] = spatial.COMM_MS, net.stage_ms
+        spatial.COMM_MS = {}
+        out["train_stage_ms"] = synced_stage_ms(step)
+        out["train_comm_ms"] = spatial.COMM_MS
 
         net.load_state_dict(weights.synth_state_dict(net))   # the main path's weights
         net.eval()
-        spatial.COMM_MS, net.stage_ms = None, None
+        spatial.COMM_MS = None
         ebatch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384,
                                       num_gt=10, seed=0, mode="test", device=dev)
         torch.cuda.reset_peak_memory_stats()
@@ -4570,9 +4587,9 @@ def sp_flagship_worker(io: str):
         out["eval_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
         parallel.barrier()
         out["eval_ms"] = timed_median(lambda: forward_post(net, ebatch, cfg))
-        spatial.COMM_MS, net.stage_ms = {}, {}
-        forward_post(net, ebatch, cfg)
-        out["eval_comm_ms"], out["eval_stage_ms"] = spatial.COMM_MS, net.stage_ms
+        spatial.COMM_MS = {}
+        out["eval_stage_ms"] = synced_stage_ms(lambda: forward_post(net, ebatch, cfg))
+        out["eval_comm_ms"] = spatial.COMM_MS
         spatial.COMM_MS = None
         del net, opt, batch, ebatch
         torch.cuda.empty_cache()
@@ -4675,20 +4692,15 @@ def one_flagship_run(init: str, f32: bool, perturb: float = 0.0) -> dict:
     if f32:
         return out
     out["step_ms"] = timed_median(step)[0]
-    net.stage_ms = {}
-    step()
-    out["train_bev_ms"] = net.stage_ms["bev"]
+    out["train_bev_ms"] = synced_stage_ms(step)["bev"]
     net.load_state_dict(weights.synth_state_dict(net))
     net.eval()
-    net.stage_ms = None
     ebatch = make_synthetic_batch(cfg.DATA_CONFIG, batch_size=2, num_points=16384, num_gt=10,
                                   seed=0, mode="test")
     out["post"] = {k: v.cpu() for k, v in post_processing(
         net(ebatch), cfg.MODEL.POST_PROCESSING, 1).items()}
     out["eval_ms"] = timed_median(lambda: forward_post(net, ebatch, cfg))[0]
-    net.stage_ms = {}
-    forward_post(net, ebatch, cfg)
-    out["eval_bev_ms"] = net.stage_ms["bev"]
+    out["eval_bev_ms"] = synced_stage_ms(lambda: forward_post(net, ebatch, cfg))["bev"]
     return out
 
 
@@ -5076,10 +5088,8 @@ def approx_train_steps(card: str):
         if i >= 2:
             times[kind].append((time.perf_counter() - t0) * 1e3)
     for kind, (net, opt, batch) in runs.items():
-        net.stage_ms = {}
-        trainer.train_step(net, opt, batch, gen)
-        stages[kind] = {k: round(v, 3) for k, v in net.stage_ms.items()}
-        net.stage_ms = None
+        stages[kind] = {k: round(v, 3) for k, v in synced_stage_ms(
+            lambda: trainer.train_step(net, opt, batch, gen)).items()}
     log("train step ms (B=2, train caps, same weights and batch, 4 steps each in turns after "
         "a warm-up each): " + json.dumps({k: {"median": round(statistics.median(v), 2),
                                               "all": [round(t, 2) for t in v]}
@@ -5285,31 +5295,18 @@ def sparse_frame(st, b: int) -> tuple:
 
 @contextlib.contextmanager
 def frame_site_drops(calls: list):
-    """`sparse._unique_capped` (a strided conv's output sites under its
-    level capacity) wrapped: each call appends (capacity a frame, [distinct
-    sites wanted a frame], [sites kept a frame]) on the host."""
-    import torch
+    """The recorder on around the block: each strided conv's output sites
+    under its level capacity (`sparse._unique_capped`'s tallies) append
+    ([distinct sites wanted a frame], [sites kept a frame]) on the host."""
+    from btcdet_tpu_torch.utils import trace
 
-    from btcdet_tpu_torch.ops import sparse
-
-    orig = sparse._unique_capped
-
-    def counted(cand_keys, capacity, cells_per_batch, batch_size):
-        keys, nnz = orig(cand_keys, capacity, cells_per_batch, batch_size)
-        s = torch.sort(cand_keys.long()).values
-        first = s != sparse.INT32_MAX
-        first[1:] &= s[1:] != s[:-1]
-        kept = keys.long()[keys.long() != sparse.INT32_MAX]
-        calls.append((int(capacity) // int(batch_size), *(
-            torch.bincount((k // cells_per_batch).clamp(0, batch_size - 1),
-                           minlength=batch_size).cpu().tolist() for k in (s[first], kept))))
-        return keys, nnz
-
-    sparse._unique_capped = counted
+    trace.enable()
     try:
         yield
     finally:
-        sparse._unique_capped = orig
+        rec = trace.disable()
+    calls.extend((w.tolist(), k.tolist()) for w, k in zip(
+        rec.tallies.get("backbone.sites_wanted", []), rec.tallies.get("backbone.sites_kept", [])))
 
 
 def frame_views(net, batch, post_cfg, drops=None) -> tuple:
@@ -5560,7 +5557,7 @@ def batch_independence(card: str, net, cfg, batch8, big, queries8, post8, drops8
     assert not coupled, f"at one batch size frames 0-1 see the other frames: {coupled}"
     drops2 = []
     small, _, _, post2 = frame_views(net, batch2, post_cfg, drops2)
-    assert [(c, [w[f] for f in pair], [k[f] for f in pair]) for c, w, k in drops8] == drops2, (
+    assert [([w[f] for f in pair], [k[f] for f in pair]) for w, k in drops8] == drops2, (
         "the level capacities cut frames 0-1 otherwise at B=8 than at B=2", drops8, drops2)
     diffs = frame_differences(big, small, BENCH_PAIR)
     first = next((s for s in STAGES if s in diffs), None)
@@ -5708,9 +5705,9 @@ def bench_path(card: str) -> list:
         f"{[int(v) for v in out['roi_valid'].sum(dim=1)]}; detections per frame {n_det}; nnz "
         f"per level {json.dumps(out['nnz'])}")
     log(f"[{card}] B={BENCH_B} active sites a frame dropped at each level capacity "
-        "(capacity a frame: [dropped of wanted] by frame): " + json.dumps(
-            {f"call {i} ({c})": [f"{w - k} of {w}" for w, k in zip(want, kept)]
-             for i, (c, want, kept) in enumerate(drops8)})
+        "(strided conv: [dropped of wanted] by frame): " + json.dumps(
+            {f"call {i}": [f"{w - k} of {w}" for w, k in zip(want, kept)]
+             for i, (want, kept) in enumerate(drops8)})
         + "; the merged det table " + json.dumps(drops["merged_table"]))
     assert min(n_occ) > 0 and min(new_rows) > 0, (n_occ, new_rows)
 
@@ -5751,7 +5748,7 @@ def bench_path(card: str) -> list:
     flaunch = read_launches()
     assert flaunch == EVAL_LAUNCHES, (flaunch, EVAL_LAUNCHES)
     fdet = check_eval_outputs(fnet, fbatch, fout, fpost)
-    fcut = {f"call {i} ({c})": sum(w) - sum(k) for i, (c, w, k) in enumerate(fdrops)}
+    fcut = {f"call {i}": sum(w) - sum(k) for i, (w, k) in enumerate(fdrops)}
     fmed, ftimes = timed_median(lambda: forward_post(fnet, fbatch, fast))
     fcaps = {p.NAME: p.MAX_NUMBER_OF_VOXELS["test"] for p in fast.DATA_CONFIG.DATA_PROCESSOR
              if "MAX_NUMBER_OF_VOXELS" in p}
@@ -5765,6 +5762,115 @@ def bench_path(card: str) -> list:
     log(f"first path (bench.py's main path, B={BENCH_B}): {time.perf_counter() - t0:.1f} s "
         f"({card})")
     return kernels
+
+
+def sync_sites(net, batch, post_cfg, num_class: int) -> tuple:
+    """One eval forward + post-processing with the recorder on and the
+    card's sync debug mode at "warn": each synchronising call outside the
+    named read-backs (`trace.readback`) warns, and is collected by the
+    innermost frame of the port it came from ("file:line function").
+    Returns ({site: count} of those calls, {read-back site: count})."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+    from btcdet_tpu_torch.utils import trace
+
+    found = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()[:-1] if "btcdet_tpu_torch" in f.filename
+                and not f.filename.endswith("utils/trace.py")]
+        if port:
+            f = port[-1]
+            site = f"{f.filename.split('btcdet_tpu_torch/')[-1]}:{f.lineno} {f.name}"
+        else:
+            site = " < ".join(f"{f.filename}:{f.lineno} {f.name}"
+                              for f in reversed(traceback.extract_stack()[-6:-1]))
+        found[site] = found.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        trace.enable(sync_debug="warn")
+        try:
+            post_processing(net(batch), post_cfg, num_class)
+        finally:
+            rec = trace.disable()
+    torch.cuda.synchronize()
+    return found, rec.sync_counts()
+
+
+def sync_path(card: str) -> dict:
+    """The sync-debug check (module docstring, 2c): the car yaml and the
+    3-class yaml as shipped (the approximate query) at B=8, each after a
+    warm-up pass: one eval forward + post-processing in "warn" mode
+    (`sync_sites`) must find no synchronising call outside the named
+    read-backs, and one in "error" mode (`trace.enable(sync_debug="error")`,
+    which lifts the mode only inside each read-back) must run through; so
+    must a hand-built NMS call that reads three chunks back.
+    Returns {config: {read-back site: count a batch}}."""
+    import torch
+
+    from btcdet_tpu_torch import config
+    from btcdet_tpu_torch.datasets import make_synthetic_batch
+    from btcdet_tpu_torch.models.detectors.btcnet import post_processing
+    from btcdet_tpu_torch.ops import iou3d
+    from btcdet_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    out, unnamed = {}, {}
+    for name, cfg in (("car", config.flagship_shipped()),
+                      ("three_class", config.cfg_from_yaml_file(config.THREE_CLASS_CFG))):
+        assert "APPROX_QUERY" not in cfg.MODEL.ROI_HEAD, "the yaml as shipped"
+        ncls = len(cfg.CLASS_NAMES)
+        net = det_net(cfg)
+        batch = relabel(make_synthetic_batch(cfg.DATA_CONFIG, batch_size=BENCH_B,
+                                             num_points=16384, num_gt=10, seed=0, mode="test"),
+                        ncls)
+        post_cfg = cfg.MODEL.POST_PROCESSING
+        post_processing(net(batch), post_cfg, ncls)
+        torch.cuda.synchronize()
+        found, counts = sync_sites(net, batch, post_cfg, ncls)
+        log(f"[{card}] sync inventory, {name} yaml at B={BENCH_B}: read-backs a batch "
+            f"{json.dumps(counts)} ({sum(counts.values())} in all); synchronising calls outside "
+            f"them: {json.dumps(found)}")
+        out[name] = counts
+        if found:
+            unnamed[name] = found
+            continue
+        trace.enable(sync_debug="error")
+        try:
+            post_processing(net(batch), post_cfg, ncls)
+            torch.cuda.synchronize()
+        finally:
+            rec = trace.disable()
+        assert rec.sync_counts() == counts, (rec.sync_counts(), counts)
+        del net, batch
+        torch.cuda.empty_cache()
+    assert not unnamed, f"synchronising calls outside the named read-backs: {unnamed}"
+    # the NMS's later chunks (the survivors copied to the card), which the
+    # synthetic weights' boxes do not reach: 600 apart, every one kept
+    boxes = torch.zeros((600, 7), device="cuda")
+    boxes[:, 0] = torch.arange(600, device="cuda") * 3.0
+    boxes[:, 3:6] = torch.tensor([2.0, 1.0, 1.5], device="cuda")
+    trace.enable(sync_debug="error")
+    try:
+        iou3d.nms_rotated(boxes, torch.linspace(1.0, 0.1, 600, device="cuda"),
+                          torch.ones(600, dtype=torch.bool, device="cuda"), thresh=0.1,
+                          pre_max_size=600, post_max_size=1000)
+        torch.cuda.synchronize()
+    finally:
+        rec = trace.disable()
+    assert rec.sync_counts() == {"nms.valid": 1, "nms.chunk": 3, "nms.survivors": 2,
+                                 "nms.kept": 1, "nms.out": 1}, rec.sync_counts()
+    log(f"sync-debug check (car and 3-class at B={BENCH_B}, \"error\" mode): passed, "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 def grouped_query_alone(card: str, net, batch):
@@ -6014,6 +6120,7 @@ def main() -> int:
     sp_only = sys.argv[1:] == ["--sp"]
     approx_only = sys.argv[1:] == ["--approx"]
     b8_only = sys.argv[1:] == ["--b8"]
+    syncs_only = sys.argv[1:] == ["--syncs"]
     gate_only = sys.argv[1:] == ["--gate"]
     overfit = sys.argv[1:] in (["--overfit"], ["--overfit", "--three_classes"])
     sys.path.insert(0, REPO)
@@ -6077,6 +6184,11 @@ def main() -> int:
         print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
         print_contract_line()
         return 0
+    if syncs_only:
+        res = sync_path(card)
+        log(f"chip_smoke --syncs: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"read_backs_a_batch": res}), flush=True)
+        return 0
     if gate_only or overfit:
         res = overfit_path(card, full=overfit, three_classes="--three_classes" in sys.argv)
         log(f"chip_smoke {' '.join(sys.argv[1:])}: {time.perf_counter() - t_start:.1f} s in all")
@@ -6086,6 +6198,10 @@ def main() -> int:
 
     # 2b. first path: bench.py's main path as shipped (B=8, the approximate query)
     b8_kernels = bench_path(card)
+
+    # 2c. the sync-debug check: every synchronisation of the eval forward +
+    # post-processing is a named read-back
+    sync_path(card)
 
     # 3. full flagship model, synthetic weights by name, capture run
     cfg = config.flagship()

@@ -19,6 +19,7 @@ import torch
 
 from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
 from btcdet_tpu_torch.ops import sparse as TS
+from btcdet_tpu_torch.utils import trace
 
 # kernel vs plain: the same products, summed in another order in f32
 TOL = dict(rtol=1e-3, atol=1e-3)
@@ -31,6 +32,11 @@ CONV_CASES = [  # kernel, stride, padding, Cin, Cout (the flagship backbone's sh
     # on x_conv2 + the pooled occ code
     (3, 1, 1, 6, 16), (3, 1, 1, 34, 32),
 ]
+
+
+def launches(kernel: str) -> int:
+    """The kernel wrapper's launches so far (the recorder's `launch.<kernel>`)."""
+    return trace.COUNTS.get("launch." + kernel, 0)
 
 
 @pytest.fixture
@@ -66,10 +72,10 @@ def test_sparse_conv_kernel_matches_plain(cuda, kernel, stride, padding, cin, co
          / np.sqrt(K * cin)).to(cuda, dtype)
     feats = st.features.to(dtype)
     args = (st.keys, coords, w, st.spatial_shape, st.batch_size, kernel, stride, padding)
-    n0 = cuda_conv.launches
+    n0 = launches("sparse_conv")
     out = cuda_conv.sparse_conv(feats, *args)
     torch.cuda.synchronize()
-    assert cuda_conv.launches == n0 + 1
+    assert launches("sparse_conv") == n0 + 1
     ref = cuda_conv.sparse_conv_plain(feats, *args)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     torch.testing.assert_close(out, ref, **TOL)
@@ -88,10 +94,10 @@ def test_trilinear_pool_kernel_matches_plain(cuda, dtype):
     zyx = zyx.to(cuda)
     roi_b = torch.randint(0, B, (R,), generator=g).to(cuda)
     valid = (torch.rand(R, S, generator=g) < 0.9).to(cuda)
-    n0 = cuda_interp.launches
+    n0 = launches("trilinear_pool")
     out = cuda_interp.trilinear_pool(vol, zyx, roi_b, valid)
     torch.cuda.synchronize()
-    assert cuda_interp.launches == n0 + 1
+    assert launches("trilinear_pool") == n0 + 1
     ref = cuda_interp.trilinear_pool_plain(vol, zyx, roi_b, valid)
     assert out.dtype == ref.dtype == dtype
     if dtype == torch.float32:
@@ -155,12 +161,12 @@ def test_trilinear_pool_grad_kernel_matches_plain(cuda, C, R, hot):
     (gout, zyx, roi_b, valid), shape = _k4_grad_case(cuda, C, R=R, spread=2.0 if hot else 30.0,
                                                      one_center=hot)
     g16 = gout.to(torch.bfloat16)
-    n0 = cuda_interp.bwd_launches
+    n0 = launches("trilinear_pool_grad")
     out32 = cuda_interp.trilinear_pool_grad(g16.float(), shape, torch.float32, zyx, roi_b, valid)
     out16 = cuda_interp.trilinear_pool_grad(g16, shape, torch.bfloat16, zyx, roi_b, valid)
     again = cuda_interp.trilinear_pool_grad(g16, shape, torch.bfloat16, zyx, roi_b, valid)
     torch.cuda.synchronize()
-    assert cuda_interp.bwd_launches == n0 + 3
+    assert launches("trilinear_pool_grad") == n0 + 3
     assert out16.dtype == torch.bfloat16 and out16.shape == shape and out16.is_contiguous()
     assert torch.equal(out16, again)
     assert torch.equal(out16, out32.to(torch.bfloat16))
@@ -189,9 +195,9 @@ def test_trilinear_pool_grad_kernel_on_an_empty_call(cuda):
 
 def test_cpu_tensors_take_the_plain_volume_gradient():
     (gout, zyx, roi_b, valid), shape = _k4_grad_case("cpu", 16, R=3, S=50, shape=(1, 3, 8, 8))
-    n0 = cuda_interp.bwd_launches
+    n0 = launches("trilinear_pool_grad")
     out = cuda_interp.trilinear_pool_grad(gout, shape, torch.bfloat16, zyx, roi_b, valid)
-    assert cuda_interp.bwd_launches == n0 and out.dtype == torch.bfloat16
+    assert launches("trilinear_pool_grad") == n0 and out.dtype == torch.bfloat16
     ref = cuda_interp.trilinear_pool_volume_grad(gout, shape, zyx, roi_b, valid)
     assert torch.equal(out, ref.to(torch.bfloat16))
 
@@ -236,10 +242,10 @@ def test_sparse_pool_kernel_matches_plain(cuda, kernel, stride, padding, cin, se
     feats = st.features.abs() if seed % 2 else st.features     # occ codes are >= 0
     _, coords, _, _ = TS.conv_output_sites(st, kernel, stride, padding, st.capacity)
     args = (st.keys, coords, st.spatial_shape, st.batch_size, kernel, stride, padding)
-    n0 = cuda_pool.launches
+    n0 = launches("sparse_pool")
     out = cuda_pool.sparse_pool(feats, *args)
     torch.cuda.synchronize()
-    assert cuda_pool.launches == n0 + 1
+    assert launches("sparse_pool") == n0 + 1
     ref = cuda_pool.sparse_pool_plain(feats, st.keys, coords, st.spatial_shape, kernel, stride,
                                       padding)
     assert out.dtype == torch.float32 and out.shape == ref.shape
@@ -270,10 +276,10 @@ def test_sparse_sum_pool_kernel_matches_plain(cuda, kernel, stride, padding, cin
     _, coords, _, _ = TS.conv_output_sites(st, 3, stride, (0, 1, 1) if seed % 2 else 1,
                                            st.capacity)
     args = (st.keys, coords, st.spatial_shape, st.batch_size, kernel, stride, padding)
-    n0, m0 = cuda_pool.sum_launches, cuda_pool.launches
+    n0, m0 = launches("sparse_sum_pool"), launches("sparse_pool")
     out = cuda_pool.sparse_sum_pool(feats, *args)
     torch.cuda.synchronize()
-    assert (cuda_pool.sum_launches, cuda_pool.launches) == (n0 + 1, m0)
+    assert (launches("sparse_sum_pool"), launches("sparse_pool")) == (n0 + 1, m0)
     ref = cuda_pool.sparse_sum_pool_plain(feats, st.keys, coords, st.spatial_shape, kernel,
                                           stride, padding)
     assert out.dtype == torch.float32 and out.shape == ref.shape
@@ -315,11 +321,11 @@ def test_sparse_sum_pool_grad_kernel_matches_plain(cuda, kind):
     the forward wrapper refuses an input that requires a gradient outside
     `sparse.SparsePoolFunction`."""
     st, coords, _, tnbr, g = _pool_grad_case(cuda, kind)
-    n0 = cuda_pool.sum_bwd_launches
+    n0 = launches("sparse_sum_pool_grad")
     df = cuda_pool.sparse_sum_pool_grad(g, tnbr)
     assert torch.equal(df, cuda_pool.sparse_sum_pool_grad_plain(g, tnbr))
     assert torch.equal(df, cuda_pool.sparse_sum_pool_grad(g, tnbr))
-    assert cuda_pool.sum_bwd_launches == n0 + 2
+    assert launches("sparse_sum_pool_grad") == n0 + 2
     assert (df[st.coords[:, 0] < 0] == 0).all() and (df != 0).any()
     feats = st.features.clone().requires_grad_()
     with pytest.raises(ValueError):
@@ -331,13 +337,13 @@ def test_cpu_tensors_take_the_plain_sum_pool():
     launch."""
     st = _sparse_case("cpu", 2, n=300, shape=(9, 20, 20))
     _, coords, _, _ = TS.conv_output_sites(st, 3, 2, 1, st.capacity)
-    n0 = cuda_pool.sum_launches
+    n0 = launches("sparse_sum_pool")
     for kernel in (3, 2):
         out = cuda_pool.sparse_sum_pool(st.features, st.keys, coords, st.spatial_shape, 2, kernel,
                                         2, 1)
         torch.testing.assert_close(out, cuda_pool.sparse_sum_pool_plain(
             st.features, st.keys, coords, st.spatial_shape, kernel, 2, 1), rtol=0, atol=0)
-    assert cuda_pool.sum_launches == n0
+    assert launches("sparse_sum_pool") == n0
     assert float(out.abs().max()) > 0
 
 
@@ -359,23 +365,23 @@ def test_kernels_refuse_bad_inputs(cuda):
 def test_cpu_tensors_take_the_plain_version():
     st = _sparse_case("cpu", 4, n=300, shape=(9, 20, 20))
     w = torch.randn(27, 4, 8)
-    n0 = cuda_conv.launches
+    n0 = launches("sparse_conv")
     out = cuda_conv.sparse_conv(st.features, st.keys, st.coords, w, st.spatial_shape, 2, 3, 1, 1)
     ref = cuda_conv.sparse_conv_plain(st.features, st.keys, st.coords, w, st.spatial_shape,
                                       2, 3, 1, 1)
-    assert cuda_conv.launches == n0
+    assert launches("sparse_conv") == n0
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    n2 = cuda_pool.launches
+    n2 = launches("sparse_pool")
     out = cuda_pool.sparse_pool(st.features, st.keys, st.coords, st.spatial_shape, 2, 3, 2, 1)
-    assert cuda_pool.launches == n2
+    assert launches("sparse_pool") == n2
     torch.testing.assert_close(out, cuda_pool.sparse_pool_plain(
         st.features, st.keys, st.coords, st.spatial_shape, 3, 2, 1), rtol=0, atol=0)
     vol = torch.randn(1, 3, 8, 8, 4)
     zyx = torch.rand(2, 5, 3) * 8
-    n1 = cuda_interp.launches
+    n1 = launches("trilinear_pool")
     cuda_interp.trilinear_pool(vol, zyx, torch.zeros(2, dtype=torch.long),
                                torch.ones(2, 5, dtype=torch.bool))
-    assert cuda_interp.launches == n1
+    assert launches("trilinear_pool") == n1
 
 
 def _dw_case(device, kernel, stride, padding, cin, cout, dtype, seed=0):
@@ -397,11 +403,11 @@ def test_sparse_conv_dw_kernel_matches_plain(cuda, kernel, stride, padding, cin,
     """K3 against its plain version (gather + bmm of the transpose), and
     bit for bit the same in a second run."""
     args = _dw_case(cuda, kernel, stride, padding, cin, cout, dtype)
-    n0 = cuda_conv.dw_launches
+    n0 = launches("sparse_conv_dw")
     dw = cuda_conv.sparse_conv_dw(*args)
     again = cuda_conv.sparse_conv_dw(*args)
     torch.cuda.synchronize()
-    assert cuda_conv.dw_launches == n0 + 2
+    assert launches("sparse_conv_dw") == n0 + 2
     ref = cuda_conv.sparse_conv_dw_plain(*args)
     assert dw.dtype == torch.float32 and dw.shape == ref.shape
     scale = float(ref.abs().max())
@@ -435,10 +441,10 @@ def test_sparse_conv_df_transpose_matches_plain(cuda, kernel, stride, padding, c
     w_t = (torch.randn(K, cout, cin, generator=torch.Generator().manual_seed(4))
            / np.sqrt(K * cout)).to(cuda, dtype)
     args = (keys, st.coords, w_t, out_shape, st.batch_size, kernel, stride, padding)
-    n0 = cuda_conv.df_launches
+    n0 = launches("sparse_conv_df")
     out = cuda_conv.sparse_conv_df(g, *args, transpose=True)
     torch.cuda.synchronize()
-    assert cuda_conv.df_launches == n0 + 1
+    assert launches("sparse_conv_df") == n0 + 1
     ref = cuda_conv.sparse_conv_plain(g, *args, transpose=True)
     assert out.shape == (st.capacity, cin)
     torch.testing.assert_close(out, ref, **TOL)
@@ -450,7 +456,7 @@ def test_cpu_tensors_take_the_plain_backward():
     tensors and count no launch."""
     st = _sparse_case("cpu", 4, n=300, shape=(9, 20, 20))
     g = torch.randn(st.capacity, 8)
-    n0, n1 = cuda_conv.df_launches, cuda_conv.dw_launches
+    n0, n1 = launches("sparse_conv_df"), launches("sparse_conv_dw")
     dw = cuda_conv.sparse_conv_dw(st.features, st.keys, st.coords, g, st.spatial_shape, 2, 3, 1, 1)
     torch.testing.assert_close(dw, cuda_conv.sparse_conv_dw_plain(
         st.features, st.keys, st.coords, g, st.spatial_shape, 2, 3, 1, 1), rtol=0, atol=0)
@@ -459,7 +465,7 @@ def test_cpu_tensors_take_the_plain_backward():
                                   transpose=False)
     torch.testing.assert_close(df, cuda_conv.sparse_conv_plain(
         g, st.keys, st.coords, w_t, st.spatial_shape, 2, 3, 1, 1), rtol=0, atol=0)
-    assert (cuda_conv.df_launches, cuda_conv.dw_launches) == (n0, n1)
+    assert (launches("sparse_conv_df"), launches("sparse_conv_dw")) == (n0, n1)
 
 
 @pytest.mark.cuda
@@ -473,11 +479,11 @@ def test_sparse_pool_grad_kernel_matches_plain(cuda, kind):
     st, coords, nbr, tnbr, g = _pool_grad_case(cuda, kind)
     out = cuda_pool.sparse_pool(st.features, st.keys, coords, st.spatial_shape, 2, 3, 2, 1,
                                 nbr=nbr)
-    n0 = cuda_pool.bwd_launches
+    n0 = launches("sparse_pool_grad")
     df = cuda_pool.sparse_pool_grad(st.features, out, g, nbr, tnbr)
     assert torch.equal(df, cuda_pool.sparse_pool_grad_plain(st.features, out, g, nbr, tnbr))
     assert torch.equal(df, cuda_pool.sparse_pool_grad(st.features, out, g, nbr, tnbr))
-    assert cuda_pool.bwd_launches == n0 + 2
+    assert launches("sparse_pool_grad") == n0 + 2
     assert (df[st.coords[:, 0] < 0] == 0).all() and (df != 0).any()
     feats = st.features.clone().requires_grad_()
     with pytest.raises(ValueError):
@@ -562,11 +568,11 @@ def test_neighbor_map_kernel_matches_plain(cuda, kernel, stride, padding, transp
                                                           st.capacity)
     table, queries, shape = ((keys, st.coords, out_shape) if transpose
                              else (st.keys, coords, st.spatial_shape))
-    n0 = cuda_conv.nbr_launches
+    n0 = launches("neighbor_map")
     nbr = cuda_conv.neighbor_map(table, queries, shape, st.batch_size, kernel, stride, padding,
                                  transpose)
     torch.cuda.synchronize()
-    assert cuda_conv.nbr_launches == n0 + 1
+    assert launches("neighbor_map") == n0 + 1
     ref = cuda_conv.neighbor_map_plain(table, queries, shape, kernel, stride, padding, transpose)
     assert nbr.dtype == torch.int32 and torch.equal(nbr, ref)
     assert int((nbr >= 0).sum()) > 1000
@@ -641,10 +647,10 @@ def test_tap_pairs_kernel_matches_plain(cuda, n):
     st = _sparse_case(cuda, 2, n=n, shape=(41, 160, 140) if n > 100 else (5, 8, 8))
     coords = st.coords[:n]
     nbr = _map_with_empty_and_full_taps(st, coords, 3, 1, 1)
-    n0 = cuda_conv.pair_launches
+    n0 = launches("tap_pairs")
     pairs, counts = cuda_conv.tap_pairs(nbr)
     torch.cuda.synchronize()
-    assert cuda_conv.pair_launches == n0 + 1
+    assert launches("tap_pairs") == n0 + 1
     ref_pairs, ref_counts = cuda_conv.tap_pairs_plain(nbr)
     assert torch.equal(counts, ref_counts)
     assert counts[0] == 0 and counts[1] == nbr.shape[1]
@@ -713,10 +719,10 @@ def test_sparse_pools_over_a_given_map(cuda, mode):
     nbr = _map_with_empty_and_full_taps(st, coords, 3, 2, 1)
     wrapper, plain = ((cuda_pool.sparse_pool, cuda_pool.sparse_pool_plain) if mode == "max"
                       else (cuda_pool.sparse_sum_pool, cuda_pool.sparse_sum_pool_plain))
-    n0 = (cuda_conv.nbr_launches, cuda_pool.launches + cuda_pool.sum_launches)
+    n0 = (launches("neighbor_map"), launches("sparse_pool") + launches("sparse_sum_pool"))
     out = wrapper(feats, st.keys, coords, st.spatial_shape, st.batch_size, 3, 2, 1, nbr=nbr)
     torch.cuda.synchronize()
-    assert (cuda_conv.nbr_launches, cuda_pool.launches + cuda_pool.sum_launches) == (
+    assert (launches("neighbor_map"), launches("sparse_pool") + launches("sparse_sum_pool")) == (
         n0[0], n0[1] + 1)
     ref = plain(feats, st.keys, coords, st.spatial_shape, 3, 2, 1, nbr)
     assert torch.equal(out, ref) and float(ref.max()) > 0
@@ -746,7 +752,7 @@ def test_transpose_conv_kernels_match_plain(cuda, kernel, stride, padding, cin, 
     nbr = cuda_conv.neighbor_map(st.keys, coords, *geo, transpose=True)
     assert torch.equal(nbr, cuda_conv.neighbor_map_plain(st.keys, coords, st.spatial_shape,
                                                          kernel, stride, padding, True))
-    before = (cuda_conv.launches, cuda_conv.df_launches, cuda_conv.dw_launches)
+    before = (launches("sparse_conv"), launches("sparse_conv_df"), launches("sparse_conv_dw"))
     f, wd = st.features.to(dtype), w.to(dtype)
     out = cuda_conv.sparse_conv(f, st.keys, coords, wd, *geo, nbr=nbr)
     ref = cuda_conv.apply_map_matmul(f, nbr, wd)
@@ -761,7 +767,7 @@ def test_transpose_conv_kernels_match_plain(cuda, kernel, stride, padding, cin, 
     dw = cuda_conv.sparse_conv_dw(f, st.keys, coords, g, *geo, nbr=nbr)
     wref = cuda_conv.apply_map_dw(f, nbr, g)
     torch.testing.assert_close(dw, wref, rtol=1e-3, atol=1e-4 * float(wref.abs().max()))
-    after = (cuda_conv.launches, cuda_conv.df_launches, cuda_conv.dw_launches)
+    after = (launches("sparse_conv"), launches("sparse_conv_df"), launches("sparse_conv_dw"))
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
     assert int((nbr >= 0).sum()) > 0
 
@@ -782,15 +788,15 @@ def test_inverse_and_transpose_modules_run_the_kernels(cuda):
         up = TS.SparseConvTranspose3d(32, 8, 2, 2, 0).to(dev)
         x = st.replace(features=st.features.to(dev).requires_grad_(), coords=st.coords.to(dev),
                        keys=st.keys.to(dev), nnz=st.nnz.to(dev))
-        counts = (cuda_conv.nbr_launches, cuda_conv.launches, cuda_conv.df_launches,
-                  cuda_conv.dw_launches)
+        counts = (launches("neighbor_map"), launches("sparse_conv"), launches("sparse_conv_df"),
+                  launches("sparse_conv_dw"))
         cache = {}
         mid = conv(x, cache)
         a, b = inv(mid, cache), up(mid, cache)
         assert a.keys is x.keys
         ((a.features.float() ** 2).sum() + (b.features.float() ** 2).sum()).backward()
-        after = (cuda_conv.nbr_launches, cuda_conv.launches, cuda_conv.df_launches,
-                 cuda_conv.dw_launches)
+        after = (launches("neighbor_map"), launches("sparse_conv"), launches("sparse_conv_df"),
+                 launches("sparse_conv_dw"))
         res[dev.type] = ([a.features.detach().cpu(), b.features.detach().cpu(),
                           x.features.grad.cpu()]
                          + [m.weight.grad.cpu() for m in (conv, inv, up)],

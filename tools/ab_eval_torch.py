@@ -10,8 +10,9 @@ tree, importing that tree's `btcdet_tpu_torch`) builds the full flagship
 in turn times `--runs` eval forwards + post-processing (each ended by a
 synchronisation) after `--warmup` more; the side that runs first alternates
 from pair to pair, and only one worker runs at a time. Then each worker, in
-the same alternation, times `--runs` forwards stage by stage (the model's
-`stage_ms`: a device synchronisation around each stage). Prints, and
+the same alternation, times `--runs` forwards stage by stage (the
+recorder's `trace.enable(sync=True)`: a device synchronisation around each
+stage). Prints, and
 writes to `--out`, each tree's median and quartiles over the block medians
 and over all runs, the change's block median minus the parent's, pair by
 pair, with its median and quartiles, and each tree's median ms per stage.
@@ -35,6 +36,7 @@ def worker(runs: int, warmup: int) -> int:
     from btcdet_tpu_torch.datasets import make_synthetic_batch
     from btcdet_tpu_torch.models import build_network
     from btcdet_tpu_torch.models.detectors.btcnet import STAGES, post_processing
+    from btcdet_tpu_torch.utils import trace
 
     cfg = config.flagship()
     net = build_network(cfg.MODEL, cfg.DATA_CONFIG, ["Car"])
@@ -61,14 +63,13 @@ def worker(runs: int, warmup: int) -> int:
         elif line.strip() == "stages":
             per = {}
             for _ in range(runs):
-                ms = {}
-                net.stage_ms = ms
+                trace.enable(sync=True, tallies=False)
                 try:
-                    post_processing(net(batch), cfg.MODEL.POST_PROCESSING, 1, stage_ms=ms)
+                    post_processing(net(batch), cfg.MODEL.POST_PROCESSING, 1)
                 finally:
-                    net.stage_ms = None
-                for k, v in ms.items():
-                    per.setdefault(k, []).append(v)
+                    rec = trace.disable()
+                for k in STAGES:
+                    per.setdefault(k, []).append(rec.ms(k))
             print(PREFIX + json.dumps({k: statistics.median(per[k]) for k in STAGES if k in per}),
                   flush=True)
         else:
