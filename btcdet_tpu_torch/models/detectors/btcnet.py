@@ -367,17 +367,15 @@ def _post_processing(out, post_cfg, dev):
     valid = scores >= float(post_cfg.SCORE_THRESH)
     if "roi_valid" in out:
         valid = valid & out["roi_valid"].to(dev)
-    res = {k: [] for k in ("pred_boxes", "pred_scores", "pred_labels", "pred_valid")}
-    for b in range(box_preds.shape[0]):
-        idx, keep = iou3d.nms_rotated(
-            box_preds[b], scores[b], valid[b], thresh=float(nms_cfg.NMS_THRESH),
-            pre_max_size=int(nms_cfg.NMS_PRE_MAXSIZE), post_max_size=int(nms_cfg.NMS_POST_MAXSIZE))
-        res["pred_boxes"].append(torch.where(keep[:, None], box_preds[b][idx],
-                                             torch.zeros_like(box_preds[b][idx])))
-        res["pred_scores"].append(torch.where(keep, scores[b][idx], torch.zeros_like(scores[b][idx])))
-        res["pred_labels"].append(torch.where(keep, labels[b][idx], torch.zeros_like(labels[b][idx])))
-        res["pred_valid"].append(keep)
-    return {k: torch.stack(v) for k, v in res.items()}
+    idx, keep = iou3d.nms_rotated_batched(
+        box_preds, scores, valid, thresh=float(nms_cfg.NMS_THRESH),
+        pre_max_size=int(nms_cfg.NMS_PRE_MAXSIZE), post_max_size=int(nms_cfg.NMS_POST_MAXSIZE))
+    boxes = torch.gather(box_preds, 1, idx[..., None].expand(-1, -1, box_preds.shape[-1]))
+    kept_scores, kept_labels = torch.gather(scores, 1, idx), torch.gather(labels, 1, idx)
+    return {"pred_boxes": torch.where(keep[..., None], boxes, torch.zeros_like(boxes)),
+            "pred_scores": torch.where(keep, kept_scores, torch.zeros_like(kept_scores)),
+            "pred_labels": torch.where(keep, kept_labels, torch.zeros_like(kept_labels)),
+            "pred_valid": keep}
 
 
 def build_network(model_cfg, data_cfg, class_names, device=None,

@@ -1,7 +1,7 @@
 """NMS functions of the reference's `model_nms_utils.py` surface
 (counterpart of `btcdet_tpu/models/model_nms_utils.py`) over the port's
 rotated NMS (`iou3d.nms_rotated`). Every yaml sets MULTI_CLASSES_NMS
-False; post-processing calls `iou3d.nms_rotated` itself."""
+False; post-processing calls `iou3d.nms_rotated_batched` itself."""
 
 from __future__ import annotations
 

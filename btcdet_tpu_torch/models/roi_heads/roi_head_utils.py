@@ -1,7 +1,8 @@
 """ROI head plumbing (counterpart of `btcdet_tpu/models/roi_heads/roi_head_utils.py`):
 
-- proposal_layer: per-frame rotated NMS of the RPN boxes into a
-  fixed-size roi set with validity masks (reference `roi_head_template.py:45`);
+- proposal_layer: the rotated NMS of every frame's RPN boxes
+  (`iou3d.nms_rotated_batched`) into a fixed-size roi set with validity
+  masks (reference `roi_head_template.py:45`);
 - assign_targets (train): same-class max-IoU roi <-> gt matching, fg / bg
   subsampling at a fixed ROI_PER_IMAGE with hard / easy bg mixing
   (reference `proposal_target_layer.py:8-228`) and canonical-frame
@@ -38,16 +39,12 @@ def proposal_layer(batch_box_preds, batch_cls_preds, batch_valid=None, *,
         batch_valid = torch.ones((B, A), dtype=torch.bool, device=batch_cls_preds.device)
     scores_all = batch_cls_preds.max(dim=-1).values
     labels_all = batch_cls_preds.argmax(dim=-1) + 1
-    rois, scores, labels, valid = [], [], [], []
-    for b in range(B):
-        idx, keep = iou3d.nms_rotated(batch_box_preds[b], scores_all[b], batch_valid[b],
-                                      thresh=nms_thresh, pre_max_size=nms_pre,
-                                      post_max_size=nms_post)
-        rois.append(batch_box_preds[b][idx])
-        scores.append(scores_all[b][idx])
-        labels.append(labels_all[b][idx])
-        valid.append(keep)
-    rois, scores, labels, valid = (torch.stack(x) for x in (rois, scores, labels, valid))
+    idx, valid = iou3d.nms_rotated_batched(batch_box_preds, scores_all, batch_valid,
+                                           thresh=nms_thresh, pre_max_size=nms_pre,
+                                           post_max_size=nms_post)
+    rois = torch.gather(batch_box_preds, 1,
+                        idx[..., None].expand(-1, -1, batch_box_preds.shape[-1]))
+    scores, labels = torch.gather(scores_all, 1, idx), torch.gather(labels_all, 1, idx)
     rois = torch.where(valid[..., None], rois, torch.zeros_like(rois))
     return Proposals(rois, torch.where(valid, scores, torch.zeros_like(scores)), labels, valid)
 

@@ -7,17 +7,26 @@ arithmetic as the JAX package, so the NMS keeps the same boxes.
 `boxes_bev_iou_cpu` is the same clipping in numpy, for the host data
 pipeline (the gt sampler's collision test): the JAX package's numpy path,
 so the augmentor draws the same boxes, and no torch op in loader workers.
+
+The rotated NMS of CUDA tensors is one kernel launch for a batch of frames
+(`nms_rotated_batched`, `csrc/nms_rotated.cu`): it takes every decision of
+the plain version (`nms_rotated_plain`, which CPU tensors take) with the
+same float32 IoU to the bit, and reads nothing back. Its wrapper counts its
+launches as the recorder's counter `launch.nms_rotated` and hands the chunks
+each frame walked to the tally `nms.chunks`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import numpy as np
 import torch
 
-from ..utils import box_utils
+from ..utils import box_utils, trace
 from ..utils.trace import readback
+from . import kernel_build
 
 
 def _ring_forward_fill(verts, valid):
@@ -135,9 +144,10 @@ def _greedy_chunked(top_boxes, top_valid, post_max_size: int, thresh: float,
     return kept
 
 
-def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
-                post_max_size: int):
-    """Greedy rotated-BEV NMS (reference `nms_gpu` semantics).
+def nms_rotated_plain(boxes, scores, valid, *, thresh: float, pre_max_size: int,
+                      post_max_size: int):
+    """Greedy rotated-BEV NMS (reference `nms_gpu` semantics), in plain
+    PyTorch on any device, a frame at a time.
 
     The top `pre_max_size` valid candidates by score (ties broken by the
     lower index, like `lax.top_k`) are visited in score order; each one
@@ -164,6 +174,152 @@ def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
             out_valid[:len(kept)] = True
     with readback("nms.out"):                   # the kept indices copied to the device
         return out_idx.to(boxes.device), out_valid.to(boxes.device)
+
+
+def nms_rotated(boxes, scores, valid, *, thresh: float, pre_max_size: int,
+                post_max_size: int):
+    """Greedy rotated-BEV NMS of one frame: boxes (N, 7), scores (N,),
+    valid (N,) -> (indices (post_max_size,) int64 into the input, 0-padded,
+    and their validity), with `nms_rotated_plain`'s semantics. A CUDA
+    tensor runs the batched kernel as a batch of one."""
+    if boxes.device.type == "cuda":
+        idx, ok = nms_rotated_batched(boxes[None], scores[None], valid[None], thresh=thresh,
+                                      pre_max_size=pre_max_size, post_max_size=post_max_size)
+        return idx[0], ok[0]
+    return nms_rotated_plain(boxes, scores, valid, thresh=thresh, pre_max_size=pre_max_size,
+                             post_max_size=post_max_size)
+
+
+def nms_rotated_batched(boxes, scores, valid, *, thresh: float, pre_max_size: int,
+                        post_max_size: int):
+    """`nms_rotated` of every frame of a batch: boxes (B, N, 7), scores
+    (B, N), valid (B, N) -> (indices (B, post_max_size) int64, validity
+    (B, post_max_size)), each frame's as `nms_rotated_plain` gives it.
+
+    CUDA tensors: one stable sort of all frames' scores, the top k =
+    min(pre_max_size, N) boxes gathered with their BEV corners
+    (`box_utils.boxes_to_corners_bev`, as the plain version builds them)
+    and areas, then one launch of `csrc/nms_rotated.cu`; nothing is read
+    back. CPU tensors take `nms_rotated_plain` frame by frame."""
+    B, N = scores.shape
+    if boxes.device.type != "cuda":
+        out = [nms_rotated_plain(boxes[b], scores[b], valid[b], thresh=thresh,
+                                 pre_max_size=pre_max_size, post_max_size=post_max_size)
+               for b in range(B)]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"nms_rotated_batched: boxes and scores must be float32, got "
+                        f"{boxes.dtype} and {scores.dtype}")
+    if (boxes.dim() != 3 or boxes.shape[:2] != (B, N) or boxes.shape[2] < 7
+            or valid.shape != (B, N)):
+        raise ValueError(f"nms_rotated_batched: bad shapes boxes {tuple(boxes.shape)} scores "
+                         f"{tuple(scores.shape)} valid {tuple(valid.shape)}")
+    dev = boxes.device
+    out_idx = torch.zeros((B, post_max_size), dtype=torch.int64, device=dev)
+    out_valid = torch.zeros((B, post_max_size), dtype=torch.bool, device=dev)
+    k = min(pre_max_size, N)
+    if k <= 0:
+        return out_idx, out_valid
+    neg_inf = torch.finfo(scores.dtype).min
+    s = torch.where(valid, scores, torch.full_like(scores, neg_inf))
+    top_scores, top_idx = torch.sort(s, dim=1, descending=True, stable=True)
+    top_idx = top_idx[:, :k].contiguous()
+    top_valid = (top_scores[:, :k] > neg_inf).contiguous()
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(B, k, boxes.shape[2]))
+    corners = box_utils.boxes_to_corners_bev(top_boxes.reshape(B * k, -1)).contiguous()
+    areas = (top_boxes[..., 3] * top_boxes[..., 4]).contiguous()
+    chunks = torch.empty((B,), dtype=torch.int32, device=dev)
+    fn, order = _nms_fn("nms_rotated", dev)
+    err = fn(corners.data_ptr(), areas.data_ptr(), top_valid.data_ptr(), top_idx.data_ptr(),
+             B, k, post_max_size, thresh, order, out_idx.data_ptr(), out_valid.data_ptr(),
+             chunks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_rotated kernel launch failed: cudaError {err}")
+    trace.count("launch.nms_rotated")
+    trace.tally("nms.chunks", lambda: chunks)
+    return out_idx, out_valid
+
+
+def boxes_iou_bev_kernel(boxes_a, boxes_b):
+    """The NMS kernel's rotated BEV IoU (N, 7) x (M, 7) -> (N, M) float32 on
+    CUDA tensors: its device function on every pair (A = row, B = column),
+    equal to `boxes_iou_bev`'s to the bit. For the tests."""
+    if boxes_a.device.type != "cuda" or boxes_b.device != boxes_a.device:
+        raise ValueError("boxes_iou_bev_kernel: CUDA tensors on one device")
+    if boxes_a.dtype != torch.float32 or boxes_b.dtype != torch.float32:
+        raise TypeError("boxes_iou_bev_kernel: float32 boxes")
+    n, m = boxes_a.shape[0], boxes_b.shape[0]
+    ca = box_utils.boxes_to_corners_bev(boxes_a).contiguous()
+    cb = box_utils.boxes_to_corners_bev(boxes_b).contiguous()
+    aa = (boxes_a[:, 3] * boxes_a[:, 4]).contiguous()
+    ab = (boxes_b[:, 3] * boxes_b[:, 4]).contiguous()
+    out = torch.empty((n, m), dtype=torch.float32, device=boxes_a.device)
+    fn, order = _nms_fn("rotated_iou", boxes_a.device)
+    err = fn(ca.data_ptr(), aa.data_ptr(), n, cb.data_ptr(), ab.data_ptr(), m, order,
+             out.data_ptr(), torch.cuda.current_stream(boxes_a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rotated_iou kernel launch failed: cudaError {err}")
+    return out
+
+
+_ARGTYPES = {
+    "nms_rotated": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4,
+    "rotated_iou": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p],
+}
+# per device: which order PyTorch's CUDA sum adds a row of 64 float32 in
+_SUM_ORDER: dict = {}
+
+
+def _nms_fn(name: str, device):
+    """The kernel entry `name` of `csrc/nms_rotated.cu` and the sum order
+    its shoelace follows on `device` (`ring_sum_order`)."""
+    fn = getattr(kernel_build.load("nms_rotated"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    key = str(device)
+    if key not in _SUM_ORDER:
+        _SUM_ORDER[key] = ring_sum_order(device)
+    return fn, _SUM_ORDER[key]
+
+
+def ring_tree_sum(rows: np.ndarray, falling: bool) -> np.ndarray:
+    """float32 sums of rows (P, 64) in the order of PyTorch's CUDA reduction
+    of a contiguous row of 64: x and x + 32 paired, then a warp-shuffle
+    tree with offsets 16, 8, 4, 2, 1 (`falling`) or 1, 2, 4, 8, 16."""
+    s = rows[:, :32] + rows[:, 32:]
+    if falling:
+        for o in (16, 8, 4, 2, 1):
+            s[:, :o] = s[:, :o] + s[:, o:2 * o]
+    else:
+        for o in (1, 2, 4, 8, 16):
+            s[:, ::2 * o] = s[:, ::2 * o] + s[:, o::2 * o]
+    return s[:, 0]
+
+
+def sum_probe_rows() -> np.ndarray:
+    """(64, 64) float32 rows of wide range, on which `ring_tree_sum`'s two
+    orders give other sums."""
+    rng = np.random.RandomState(0)
+    return (rng.standard_normal((64, 64)) * np.exp2(rng.randint(-24, 24, (64, 64)))
+            ).astype(np.float32)
+
+
+def ring_sum_order(device) -> int:
+    """1 if `Tensor.sum(dim=1)` of a (P, 64) float32 CUDA tensor adds in
+    `ring_tree_sum`'s falling order, 0 if in its rising one (it changed
+    between PyTorch versions); raises if in neither. The plain clipper's
+    shoelace is that sum (one read-back, once a device and process)."""
+    rows = sum_probe_rows()
+    got = torch.from_numpy(rows).to(device).sum(dim=1).cpu().numpy()
+    for order, falling in ((1, True), (0, False)):
+        if np.array_equal(got.view(np.int32), ring_tree_sum(rows.copy(), falling).view(np.int32)):
+            return order
+    raise RuntimeError("nms_rotated: PyTorch's CUDA sum of a row of 64 follows neither known "
+                       "order, so the kernel's IoU would not equal the plain version's")
 
 
 def nms_normal(boxes, scores, valid, *, thresh: float, pre_max_size: int,

@@ -35,6 +35,7 @@ default run, the whole proof on request.
     python3 chip_smoke.py --dp [seed ...]   # only the seventh path's data-parallel steps,
                                       # with more draws of the output projections
     python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
+                                      # and the rotated NMS at the eval shapes
     python3 chip_smoke.py --side      # only the tenth path (side modules)
     python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
     python3 chip_smoke.py --approx    # only the twelfth path (the approximate query)
@@ -80,8 +81,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      `torch.cuda.set_sync_debug_mode`, with the recorder on: in "warn" mode
      no synchronising call may come from outside the named read-backs
      (`utils.trace.readback`; each found site is logged by file and line),
-     and in "error" mode the pass must run through; the read-backs a batch
-     are logged by site;
+     and in "error" mode the pass must run through, launching the
+     rotated-NMS kernel twice; the read-backs a batch are logged by site;
   3. capture: one forward of the full flagship model at B=2 records the
      inputs its kernels see (these launches are not counted);
   4. kernel phase: each kernel against its plain PyTorch version on the
@@ -105,8 +106,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      subnet identical from run to run and its stage ms with the occ
      backbone's scoped deterministic cuDNN and without it, the fused
      merge's det voxel features identical over 5 runs, the proposal
-     NMS's chunked pass against the full-matrix greedy (same kept boxes,
-     both timed); then the det-only flagship as the second path: counts
+     NMS's kernel against the full-matrix greedy and its plain version
+     (same kept boxes, the three timed); then the det-only flagship as the second path: counts
      reset, one run, its launches (K1 map and GEMM and K4), and its
      median; then the occ-code
      variants (`fix`, `avgpool`, `weight`, `maxpool`) as the third: the
@@ -1224,41 +1225,52 @@ def full_matrix_nms(boxes, scores, valid, *, thresh, pre_max_size, post_max_size
 
 
 def proposal_nms_check(net, batch):
-    """The eval proposal NMS's calls (one per frame, k = NMS_PRE_MAXSIZE)
-    captured from one forward: the port's chunked pass keeps the same
-    boxes as the full-matrix greedy, and both are timed (host clock, 5
-    runs of every call after 2 warm-ups, median)."""
+    """The eval proposal NMS's call (`iou3d.nms_rotated_batched`, every frame
+    of the batch at once, k = NMS_PRE_MAXSIZE) captured from one forward:
+    the kernel keeps, frame by frame, the boxes of the full-matrix greedy and
+    of the plain version; the three are timed (host clock, 5 runs of the
+    call after 2 warm-ups, median; the plain and full-matrix a frame at a
+    time)."""
     import torch
 
     from btcdet_tpu_torch.ops import iou3d
 
-    calls, orig = [], iou3d.nms_rotated
+    calls, orig = [], iou3d.nms_rotated_batched
 
     def rec(*a, **kw):
         calls.append((a, kw))
         return orig(*a, **kw)
 
-    iou3d.nms_rotated = rec
+    iou3d.nms_rotated_batched = rec
     try:
         net(batch)
     finally:
-        iou3d.nms_rotated = orig
+        iou3d.nms_rotated_batched = orig
+    frames = [(tuple(t[b] for t in a), kw) for a, kw in calls for b in range(a[0].shape[0])]
     for a, kw in calls:
         idx, ok = orig(*a, **kw)
-        want = full_matrix_nms(*a, **kw)
-        assert torch.equal(idx[ok].cpu(), want), "chunked and full-matrix NMS keep other boxes"
+        for b in range(a[0].shape[0]):
+            fa = tuple(t[b] for t in a)
+            want = full_matrix_nms(*fa, **kw)
+            assert torch.equal(idx[b][ok[b]].cpu(), want), \
+                "kernel and full-matrix NMS keep other boxes"
+            p_idx, p_ok = iou3d.nms_rotated_plain(*fa, **kw)
+            assert torch.equal(idx[b], p_idx) and torch.equal(ok[b], p_ok), \
+                "kernel and plain NMS keep other boxes"
 
-    def run(fn):
+    def run(fn, per_frame):
         def all_calls():
-            for a, kw in calls:
+            for a, kw in (frames if per_frame else calls):
                 fn(*a, **kw)
             torch.cuda.synchronize()
         return timed_median(all_calls)[0]
 
-    chunked, full = run(orig), run(full_matrix_nms)
-    log(f"proposal NMS, {len(calls)} calls (k = {[min(kw['pre_max_size'], a[0].shape[0]) for a, kw in calls]}"
-        f" -> {calls[0][1]['post_max_size']}, same kept sets): chunked {chunked:.3f} ms, "
-        f"full matrix {full:.3f} ms (median of 5)")
+    kernel, plain = run(orig, False), run(iou3d.nms_rotated_plain, True)
+    full = run(full_matrix_nms, True)
+    log(f"proposal NMS, {len(calls)} call(s) of {len(frames)} frames (k = "
+        f"{[min(kw['pre_max_size'], a[0].shape[1]) for a, kw in calls]}"
+        f" -> {calls[0][1]['post_max_size']}, same kept sets): kernel {kernel:.3f} ms, "
+        f"plain {plain:.3f} ms, full matrix {full:.3f} ms (median of 5)")
 
 
 def small_config(full: bool):
@@ -5812,7 +5824,8 @@ def sync_path(card: str) -> dict:
     (`sync_sites`) must find no synchronising call outside the named
     read-backs, and one in "error" mode (`trace.enable(sync_debug="error")`,
     which lifts the mode only inside each read-back) must run through; so
-    must a hand-built NMS call that reads three chunks back.
+    must a hand-built NMS call that walks three chunks, with no read-back.
+    Each batch launches the NMS kernel twice (proposal and final).
     Returns {config: {read-back site: count a batch}}."""
     import torch
 
@@ -5850,11 +5863,13 @@ def sync_path(card: str) -> dict:
         finally:
             rec = trace.disable()
         assert rec.sync_counts() == counts, (rec.sync_counts(), counts)
+        assert rec.counts.get("launch.nms_rotated") == 2, rec.counts
         del net, batch
         torch.cuda.empty_cache()
     assert not unnamed, f"synchronising calls outside the named read-backs: {unnamed}"
-    # the NMS's later chunks (the survivors copied to the card), which the
-    # synthetic weights' boxes do not reach: 600 apart, every one kept
+    # the NMS's later chunks (the survivors of earlier chunks suppressing),
+    # which the synthetic weights' boxes do not reach: 600 apart, every one
+    # kept, on the card with no read-back
     boxes = torch.zeros((600, 7), device="cuda")
     boxes[:, 0] = torch.arange(600, device="cuda") * 3.0
     boxes[:, 3:6] = torch.tensor([2.0, 1.0, 1.5], device="cuda")
@@ -5866,8 +5881,8 @@ def sync_path(card: str) -> dict:
         torch.cuda.synchronize()
     finally:
         rec = trace.disable()
-    assert rec.sync_counts() == {"nms.valid": 1, "nms.chunk": 3, "nms.survivors": 2,
-                                 "nms.kept": 1, "nms.out": 1}, rec.sync_counts()
+    assert rec.sync_counts() == {}, rec.sync_counts()
+    assert rec.tally("nms.chunks").tolist() == [3], rec.tallies
     log(f"sync-debug check (car and 3-class at B={BENCH_B}, \"error\" mode): passed, "
         f"{time.perf_counter() - t0:.1f} s ({card})")
     return out
@@ -6072,13 +6087,78 @@ def dp_worker(args: list) -> int:
     return 0
 
 
+# the eval path's two rotated NMSs at B=8: (label, candidates a frame, objects
+# a frame, NMS_THRESH, NMS_PRE_MAXSIZE, NMS_POST_MAXSIZE): the car yaml's RPN
+# anchors through its proposal NMS, ConvHead's rois through the final NMS
+NMS_SHAPES = (("proposal@B8", 70400, 10, 0.7, 1024, 100), ("final@B8", 100, 10, 0.1, 4096, 500))
+# flops of one pair's clip: at most 8 vertices against each of 4 edges, about
+# 10 float operations each, and the shoelace and IoU
+NMS_PAIR_FLOPS = 4 * 8 * 10 + 80
+
+
+def nms_case(label: str, n: int, objects: int, thresh: float, pre: int, post: int) -> dict:
+    """The rotated-NMS kernel on 8 synthetic frames of `n` boxes crowded round
+    `objects` cars (scores drawn, three in four valid), against its plain
+    version a frame at a time: the same kept indices, the kernel alone (its
+    launch only, profiler) and the whole batched call (sort, gathers, corners
+    and the launch, CUDA events) beside the plain version's ms, and the bound:
+    the clip flops of every pair the plain version's chunks could compare
+    (within each chunk walked and against the survivors before it) at
+    float32's 67 TFLOP/s."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch.ops import iou3d
+    from btcdet_tpu_torch.utils import trace
+
+    rng = np.random.RandomState(0)
+    B = 8
+    centres = np.zeros((B, objects, 7), np.float32)
+    centres[..., :2] = rng.uniform([0, -30], [60, 30], (B, objects, 2))
+    centres[..., 3:6] = [3.9, 1.6, 1.56]
+    centres[..., 6] = rng.uniform(-np.pi, np.pi, (B, objects))
+    boxes = np.take_along_axis(centres, rng.randint(0, objects, (B, n))[..., None], axis=1)
+    boxes = (boxes + rng.normal(0, 1, (B, n, 7)) * [0.6, 0.6, 0.1, 0.3, 0.15, 0.1, 0.3]
+             ).astype(np.float32)
+    boxes[..., 3:6] = np.abs(boxes[..., 3:6])
+    args = [torch.from_numpy(a).cuda() for a in (boxes, rng.rand(B, n).astype(np.float32),
+                                                 rng.rand(B, n) < 0.75)]
+    kw = dict(thresh=thresh, pre_max_size=pre, post_max_size=post)
+    trace.enable()
+    idx, ok = iou3d.nms_rotated_batched(*args, **kw)
+    rec = trace.disable()
+    chunks = rec.tally("nms.chunks")
+    for b in range(B):
+        p_idx, p_ok = iou3d.nms_rotated_plain(*(t[b] for t in args), **kw)
+        assert torch.equal(idx[b], p_idx) and torch.equal(ok[b], p_ok), (label, b)
+    k, kept, C = min(pre, n), ok.sum(1).tolist(), iou3d.NMS_CHUNK
+    sizes = [min(C, k - i * C) for i in range(-(-k // C))]
+    pairs = sum(m * (m - 1) // 2 + m * min(post, i * C)
+                for c in chunks.tolist() for i, m in enumerate(sizes[:c]))
+    bound_ms = pairs * NMS_PAIR_FLOPS / F32_FLOPS * 1e3
+    ms = device_ms(lambda: iou3d.nms_rotated_batched(*args, **kw), "nms_rotated_kernel")
+    call_ms = cuda_ms(lambda: iou3d.nms_rotated_batched(*args, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: [iou3d.nms_rotated_plain(*(t[b] for t in args), **kw)
+                                for b in range(B)], reps=3, warmup=1)
+    log(f"rotated NMS {label}: B={B} n={n} k={k} post={post} thresh={thresh} kept {kept} "
+        f"chunks {chunks.tolist()} (equal to the plain version, frame by frame) "
+        f"ms={ms:.4f} (kernel alone) call_ms={call_ms:.4f} (sort, gathers and launch) "
+        f"plain_ms={plain_ms:.4f} (8 frames) bound_ms={bound_ms:.4f} ({pairs} pairs at most)")
+    return {"name": f"nms_rotated:{label}", "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/nms_rotated.cu",
+            "replaces": "none (btcdet_tpu/ops/iou3d.py:219 nms_rotated, XLA)",
+            "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "flops", "library_ms": None}
+
+
 def kernel_bench() -> None:
     """`chip_smoke.py --kernels`: only the backward kernels' cases of the
     full run, for a quick check of a change to them. K4's volume gradient
     on the flagship train step's call and on the `hot` layout, and K2
     max's backward on the flagship PASS_GRAD step's call, each against its
     plain version with its times (K4's by kernel, and its segment
-    lengths); prints their kernels-line entries (no launch counts)."""
+    lengths); and the rotated NMS at the eval path's two shapes
+    (`nms_case`); prints their kernels-line entries (no launch counts)."""
     import torch
 
     from btcdet_tpu_torch import config
@@ -6095,6 +6175,7 @@ def kernel_bench() -> None:
             entries.append(k4_grad_case(calls["trilinear_pool_grad"][0][0], "train"))
         del net, opt, batch, calls
     entries.append(k4_grad_case(k4_grad_hot_args(), "hot"))
+    entries += [nms_case(*shape) for shape in NMS_SHAPES]
     print(json.dumps({"kernels": entries}), flush=True)
 
 
@@ -6144,7 +6225,7 @@ def main() -> int:
     # 2. kernels
     t0 = time.perf_counter()
     kernel_build.build(["sparse_nbr", "sparse_conv", "sparse_conv_dw", "sparse_pool",
-                        "trilinear_pool"])
+                        "trilinear_pool", "nms_rotated"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
         fn = ""

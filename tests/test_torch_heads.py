@@ -105,6 +105,43 @@ def test_nms_matches_chunked_jax_path():
     np.testing.assert_array_equal(ti.numpy()[jv], np.asarray(ji)[jv])
 
 
+def test_nms_rotated_batched_is_each_frame_alone():
+    """The batched entry of the rotated NMS on CPU tensors keeps, frame by
+    frame, what `nms_rotated` keeps for the frame alone, with another
+    number of valid candidates in each frame (none, some, all)."""
+    B, n = 3, 400
+    boxes = np.stack([random_boxes(20 + b, n) for b in range(B)])
+    rng = np.random.RandomState(21)
+    scores = rng.randn(B, n).astype(np.float32)
+    scores[:, ::5] = scores[:, :1]                                 # score ties
+    valid = rng.rand(B, n) < np.array([0.0, 0.5, 1.0])[:, None]
+    kw = dict(thresh=0.5, pre_max_size=300, post_max_size=200)
+    idx, ok = TI.nms_rotated_batched(t(boxes), t(scores), t(valid), **kw)
+    assert idx.shape == ok.shape == (B, 200)
+    for b in range(B):
+        one_idx, one_ok = TI.nms_rotated(t(boxes[b]), t(scores[b]), t(valid[b]), **kw)
+        np.testing.assert_array_equal(idx[b].numpy(), one_idx.numpy())
+        np.testing.assert_array_equal(ok[b].numpy(), one_ok.numpy())
+    assert ok[0].sum() == 0 and 0 < ok[1].sum() < ok[2].sum()
+
+
+@pytest.mark.parametrize("falling", [True, False])
+def test_ring_tree_sum_follows_the_warp_shuffles(falling):
+    """`iou3d.ring_tree_sum`, the order the NMS kernel adds the clipper's 64
+    shoelace terms in, is the reduction it names: x and x + 32 paired, then
+    lane 0 of warp shuffles down (a lane past the warp's end reads its own
+    value); and the two orders part on the rows the kernel's wrapper probes
+    the card's sum with."""
+    rows = TI.sum_probe_rows()
+    lanes = rows[:, :32] + rows[:, 32:]
+    for o in ((16, 8, 4, 2, 1) if falling else (1, 2, 4, 8, 16)):
+        shifted = np.concatenate([lanes[:, o:], lanes[:, 32 - o:]], axis=1)
+        lanes = lanes + shifted
+    got = TI.ring_tree_sum(rows.copy(), falling)
+    np.testing.assert_array_equal(got.view(np.int32), lanes[:, 0].view(np.int32))
+    assert (TI.ring_tree_sum(rows.copy(), True) != TI.ring_tree_sum(rows.copy(), False)).any()
+
+
 def test_proposal_layer_matches():
     B, A = 2, 400
     boxes = np.stack([random_boxes(6 + b, A) for b in range(B)])
