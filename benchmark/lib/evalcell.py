@@ -1,15 +1,19 @@
-"""An eval cell: BtcNet's eval forward and its post-processing over a
-pool of batches made from the seed, closed loop with one batch in flight.
+"""An eval cell: the program's eval forward and its post-processing over
+a pool of batches made from the seed, closed loop with one batch in
+flight.
 
 Set-up builds the program's network, makes the weights on the device,
 makes the pool (pinned on the host) and runs every pool batch once. The
 window then cycles the pool: each batch is copied to the device, runs
 the forward and the final NMS, and its detections are read back to the
 host, which ends it. After the window the peak memory is read and the
-frozen reference (`reference.stages`) checks what the window produced:
-every stage of the last batch, each from what the program handed it, and
-ConvHead's box decode and the final NMS of a sample of the window's
-batches drawn from the seed.
+frozen reference checks what the window produced: every stage of the
+last batch, each from what the program handed it, and the final NMS of
+a sample of the window's batches drawn from the seed.
+
+What this needs to know of the network (its hooks, its final NMS, its
+comparison with the reference) comes from the configuration's
+architecture module (`benchmark/arch/`, `spec.arch_module`).
 
 A traced run first runs the window untraced, then once more under the
 profiler: the profiler slows the host, so the untraced wall time a batch
@@ -27,47 +31,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..reference import stages
 from ..traffic import generator
 from . import weights
+from .spec import arch_module
 
 # share of the window's batches whose final NMS the reference redoes
 FINAL_SAMPLE = 1 / 8
-# the control's precision for the box decodes, which the configuration
-# computes in float32 (its convolutions and linears, on bfloat16, take
-# float8: `reference.lowp`)
-LOWP_DECODE = torch.bfloat16
-
-
-class Capture:
-    """Forward hooks on the program's occupancy subnet, det backbone and
-    dense head that keep what each returned for the batch in flight."""
-
-    def __init__(self, net):
-        self.occ = self.bb = self.head = None
-        det = net.det_modules
-        self.handles = [
-            net.occ_modules.register_forward_hook(self._occ),
-            det.backbone_3d.register_forward_hook(self._bb),
-            det.dense_head.register_forward_hook(self._head),
-        ]
-
-    def _occ(self, mod, args, out):
-        self.occ = out
-
-    def _bb(self, mod, args, out):
-        self.bb = {k: stages.sparse_fields(v) for k, v in out.items()
-                   if k in ("encoded", "x_combine")}
-
-    def _head(self, mod, args, out):
-        self.head = out
-
-    def clear(self):
-        self.occ = self.bb = self.head = None
-
-    def remove(self):
-        for h in self.handles:
-            h.remove()
 
 
 def _host_batch(batch_np: dict, device) -> dict:
@@ -75,13 +44,6 @@ def _host_batch(batch_np: dict, device) -> dict:
     if device.type == "cuda":
         ts = {k: v.pin_memory() for k, v in ts.items()}
     return ts
-
-
-def _final_inputs(out: dict) -> dict:
-    """What the final NMS reads, and the raw ConvHead outputs its boxes and
-    scores were decoded from."""
-    return {k: out[k] for k in ("batch_cls_preds", "batch_box_preds", "roi_labels",
-                                "roi_valid", "rois", "rcnn_cls", "rcnn_reg")}
 
 
 def build_kernels():
@@ -102,10 +64,10 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     in the control's precision in the program's place) on the same batch."""
     from btcdet_tpu_torch.config import EasyDict
     from btcdet_tpu_torch.models import build_network
-    from btcdet_tpu_torch.models.detectors import btcnet
 
     cuda = device.type == "cuda"
     cfg = EasyDict(cfg_dict)
+    arch = arch_module(cfg_dict)
     marks = [("start", time.perf_counter())]
     if cuda:
         build_kernels()
@@ -119,9 +81,7 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     pool = [_host_batch(b, device) for b in generator.make_pool(cfg_dict, traffic, seed)]
     marks.append(("traffic", time.perf_counter()))
     P, B = len(pool), int(traffic["batch_size"])
-    cap = Capture(net)
-    post_cfg = cfg.MODEL.POST_PROCESSING
-    ncls = len(cfg.CLASS_NAMES)
+    cap = arch.Capture(net, cfg)
 
     def one(p):
         with record_function(f"bench.batch.{p}"):
@@ -132,7 +92,7 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
             with record_function("bench.forward"):
                 out = net(b)
             with record_function("bench.post"):
-                post = btcnet.post_processing(out, post_cfg, ncls, device)
+                post = arch.post_processing(out, cfg, device)
             with record_function("bench.to_host"):
                 det = {k: v.cpu() for k, v in post.items()}
             return b, out, det, time.perf_counter() - t0
@@ -172,10 +132,9 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
         n += 1
         done = time.perf_counter() - w0 >= seconds
         if done or pick.random() < FINAL_SAMPLE:
-            sampled.append((_final_inputs(out), det))
+            sampled.append((arch.final_inputs(out), det))
         if trace:
-            entries[p] = {k: cap.occ[k] for k in ("det_voxel_features", "det_voxel_coords",
-                                                  "det_occ_code")}
+            entries[p] = cap.entry()
         if done:
             break
         del b, out, det
@@ -183,7 +142,7 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     if trace:
         prof.__exit__(None, None, None)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    last = dict(batch=b, out=out, occ=cap.occ, bb=cap.bb, head=cap.head, entry=p)
+    last = dict(batch=b, out=out, entry=p, **cap.kept())
     cap.remove()
     del one, net, cap
     if cuda:
@@ -201,69 +160,24 @@ def run(cfg_dict: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     res["eval_batch_p90_ms"] = statistics.quantiles(lat, n=10)[8] * 1e3 if n >= 2 else lat[0] * 1e3
     res["peak_mem_mib"] = peak / 2**20
     t_check = time.perf_counter()
-    checks, rec = check(cfg_dict, sd, last, sampled, device, want_work=trace)
+    checks, rec = arch.check(cfg_dict, sd, last, sampled, device, want_work=trace)
     print(f"after the window: the reference's check {time.perf_counter() - t_check:.2f} s "
           f"({len(sampled)} batches' final NMS)", file=sys.stderr)
-    res["checks"] = {k: {"value": v, "limit": limits.get(k)} for k, v in checks.items()}
-    res["correct"] = all(k in limits and v <= limits[k] for k, v in checks.items())
+    res["checks"], res["correct"] = judge(checks, limits)
     if control:
-        res["control"] = check(cfg_dict, sd, last, sampled, device, lowp=True)[0]
+        res["control"] = arch.check(cfg_dict, sd, last, sampled, device, lowp=True)[0]
     if trace:
         res["trace"] = dict(prof=prof, work=rec, entries=entries, last_entry=last["entry"],
                             sd=sd, cfg=cfg_dict, B=B, untraced_batch_s=untraced_batch_s)
     return res
 
 
-def reference_net(cfg_dict: dict, sd: dict, device):
-    from ..reference.btcref.config import EasyDict
-    from ..reference.btcref.models.detectors import btcnet as rbtcnet
-
-    cfg = EasyDict(cfg_dict)
-    ref = rbtcnet.build_network(cfg.MODEL, cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), device=device)
-    ref.load_state_dict(sd)
-    return ref.eval(), cfg
-
-
-def check(cfg_dict, sd, last, sampled, device, want_work=False, lowp=False):
-    """{number: value} of the comparison with the reference, and the work
-    recorder of the reference's pass over the last batch (`want_work`).
-    `lowp` runs the reference in the control's precision in the program's
-    place (the program's own stage outputs are then not read)."""
-    from ..work.counts import WorkRecorder
-
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        ref, cfg = reference_net(cfg_dict, sd, device)
-        nms = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
-        args = (ref, last["batch"], last["occ"], last["bb"], last["head"], last["out"], nms)
-        rec = WorkRecorder() if want_work else None
-        if rec is not None:
-            with rec:
-                want = stages.ref_stages(*args)
-        else:
-            want = stages.ref_stages(*args)
-        if lowp:
-            from ..reference.lowp import fp8_operands
-
-            with fp8_operands():
-                got = stages.ref_stages(*args, decode_dtype=LOWP_DECODE)
-        else:
-            got = stages.program_stages(last["occ"], last["bb"], last["head"], last["out"])
-        checks = stages.gaps(got, want)
-        del got, want
-        roi_head = ref.det_modules.roi_head
-        box_gaps = []
-        for inp, _ in sampled:
-            raw = (inp["rois"], inp["rcnn_cls"], inp["rcnn_reg"])
-            want = stages.decode_rcnn(roi_head, *raw)
-            got = (stages.decode_rcnn(roi_head, *raw, dtype=LOWP_DECODE) if lowp
-                   else [inp["batch_cls_preds"], inp["batch_box_preds"]])
-            box_gaps.append(stages.box_gap(got, want))
-        checks["rcnn_boxes"] = max(box_gaps)
-        post_cfg = cfg.MODEL.POST_PROCESSING
-        ref_dets = [stages.ref_final(ref, inp, post_cfg, device) for inp, _ in sampled]
-        checks["final"] = stages.final_mismatch([d for _, d in sampled], ref_dets)
-        return checks, rec
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+def judge(checks: dict, limits: dict) -> tuple:
+    """({number: {value, limit}}, correct): correct when every number read
+    is at or under its limit and every limit was read. A limit that the run
+    did not read shows with the value None."""
+    out = {k: {"value": v, "limit": limits.get(k)} for k, v in checks.items()}
+    unread = [k for k in limits if k not in checks]
+    out.update({k: {"value": None, "limit": limits[k]} for k in unread})
+    correct = not unread and all(k in limits and v <= limits[k] for k, v in checks.items())
+    return out, correct

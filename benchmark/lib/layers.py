@@ -8,11 +8,8 @@ and the model FLOP rate are taken over from the run's untraced window."""
 
 from __future__ import annotations
 
-import torch
-
-from ..reference.btcref.ops import sparse as rsparse
 from ..work import counts
-from .evalcell import reference_net
+from .spec import arch_module
 from .trace import Trace
 
 # the port's kernels by the names their CUDA functions carry
@@ -32,22 +29,15 @@ class Layers:
     def _entry_flops(self, tr, device) -> dict:
         """Model FLOPs of one batch of each pool entry: the dense layers'
         (the same shapes in every batch) plus the entry's own sparse
-        convs, counted by the reference's det backbone on the entry's
-        merged det table."""
+        convs, counted by the architecture module's reference on what the
+        traced run kept of the entry."""
         dense = self.rec.dense_flops
         out = {self.last: dense + self.rec.sparse_flops()}
-        ref, _ = reference_net(tr["cfg"], tr["sd"], device)
-        nx, ny, nz = ref.det_grid_size
+        arch = arch_module(tr["cfg"])
+        ref, _ = arch.reference_net(tr["cfg"], tr["sd"], device)
         for p, e in tr["entries"].items():
-            if p in out:
-                continue
-            rec = counts.WorkRecorder()
-            with torch.no_grad(), rec:
-                st, code = rsparse.from_coords(e["det_voxel_features"].float(),
-                                               e["det_voxel_coords"], (nz + 1, ny, nx), tr["B"],
-                                               aux=e["det_occ_code"].float())
-                ref.det_modules.backbone_3d(st, code)
-            out[p] = dense + rec.sparse_flops()
+            if p not in out:
+                out[p] = dense + arch.entry_flops(ref, e, tr["B"])
         return out
 
     def stage_host_ms(self, *names):

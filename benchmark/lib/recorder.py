@@ -89,27 +89,26 @@ def cell_runner(workload: str, seed: int, device: str = "cuda"):
 
     from btcdet_tpu_torch.config import EasyDict
     from btcdet_tpu_torch.models import build_network
-    from btcdet_tpu_torch.models.detectors import btcnet
     from btcdet_tpu_torch.utils import trace
 
     from ..traffic import generator
     from . import evalcell, weights
-    from .spec import Cell
+    from .spec import Cell, arch_module
 
     dev = torch.device(device)
     cell = Cell(workload)
     cfg_dict, traffic = cell.config(), cell.traffic()
     cfg = EasyDict(cfg_dict)
+    arch = arch_module(cfg_dict)
     net = build_network(cfg.MODEL, cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), device=dev)
     net.load_state_dict(weights.make_state_dict(
         weights.shapes_of(net), generator.seed_of(traffic, "weight_seed", seed), dev))
     pool = [evalcell._host_batch(b, dev) for b in generator.make_pool(cfg_dict, traffic, seed)]
-    post_cfg, ncls = cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES)
 
     def one(p):
         with record_function(f"bench.batch.{p}"), trace.span(f"bench.batch.{p}"):
             b = {k: v.to(dev, non_blocking=True) for k, v in pool[p].items()}
-            post = btcnet.post_processing(net(b), post_cfg, ncls, dev)
+            post = arch.post_processing(net(b), cfg, dev)
             return {k: v.cpu() for k, v in post.items()}
 
     return one, len(pool)
@@ -128,9 +127,9 @@ def run_windows(workload: str, seed: int, seconds: float, untraced_batch_s: floa
                 device: str = "cuda") -> dict:
     import torch
 
-    from btcdet_tpu_torch.models.detectors import btcnet
     from btcdet_tpu_torch.utils import trace
 
+    from .spec import Cell, arch_module
     from .trace import Trace
 
     t_start = time.perf_counter()
@@ -155,7 +154,8 @@ def run_windows(workload: str, seed: int, seconds: float, untraced_batch_s: floa
         window(one, P, seconds * SYNC_WINDOW_SHARE)
     spans = sorted((s, e) for name, s, e, _, _ in trace.disable().spans
                    if name.startswith("sync."))
-    t = Trace(prof.profiler.kineto_results.events(), btcnet.STAGES)
+    stage_names = arch_module(Cell(workload).config()).STAGES
+    t = Trace(prof.profiler.kineto_results.events(), stage_names)
     out["sync_idle_share"] = sync_idle_share(t.dev, t.launch, spans, t.t0, t.t1)
     del one, prof, t
     gc.unfreeze()

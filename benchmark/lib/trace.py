@@ -1,8 +1,8 @@
 """Reduction of a torch.profiler trace of the measured window to the
 numbers the per-layer metrics read.
 
-Spans: the program's stage ranges (`btcnet.STAGES`, profiler
-`record_function` ranges) and the benchmark's own (`bench.*`, one
+Spans: the program's stage ranges (the architecture module's `STAGES`,
+profiler `record_function` ranges) and the benchmark's own (`bench.*`, one
 `bench.batch.<pool index>` around each batch). A device operation
 (kernel, copy or fill) belongs to the span in which the host launched it,
 found through the launch's correlation id. The traced window runs from

@@ -2,9 +2,10 @@
 eval cell: each stage of the BtcNet eval forward and its post-processing,
 recomputed in float32 by the frozen plain copy (`btcref`).
 
-The first stage (the occupancy subnet's dense network) starts from the
-benchmark's own batch. Each later stage starts from what the program
-handed to it: its discrete choices (the occupancy top-K, the proposal
+The first stage starts from the benchmark's own batch: the occupancy
+subnet's dense network, or without one (`occ` None) the VFE and the det
+backbone on the batch's own voxel table. Each later stage starts from
+what the program handed to it: its discrete choices (the occupancy top-K, the proposal
 NMS's keeps, the ball queries, the final NMS's keeps) are then the
 program's own, so a flip of a near tie cannot set apart two sound runs,
 while every stage's own arithmetic is worked out again here. Nothing of
@@ -58,16 +59,18 @@ def sparse_fields(st) -> dict:
                 spatial_shape=tuple(st.spatial_shape), batch_size=int(st.batch_size))
 
 
-def program_stages(occ: dict, bb: dict, head: dict, out: dict) -> dict:
+def program_stages(occ: dict | None, bb: dict, head: dict, out: dict) -> dict:
     """The program's stage outputs of one batch, from what its modules
-    returned: `occ` the occupancy subnet's dict, `bb` the det backbone's
-    (sparse tensors as `sparse_fields`), `head` the dense head's, `out`
-    the forward's."""
-    return {
+    returned: `occ` the occupancy subnet's dict (None without one), `bb`
+    the det backbone's (sparse tensors as `sparse_fields`), `head` the
+    dense head's, `out` the forward's."""
+    r = {} if occ is None else {
         "occ_subnet": [occ["probs"], occ["det_voxel_features"], occ["det_occ_code"],
                        occ["occ_points"]],
         "occ_rows": [occ["det_voxel_coords"], occ["det_voxel_num_points"],
                      occ["occ_points_mask"]],
+    }
+    return r | {
         "backbone": [bb["encoded"]["features"], bb["x_combine"]["features"]],
         "backbone_sites": [bb["encoded"]["coords"], bb["x_combine"]["coords"]],
         "rpn": _rpn_preds(head),
@@ -104,12 +107,36 @@ def decode_rcnn(roi_head, rois, rcnn_cls, rcnn_reg, dtype=torch.float32) -> list
 
 
 @torch.no_grad()
-def ref_stages(ref, batch: dict, occ: dict, bb: dict, head: dict, out: dict, nms_cfg,
+def ref_stages(ref, batch: dict, occ: dict | None, bb: dict, head: dict, out: dict, nms_cfg,
                decode_dtype=torch.float32) -> dict:
     """The reference's stage outputs, each stage fed what the program fed
     it (see the module docstring). `ref` is a `btcref` BtcNet in eval mode
-    holding the benchmark's weights; `nms_cfg` the ROI head's test NMS;
-    `decode_dtype` the precision of the RPN's box decode."""
+    holding the benchmark's weights; `occ` None for one without the
+    occupancy subnet; `nms_cfg` the ROI head's test NMS; `decode_dtype`
+    the precision of the RPN's box decode."""
+    if occ is None:
+        r = _ref_det_input(ref, batch)
+    else:
+        r = _ref_occ(ref, batch, occ)
+    _ref_from_bev(ref, r, batch, occ, bb, head, out, nms_cfg, decode_dtype)
+    return r
+
+
+def _ref_det_input(ref, batch: dict) -> dict:
+    """Without the occupancy subnet: the reference's VFE and det backbone
+    on the batch's own voxel table, as its forward runs them."""
+    B = int(batch["points"].shape[0])
+    nx, ny, nz = ref.det_grid_size
+    st = rsparse.from_coords(ref.vfe(batch["voxels"], batch["voxel_num_points"]),
+                             batch["voxel_coords"], (nz + 1, ny, nx), B)
+    bb_ref = ref.det_modules.backbone_3d(st, None)
+    return {"backbone": [bb_ref["encoded"].features, bb_ref["x_combine"].features],
+            "backbone_sites": [bb_ref["encoded"].coords, bb_ref["x_combine"].coords]}
+
+
+def _ref_occ(ref, batch: dict, occ: dict) -> dict:
+    """The occupancy subnet from the batch, PassOccVox on the program's
+    probabilities, and the det backbone on the program's merged det table."""
     B = int(batch["points"].shape[0])
     r = {}
     occ_ref = ref.occ_modules(batch)
@@ -133,7 +160,12 @@ def ref_stages(ref, batch: dict, occ: dict, bb: dict, head: dict, out: dict, nms
     bb_ref = ref.det_modules.backbone_3d(st, code)
     r["backbone"] = [bb_ref["encoded"].features, bb_ref["x_combine"].features]
     r["backbone_sites"] = [bb_ref["encoded"].coords, bb_ref["x_combine"].coords]
-    del bb_ref, st, code
+    return r
+
+
+def _ref_from_bev(ref, r: dict, batch: dict, occ: dict | None, bb: dict, head: dict,
+                  out: dict, nms_cfg, decode_dtype):
+    """The stages from the BEV on, each on what the program handed it, into `r`."""
     # BEV + dense head on the program's encoded tensor
     bev, _ = ref.map_to_bev(_st(bb["encoded"]))
     head_ref = ref.det_modules.dense_head(ref.det_modules.backbone_2d(bev))
@@ -149,13 +181,16 @@ def ref_stages(ref, batch: dict, occ: dict, bb: dict, head: dict, out: dict, nms
     r["proposals"] = [props.rois, props.roi_valid, props.roi_labels]
     # ConvHead on the program's proposals, points, occupancy points and x_combine
     pts = batch["points"]
-    occ_pts = occ["occ_points"]
+    if occ is None:
+        occ_kw = {}
+    else:
+        occ_pts = occ["occ_points"]
+        occ_kw = dict(occ_xyz=occ_pts[..., :3], occ_feat=occ_pts[..., 3:4],
+                      occ_mask=occ["occ_points_mask"])
     cls, reg = ref.det_modules.roi_head(
         out["rois"], out["roi_valid"], pts[..., :3], pts[..., 3:], batch["points_mask"],
-        _st(bb["x_combine"]), occ_xyz=occ_pts[..., :3], occ_feat=occ_pts[..., 3:4],
-        occ_mask=occ["occ_points_mask"])
+        _st(bb["x_combine"]), **occ_kw)
     r["rcnn"] = [cls, reg]
-    return r
 
 
 @torch.no_grad()

@@ -50,11 +50,10 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float, 
                            for m in end_to_end}
     else:
         from benchmark.lib.layers import Layers
-        from benchmark.lib.spec import metric_reader
-        from btcdet_tpu_torch.models.detectors.btcnet import STAGES
+        from benchmark.lib.spec import arch_module, metric_reader
 
         t0 = time.perf_counter()
-        layers = Layers(res["trace"], STAGES, torch.device(device))
+        layers = Layers(res["trace"], arch_module(cfg).STAGES, torch.device(device))
         print(f"after the window: trace and work counts {time.perf_counter() - t0:.2f} s",
               file=sys.stderr)
         metrics = {}

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.lib import evalcell, weights
-from benchmark.lib.spec import load_config
+from benchmark.lib import weights
+from benchmark.lib.spec import arch_module, load_config
 from benchmark.reference import stages
 from benchmark.traffic import generator as G
 
@@ -32,7 +32,7 @@ def _port_run(cfg, sd, batch):
     with float32_everywhere():
         net = build_network(c.MODEL, c.DATA_CONFIG, list(c.CLASS_NAMES), device="cpu")
         net.load_state_dict(sd)
-        cap = evalcell.Capture(net)
+        cap = arch_module(cfg).Capture(net, c)
         out = net(batch)
         post = btcnet.post_processing(out, c.MODEL.POST_PROCESSING, 1, "cpu")
     return cap, out, post
@@ -56,7 +56,7 @@ def micro():
 def test_reference_stages_match_port_in_float32(micro):
     cfg, sd, batch = micro
     cap, out, post = _port_run(cfg, sd, batch)
-    ref, rcfg = evalcell.reference_net(cfg, sd, "cpu")
+    ref, rcfg = arch_module(cfg).reference_net(cfg, sd, "cpu")
     want = stages.ref_stages(ref, batch, cap.occ, cap.bb, cap.head, out,
                              rcfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST)
     got = stages.program_stages(cap.occ, cap.bb, cap.head, out)
@@ -79,7 +79,7 @@ def test_reference_full_forward_matches_port_in_float32(micro):
     port's detections (float32 on both sides)."""
     cfg, sd, batch = micro
     _, out, post = _port_run(cfg, sd, batch)
-    ref, rcfg = evalcell.reference_net(cfg, sd, "cpu")
+    ref, rcfg = arch_module(cfg).reference_net(cfg, sd, "cpu")
     rout = ref(batch)
     for k in ("occ_probs", "rpn_cls_preds", "rcnn_cls", "rcnn_reg", "batch_box_preds"):
         np.testing.assert_allclose(rout[k].float().numpy(), out[k].float().numpy(), rtol=0,
