@@ -209,6 +209,15 @@ def three_class() -> EasyDict:
     return cfg
 
 
+PV_RCNN_CFG = REPO_ROOT / "tools" / "cfgs" / "model_configs" / "pv_rcnn.yaml"
+
+
+def pv_rcnn() -> EasyDict:
+    """`pv_rcnn.yaml`: PV-RCNN (`MODEL.NAME` PVRCNN) at the widths of
+    OpenPCDet's `kitti_models/pv_rcnn.yaml`, Car / Pedestrian / Cyclist."""
+    return cfg_from_yaml_file(PV_RCNN_CFG)
+
+
 def flagship_det_only() -> EasyDict:
     """`det_only` of the flagship `btcdet_kitti_car.yaml`."""
     return det_only(cfg_from_yaml_file(FLAGSHIP_CFG))

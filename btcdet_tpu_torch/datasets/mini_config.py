@@ -261,3 +261,37 @@ def mini_opt_cfg(lr: float = 0.003) -> EasyDict:
         "LR_CLIP": 0.0000001, "LR_WARMUP": False, "WARMUP_EPOCH": 1,
         "GRAD_NORM_CLIP": 10,
     })
+
+
+def micro_pv_rcnn_cfg() -> EasyDict:
+    """`config.pv_rcnn()` (Car / Pedestrian / Cyclist, `MODEL.NAME`
+    PVRCNN) cut to the micro scene: the 6.4 m range and 0.2 m voxels of
+    `micro_data_cfg` (z chain 41 -> 21 -> 11 -> 5 -> 2), 768 voxels a frame
+    and the input's capacity at every level, widths of 4 to 16, 64
+    keypoints, a 2^3 roi grid and the NMS caps of `micro_model_cfg`."""
+    from ..config import pv_rcnn
+
+    cfg = pv_rcnn()
+    d = cfg.DATA_CONFIG
+    d.POINT_CLOUD_RANGE = [0.0, -3.2, -3.0, 6.4, 3.2, 1.0]
+    vox = [p for p in d.DATA_PROCESSOR if p.NAME == "transform_points_to_voxels"][0]
+    vox.VOXEL_SIZE = [0.2, 0.2, 0.1]
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 768, "test": 768}
+    m = cfg.MODEL
+    m.BACKBONE_3D.CHANNELS = [8, 8, 8, 8, 8]
+    del m.BACKBONE_3D["LEVEL_CAPACITIES"]
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update({"LAYER_NUMS": [1, 1], "NUM_FILTERS": [8, 8],
+                          "NUM_UPSAMPLE_FILTERS": [8, 8]})
+    m.PFE.NUM_KEYPOINTS = 64
+    m.PFE.NUM_OUTPUT_FEATURES = 16
+    for sa in m.PFE.SA_LAYER.values():
+        sa.MLPS = [[4, 4], [4, 4]]
+    m.POINT_HEAD.CLS_FC = [8, 8]
+    rh = m.ROI_HEAD
+    rh.SHARED_FC, rh.CLS_FC, rh.REG_FC = [16, 16], [16, 16], [16, 16]
+    rh.ROI_GRID_POOL.GRID_SIZE = 2
+    rh.ROI_GRID_POOL.MLPS = [[4, 4], [4, 4]]
+    rh.NMS_CONFIG.TEST.update({"NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 8})
+    m.POST_PROCESSING.NMS_CONFIG.update({"NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 8})
+    return cfg

@@ -72,6 +72,23 @@ def _level_caps(bb_cfg, mode: str):
     return tuple(int(c) for c in lc) if lc else None
 
 
+def bev_depth(det_grid_size) -> int:
+    """z extent of the 8x backbone's encoded tensor: the sparse grid pads z
+    by +1 (reference `sparse_shape = grid_size[::-1] + [1, 0, 0]`), then
+    three stride-2 convs and conv_out's (3,1,1)/(2,1,1)."""
+    nz = int(det_grid_size[2]) + 1
+    for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, 0), (3, 2, 0)):
+        nz = (nz + 2 * p - k) // s + 1
+    return nz
+
+
+def compute_dtype(section) -> torch.dtype:
+    """A config section's COMPUTE_DTYPE: float32 for "f32" / "fp32" /
+    "float32", else (and unset) the port's activation dtype."""
+    name = str(section.get("COMPUTE_DTYPE", "bf16"))
+    return torch.float32 if name in ("f32", "fp32", "float32") else activation_dtype()
+
+
 class BtcNet(nn.Module):
     def __init__(self, model_cfg, data_cfg, class_names, det_grid_size, point_cloud_range,
                  det_voxel_size, num_point_features: int = 4, bev_sharding: bool = False):
@@ -116,7 +133,7 @@ class BtcNet(nn.Module):
             occ_conv_type=tuple(bb.get("OCC_CONV_TYPE", [])) if occ_code_num else (),
             occ_conv_exec=tuple(bb.get("OCC_CONV_EXECUTE", [])) if occ_code_num else (),
             out_att=tuple(bb.get("OCC_ATT", [])))
-        nz_bev = self._bev_depth(channels)
+        nz_bev = bev_depth(self.det_grid_size)
         b2 = mc.BACKBONE_2D
         self.bev_sharding = bool(bev_sharding)
         det.backbone_2d = backbones_2d.BaseBEVBackbone(
@@ -154,8 +171,7 @@ class BtcNet(nn.Module):
             raise NotImplementedError(
                 "ROI_HEAD.CLASS_AGNOSTIC False with several classes: the JAX package's rcnn "
                 "loss cannot broadcast per-class logits against its per-roi labels")
-        cd = (torch.float32 if str(rh.get("COMPUTE_DTYPE", "bf16")) in ("f32", "fp32", "float32")
-              else activation_dtype())
+        cd = compute_dtype(rh)
         det.roi_head = conv_head.ConvHead(
             num_class=1 if rh.get("CLASS_AGNOSTIC", True) else len(class_names),
             input_channels_xc=channels[3] * 2 if out_feat_type[4] != "None" else None,
@@ -203,15 +219,6 @@ class BtcNet(nn.Module):
         for _ in range(3):
             ny = (ny + 2 - 3) // 2 + 1
         return ny
-
-    def _bev_depth(self, channels):
-        """z extent of the encoded tensor: the sparse grid pads z by +1
-        (reference `sparse_shape = grid_size[::-1] + [1, 0, 0]`), then
-        three stride-2 convs and conv_out's (3,1,1)/(2,1,1)."""
-        nz = self.det_grid_size[2] + 1
-        for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, 0), (3, 2, 0)):
-            nz = (nz + 2 * p - k) // s + 1
-        return nz
 
     def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """batch: points (B, P, 4), points_mask (B, P), and the det voxel

@@ -1,7 +1,8 @@
 """Ball query, grouping, the multi-scale PointNet SA module and the
 pointnet2 surface (`gather_points`, `grouping_operation`, `three_nn`,
 `three_interpolate`, `furthest_point_sample`) (counterpart of
-`btcdet_tpu/ops/group_ops.py`).
+`btcdet_tpu/ops/group_ops.py`). Furthest point sampling of CUDA tensors is
+one launch of `csrc/furthest_point_sample.cu` for the batch.
 
 Dense padded layout `[B, N, ...]` with validity masks. The exact query is
 the reference CUDA ball query's "first nsample points within the radius,
@@ -27,9 +28,13 @@ ranks unique int64 keys, never floats that may tie.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn as nn
 
+from ..utils import trace
+from . import kernel_build
 from .sparse import MaskedBatchNorm
 
 
@@ -452,16 +457,20 @@ class PointSAModuleMSG(nn.Module):
     GROUP_CAND_K points a roi (`multi_ball_query_grouped_cand`,
     `group_from_candidates`) where the call gives `group_centers` and
     `group_size` (ConvHead), else the shared-candidate query
-    (`multi_ball_query(approx=True)`)."""
+    (`multi_ball_query(approx=True)`). With `tally` set, the exact query
+    tallies its balls a frame (valid queries, one call a radius) as
+    `<tally>.balls` and those that found no point as `<tally>.balls_empty`."""
 
     def __init__(self, radii, nsamples, mlps, use_xyz: bool = True, dtype=None,
-                 pool_method: str = "max_pool", approx_query: bool = False):
+                 pool_method: str = "max_pool", approx_query: bool = False,
+                 tally: str | None = None):
         super().__init__()
         if pool_method not in ("max_pool", "avg_pool"):
             raise NotImplementedError(f"pool_method {pool_method!r}")
         self.radii, self.nsamples, self.use_xyz = list(radii), list(nsamples), use_xyz
         self.pool_method = pool_method
         self.approx_query = bool(approx_query)
+        self.tally = tally
         self.mlps = nn.ModuleList([GroupMLP(m, dtype=dtype) for m in mlps])
 
     def forward(self, xyz, xyz_mask, new_xyz, new_mask, features=None, rotate_matrix=None,
@@ -480,6 +489,11 @@ class PointSAModuleMSG(nn.Module):
         else:
             queries = multi_ball_query(xyz, xyz_mask, new_xyz, new_mask, self.radii,
                                        self.nsamples, approx=self.approx_query)
+            if self.tally:
+                for _, empty in queries:
+                    trace.tally(self.tally + ".balls", lambda: new_mask.sum(1))
+                    trace.tally(self.tally + ".balls_empty",
+                                lambda e=empty: (e & new_mask).sum(1))
             grouped = [group_from_idx(xyz, new_xyz, idx, empty, features=features, **kw)
                        for idx, empty in queries]
         outs = []
@@ -528,13 +542,49 @@ def three_interpolate(features, idx, weight):
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
 
 
+# the most points a frame whose running distances the FPS kernel keeps in
+# registers, 32 in each of its 1024 threads (`csrc/furthest_point_sample.cu`);
+# a larger frame keeps them in a scratch buffer
+FPS_REG_POINTS = 32 * 1024
+
+
 def furthest_point_sample(xyz, mask, npoint: int):
     """Furthest point sampling (reference `pointnet2_batch`
     furthest_point_sampling): xyz (B, N, 3), mask (B, N) -> (B, npoint)
-    int64. Starts at each frame's first valid point; every step takes the
-    point furthest (squared distance, summed x, y, z) from those taken,
-    the first of equals; masked points sit at -1 and are never taken
-    while a valid one is left."""
+    int64, as `furthest_point_sample_plain` picks them. CUDA tensors take
+    one launch of `csrc/furthest_point_sample.cu` for the batch (a block a
+    frame, nothing read back; counted as `launch.furthest_point_sample`);
+    others the plain loop."""
+    if xyz.device.type != "cuda":
+        return furthest_point_sample_plain(xyz, mask, npoint)
+    pts, m = xyz.float().contiguous(), mask.bool().contiguous()
+    B, N = m.shape
+    out = torch.empty((B, npoint), dtype=torch.int64, device=pts.device)
+    scratch = torch.empty((B, N), dtype=torch.float32, device=pts.device) \
+        if N > FPS_REG_POINTS else None
+    err = _fps_fn()(pts.data_ptr(), m.data_ptr(), B, N, int(npoint),
+                    None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                    torch.cuda.current_stream(pts.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"furthest_point_sample kernel launch failed: cudaError {err}")
+    trace.count("launch.furthest_point_sample")
+    return out
+
+
+def _fps_fn():
+    fn = kernel_build.load("furthest_point_sample").furthest_point_sample
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def furthest_point_sample_plain(xyz, mask, npoint: int):
+    """The plain loop of `furthest_point_sample`: starts at each frame's
+    first valid point; every step takes the point furthest (squared
+    distance, summed x, y, z) from those taken, the first of equals; masked
+    points sit at -1 and are never taken while a valid one is left."""
     B = xyz.shape[0]
     m = mask.bool()
     dist = torch.where(m, torch.full_like(xyz[..., 0], 1e10), torch.full_like(xyz[..., 0], -1.0))

@@ -167,16 +167,29 @@ def bilinear_interpolate(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> 
     """im (H, W, C); x, y (N,) float pixel coords -> (N, C): the four
     neighbours clamped into the image, weighted by their distances
     (reference `common_utils.bilinear_interpolate_torch`)."""
-    H, W = im.shape[0], im.shape[1]
+    return bilinear_interpolate_batched(im[None], x[None], y[None])[0]
+
+
+def bilinear_interpolate_batched(im: torch.Tensor, x: torch.Tensor,
+                                 y: torch.Tensor) -> torch.Tensor:
+    """`bilinear_interpolate` of every frame in one call: im (B, H, W, C);
+    x, y (B, N) -> (B, N, C)."""
+    B, H, W, C = im.shape
+    flat = im.reshape(B * H * W, C)
+    base = (torch.arange(B, device=im.device) * (H * W))[:, None]
     x0, y0 = torch.floor(x).long(), torch.floor(y).long()
     x1, y1 = x0 + 1, y0 + 1
     x0c, x1c = x0.clamp(0, W - 1), x1.clamp(0, W - 1)
     y0c, y1c = y0.clamp(0, H - 1), y1.clamp(0, H - 1)
-    wa = ((x1 - x) * (y1 - y))[:, None]
-    wb = ((x1 - x) * (y - y0))[:, None]
-    wc = ((x - x0) * (y1 - y))[:, None]
-    wd = ((x - x0) * (y - y0))[:, None]
-    return im[y0c, x0c] * wa + im[y1c, x0c] * wb + im[y0c, x1c] * wc + im[y1c, x1c] * wd
+    wa = ((x1 - x) * (y1 - y))[..., None]
+    wb = ((x1 - x) * (y - y0))[..., None]
+    wc = ((x - x0) * (y1 - y))[..., None]
+    wd = ((x - x0) * (y - y0))[..., None]
+
+    def at(yy, xx):
+        return flat[base + yy * W + xx]
+
+    return at(y0c, x0c) * wa + at(y1c, x0c) * wb + at(y0c, x1c) * wc + at(y1c, x1c) * wd
 
 
 # ------------------------------------------------------ numpy host helpers

@@ -34,8 +34,8 @@ default run, the whole proof on request.
     python3 chip_smoke.py --syncs     # only the sync-debug check (2c)
     python3 chip_smoke.py --dp [seed ...]   # only the seventh path's data-parallel steps,
                                       # with more draws of the output projections
-    python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max)
-                                      # and the rotated NMS at the eval shapes
+    python3 chip_smoke.py --kernels   # only the backward kernels' cases (K4, K2 max),
+                                      # the rotated NMS at the eval shapes and FPS
     python3 chip_smoke.py --side      # only the tenth path (side modules)
     python3 chip_smoke.py --sp        # only the eleventh path (BEV row sharding)
     python3 chip_smoke.py --approx    # only the twelfth path (the approximate query)
@@ -395,7 +395,7 @@ AVGPOOL_MAPS = 12
 EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df": 0, "tap_pairs": 0,
                  "sparse_conv_dw": 0, "sparse_pool": 1, "sparse_sum_pool": 0,
                  "sparse_pool_grad": 0, "sparse_sum_pool_grad": 0, "trilinear_pool": 1,
-                 "trilinear_pool_grad": 0}
+                 "trilinear_pool_grad": 0, "furthest_point_sample": 0}
 # kernel launches of one flagship train step: the 9 forward maps and the 8
 # transpose-query maps of the strided convs' dfs, 18 convs (17 of them
 # with a df), 18 weight gradients, each on its own compaction of the map,
@@ -403,19 +403,19 @@ EVAL_LAUNCHES = {"neighbor_map": EVAL_MAPS, "sparse_conv": 18, "sparse_conv_df":
 TRAIN_LAUNCHES = {"neighbor_map": 17, "sparse_conv": 18, "sparse_conv_df": 17, "tap_pairs": 18,
                   "sparse_conv_dw": 18, "sparse_pool": 1, "sparse_sum_pool": 0,
                   "sparse_pool_grad": 0, "sparse_sum_pool_grad": 0, "trilinear_pool": 1,
-                  "trilinear_pool_grad": 1}
+                  "trilinear_pool_grad": 1, "furthest_point_sample": 0}
 
 
 def kernel_modules():
     """{kernel wrapper name: the ops module holding it}; each wrapper counts
     its launches as the recorder's counter `launch.<name>`."""
-    from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool
+    from btcdet_tpu_torch.ops import cuda_conv, cuda_interp, cuda_pool, group_ops
 
     return {"neighbor_map": cuda_conv, "sparse_conv": cuda_conv, "sparse_conv_df": cuda_conv,
             "tap_pairs": cuda_conv, "sparse_conv_dw": cuda_conv, "sparse_pool": cuda_pool,
             "sparse_sum_pool": cuda_pool, "sparse_pool_grad": cuda_pool,
             "sparse_sum_pool_grad": cuda_pool, "trilinear_pool": cuda_interp,
-            "trilinear_pool_grad": cuda_interp}
+            "trilinear_pool_grad": cuda_interp, "furthest_point_sample": group_ops}
 
 
 def reset_launches():
@@ -6151,14 +6151,60 @@ def nms_case(label: str, n: int, objects: int, thresh: float, pre: int, post: in
             "bound_ms": bound_ms, "bound_by": "flops", "library_ms": None}
 
 
+# PV-RCNN's keypoint sampling at B=8: (label, frames, points a frame, picks)
+FPS_SHAPES = (("pv_rcnn@B8", 8, 16384, 2048), ("large@B2", 2, 40000, 2048))
+
+
+def fps_case(label: str, B: int, n: int, k: int) -> dict:
+    """The FPS kernel on `B` frames of `n` points (uniform over the KITTI
+    range, one in twenty masked, as padded slots are) against the plain
+    loop on the card: the same indices, one launch a call, the kernel alone
+    (profiler) beside the plain loop's ms, and the bound: 10 operations a
+    valid point a step at float32's 67 TFLOP/s, or the coordinates read
+    once and the picks written at HBM3's rate, whichever is longer."""
+    import numpy as np
+    import torch
+
+    from btcdet_tpu_torch.ops import group_ops
+    from btcdet_tpu_torch.utils import trace
+
+    rng = np.random.RandomState(0)
+    xyz = torch.from_numpy(rng.uniform([0, -40, -3], [70.4, 40, 1], (B, n, 3))
+                           .astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(B, n) > 0.05).cuda()
+    before = trace.COUNTS.get("launch.furthest_point_sample", 0)
+    idx = group_ops.furthest_point_sample(xyz, mask, k)
+    launches = trace.COUNTS.get("launch.furthest_point_sample", 0) - before
+    assert launches == 1, (label, launches)
+    plain = group_ops.furthest_point_sample_plain(xyz, mask, k)
+    assert torch.equal(idx, plain), (label, (idx != plain).any(1).nonzero().flatten().tolist())
+    valid = int(mask.sum())
+    flops_s = (k - 1) * valid * 10 / F32_FLOPS
+    bytes_s = (B * n * 3 * 4 + B * k * 8) / HBM_BYTES_PER_S
+    bound_ms = max(flops_s, bytes_s) * 1e3
+    ms = device_ms(lambda: group_ops.furthest_point_sample(xyz, mask, k), "fps_kernel", reps=10)
+    plain_ms = cuda_ms(lambda: group_ops.furthest_point_sample_plain(xyz, mask, k), reps=2,
+                       warmup=1)
+    log(f"FPS {label}: B={B} n={n} k={k} valid {valid} launches {launches} (indices equal to "
+        f"the plain loop's) ms={ms:.4f} (kernel alone) plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f}")
+    return {"name": f"furthest_point_sample:{label}", "route": "cuda",
+            "source": "btcdet_tpu_torch/csrc/furthest_point_sample.cu",
+            "replaces": "none (btcdet_tpu/ops/group_ops.py furthest_point_sample, XLA)",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "flops" if flops_s >= bytes_s else "bytes",
+            "library_ms": None}
+
+
 def kernel_bench() -> None:
     """`chip_smoke.py --kernels`: only the backward kernels' cases of the
     full run, for a quick check of a change to them. K4's volume gradient
     on the flagship train step's call and on the `hot` layout, and K2
     max's backward on the flagship PASS_GRAD step's call, each against its
     plain version with its times (K4's by kernel, and its segment
-    lengths); and the rotated NMS at the eval path's two shapes
-    (`nms_case`); prints their kernels-line entries (no launch counts)."""
+    lengths); the rotated NMS at the eval path's two shapes (`nms_case`);
+    and FPS at PV-RCNN's eval shape and past its registers (`fps_case`);
+    prints their kernels-line entries (launch counts for FPS only)."""
     import torch
 
     from btcdet_tpu_torch import config
@@ -6176,6 +6222,7 @@ def kernel_bench() -> None:
         del net, opt, batch, calls
     entries.append(k4_grad_case(k4_grad_hot_args(), "hot"))
     entries += [nms_case(*shape) for shape in NMS_SHAPES]
+    entries += [fps_case(*shape) for shape in FPS_SHAPES]
     print(json.dumps({"kernels": entries}), flush=True)
 
 
@@ -6225,7 +6272,7 @@ def main() -> int:
     # 2. kernels
     t0 = time.perf_counter()
     kernel_build.build(["sparse_nbr", "sparse_conv", "sparse_conv_dw", "sparse_pool",
-                        "trilinear_pool", "nms_rotated"])
+                        "trilinear_pool", "nms_rotated", "furthest_point_sample"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
         fn = ""
